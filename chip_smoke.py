@@ -9,17 +9,22 @@ Phases, each printing its own lines:
    of ``src/repro_torch/csrc/*.cu`` into ``build/repro_torch/``;
 2. per hand-written kernel: one launch at the main path's shape through
    the kernel and through its plain PyTorch version on the same inputs on
-   the card, compared (exactly for the int32 kernels, to 1e-4 for
-   hotspot), then both timed with CUDA events, the median of 25 runs
-   after warm-up.  ``ms`` is the kernel alone (its written buffers
-   restored between runs, outside the timed window); ``call_ms`` adds the
-   wrapper's functional copy of the written buffers; ``bound_ms`` is the
-   least time the card could take for the launch's bytes and operations;
-3. the main path: the four Rodinia chains at Rodinia 3.1's run-script
+   the card, compared (exactly for the int32 kernels, within the entry's
+   ``tol`` for the float32 ones), then both timed with CUDA events, the
+   median of 25 runs after warm-up.  ``ms`` is the kernel alone (its
+   written buffers restored between runs, outside the timed window);
+   ``call_ms`` adds the wrapper's functional copy of the written buffers;
+   ``bound_ms`` is the least time the card could take for the launch's
+   bytes and operations; ``library_ms`` times the one PyTorch call that
+   computes the same function, where there is one (lud's unpivoted
+   ``torch.linalg.lu_factor``);
+3. the main path: the eight Rodinia entries at Rodinia 3.1's run-script
    sizes through ``run_entry(entry, backend="cuda")`` - chevron/api/
    backends/``lower_cuda`` - with every launch count set to 0 just before
-   and read just after, each checked against the port's NumPy oracle;
-   then needle_nw's host time per launch, layer by layer;
+   and read just after, each checked against the port's NumPy oracle
+   (timed, since lavaMD's runs 27,000 NumPy steps); four entries are
+   launch chains and four single launches; then needle_nw's host time per
+   launch, layer by layer;
 4. the kernels' JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -44,6 +49,10 @@ SRC = ROOT / "src"
 SEED = 42
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside tensor cores
+#: H100 SXM exp2/rcp/rsqrt results on the special-function units: 16 per
+#: clock per SM (CUDA C++ Programming Guide, arithmetic-instruction
+#: throughput, compute capability 9.0) x 132 SMs x 1.98 GHz boost clock
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 REPLACES = "src/repro/core/pallas_emit.py:34"
 SLEEP_CYCLES = 1_000_000         # keeps the card busy while a run enqueues
 RUNS, WARMUP = 25, 3
@@ -54,6 +63,13 @@ SIZES = {
     "pathfinder": {"cols": 100_000, "rows": 100},        # 100000 100 20
     "needle_nw": {"n": 2048, "penalty": 10},             # needle 2048 10
     "hotspot": {"h": 1024, "w": 1024, "iters": 20},      # temp_1024
+    # backprop 65536: 16 hidden units, ETA 0.3
+    "backprop_layer": {"in_n": 65536, "out_n": 16, "lr": 0.3},
+    "lud_diag": {"ntiles": 128, "b": 16},   # 2048.dat's 16x16 diagonal tiles
+    # lavaMD -boxes1d 10: 1000 boxes of 100 particles, home + 26 neighbours
+    "lavamd": {"nboxes": 1000, "ppb": 100, "nnei": 27, "alpha": 0.5},
+    # sc_gpu 10 20 256 65536 65536 ...: 65,536 points, kmax 20
+    "streamcluster": {"n": 65536, "k": 20, "block": 64},
 }
 
 
@@ -87,13 +103,17 @@ def time_ms(fn, before=None) -> float:
 
 
 def entries(cuda_suite):
-    s = SIZES
-    return {
-        "bfs_frontier": cuda_suite.entry_bfs_frontier(**s["bfs_frontier"]),
-        "pathfinder": cuda_suite.entry_pathfinder(**s["pathfinder"]),
-        "needle_nw": cuda_suite.entry_needle_nw(**s["needle_nw"]),
-        "hotspot": cuda_suite.entry_hotspot(**s["hotspot"]),
-    }
+    return {name: getattr(cuda_suite, f"entry_{name}")(**size)
+            for name, size in SIZES.items()}
+
+
+def geometry(entry):
+    """``(kernel, grid, block)`` of the launch phase 2 measures: a
+    chain's first step, or a plain entry's one launch."""
+    if entry.chain is None:
+        return entry.kernel, entry.grid, entry.block
+    step = entry.chain.steps[0]
+    return step.kernel, step.grid, step.block
 
 
 def launch_inputs(name: str, args: dict, cuda_suite, dev) -> dict:
@@ -101,7 +121,8 @@ def launch_inputs(name: str, args: dict, cuda_suite, dev) -> dict:
 
     BFS takes the level with the widest frontier (the state before its
     expansion is fixed by the distances alone); nw its longest diagonal;
-    pathfinder and hotspot their chain's first launch.
+    pathfinder and hotspot their chain's first launch; the single-launch
+    entries their one launch.
     """
     args = dict(args)
     if name == "bfs_frontier":
@@ -119,11 +140,13 @@ def launch_inputs(name: str, args: dict, cuda_suite, dev) -> dict:
             for k, v in args.items()}
 
 
-def bound(name: str, b: dict, p: dict) -> tuple[float, str]:
+def bound(name: str, b: dict, p: dict, grid) -> tuple[float, str]:
     """Least time (ms) the card could take for one launch: every byte the
     launch needs read once and every byte it writes written once, over
-    the memory rate, against its float32 operations over the peak rate."""
-    i4, ops = 4, 0.0
+    the memory rate, against its operations over the peak rate of the
+    unit that does them (float32 lanes; special-function units for exp).
+    Integer work is not counted: it is far below the bytes' time."""
+    i4, ops_ms = 4, 0.0
     if name == "bfs_frontier":
         n = p["n"]
         front = b["frontier"] == 1
@@ -142,20 +165,52 @@ def bound(name: str, b: dict, p: dict) -> tuple[float, str]:
         cells = min(n, d - 1) - max(1, d - n) + 1
         # the two previous diagonals, the sim diagonal, the written one
         nbytes = i4 * (4 * cells + 2)
-    else:
+    elif name == "hotspot":
         cells = p["h"] * p["w"]
         nbytes = i4 * 3 * cells                 # t, p in; t_out out
-        ops = 15.0 * cells                      # flops per cell
+        ops_ms = 15.0 * cells / F32_OPS_PER_S * 1e3   # flops per cell
+    elif name == "backprop_layer":
+        weights = p["out_n"] * p["in_n"]
+        # inp, w, bias, delta in; hidden, w_out out
+        nbytes = i4 * (p["in_n"] + 2 * weights + 3 * p["out_n"])
+        # product and sum; lr*delta*inp and its add
+        ops_ms = 4.0 * weights / F32_OPS_PER_S * 1e3
+    elif name == "lud_diag":
+        tiles, tile = grid.x, p["b"]
+        nbytes = i4 * 2 * tiles * tile * tile   # a in; lu out
+        # step k: a division and a product-difference per element, for
+        # each of the tile - 1 - k rows below the pivot
+        flops = sum((tile - 1 - k) * (1 + 2 * (tile - 1 - k))
+                    for k in range(tile - 1))
+        ops_ms = tiles * flops / F32_OPS_PER_S * 1e3
+    elif name == "lavamd":
+        boxes, ppb = grid.x, p["ppb"]
+        n = boxes * ppb
+        nbytes = i4 * (3 * n + boxes * p["nnei"])   # pos, q, nbr; force
+        pairs = float(boxes * p["nnei"] * ppb * ppb)
+        # per pair: subtract, two products, the charge product, the add;
+        # and one exp on the special-function units
+        ops_ms = max(5.0 * pairs / F32_OPS_PER_S,
+                     pairs / SFU_OPS_PER_S) * 1e3
+    else:                                       # streamcluster
+        m, k = p["n"], p["k"]
+        cand = b["cand"].long()
+        dcur = ((b["px"] - b["cx"][b["assign"].long()]) ** 2
+                + (b["py"] - b["cy"][b["assign"].long()]) ** 2)
+        dcand = (b["px"] - cand[0]) ** 2 + (b["py"] - cand[1]) ** 2
+        switchers = int((dcand < dcur).sum())
+        # px, py, assign, cx, cy, cand in; each switcher's flag, gain,
+        # csave, dirty, ndirty out
+        nbytes = i4 * (3 * m + 2 * k + 2 + switchers + 2 + 2 * k)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
     if bytes_ms >= ops_ms:
         return bytes_ms, "bytes"
     return ops_ms, "operations"
 
 
-def compare(name: str, got: dict, want: dict, writes) -> float:
+def compare(name: str, got: dict, want: dict, writes, tol: float) -> float:
     """Max abs error of the kernel against its plain version; raises when
-    they disagree (exact for int32, 1e-4 for hotspot's float32)."""
+    they disagree (exact for int32, ``tol`` for float32)."""
     err = 0.0
     for k in writes:
         g, w = got[k], want[k]
@@ -164,7 +219,7 @@ def compare(name: str, got: dict, want: dict, writes) -> float:
                                  f", plain gives {w.dtype}{tuple(w.shape)}")
         if g.dtype == torch.float32:
             if not (torch.isfinite(g).all()
-                    and torch.allclose(g, w, rtol=1e-4, atol=1e-4)):
+                    and torch.allclose(g, w, rtol=tol, atol=tol)):
                 raise AssertionError(f"{name}: {k} disagrees with plain")
         elif not torch.equal(g, w):
             raise AssertionError(f"{name}: {k} differs from plain")
@@ -172,11 +227,22 @@ def compare(name: str, got: dict, want: dict, writes) -> float:
     return err
 
 
-def check_and_time(name, kern, b, params, grid, block) -> dict:
+def library_call(name: str, b: dict, params: dict, grid):
+    """The one PyTorch call that computes the kernel's function, or None.
+
+    Timed beside the kernel as a yardstick; the port never calls it."""
+    if name == "lud_diag":
+        tile = params["b"]
+        a = b["a"][:grid.x * tile].reshape(grid.x, tile, tile)
+        return lambda: torch.linalg.lu_factor(a, pivot=False)
+    return None
+
+
+def check_and_time(name, kern, b, params, grid, block, tol) -> dict:
     got = kern(b, grid=grid, block=block, **params)
     want = kern.plain(b, grid, block, **params)
     torch.cuda.synchronize()
-    err = compare(name, got, want, kern.writes)
+    err = compare(name, got, want, kern.writes, tol)
     pristine = {k: b[k].clone() for k in kern.writes}
     work = {**b, **{k: v.clone() for k, v in pristine.items()}}
 
@@ -188,11 +254,14 @@ def check_and_time(name, kern, b, params, grid, block) -> dict:
                  before=restore)
     call_ms = time_ms(lambda: kern(b, grid=grid, block=block, **params))
     plain_ms = time_ms(lambda: kern.plain(b, grid, block, **params))
-    bound_ms, bound_by = bound(name, b, params)
+    lib = library_call(name, b, params, grid)
+    library_ms = None if lib is None else time_ms(lib)
+    bound_ms, bound_by = bound(name, b, params, grid)
     return {"name": name, "route": "cuda", "source": kern.source,
             "replaces": REPLACES, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "call_ms": call_ms}
+            "bound_by": bound_by, "library_ms": library_ms,
+            "call_ms": call_ms}
 
 
 def layer_us(entry, args: dict, dev, api, carry, kern, n=512) -> dict:
@@ -258,24 +327,30 @@ def main() -> int:
     rows = {}
     for name, entry in ents.items():
         kern = lower_cuda.KERNELS[name]
-        step = entry.chain.steps[0]
-        grid, block = Dim3.of(step.grid), Dim3.of(step.block)
-        params = dict(step.kernel.native.params)
+        kernel, grid, block = geometry(entry)
+        grid, block = Dim3.of(grid), Dim3.of(block)
+        params = dict(kernel.native.params)
         b = launch_inputs(name, host_args[name], cuda_suite, dev)
-        rows[name] = r = check_and_time(name, kern, b, params, grid, block)
+        rows[name] = r = check_and_time(name, kern, b, params, grid, block,
+                                        entry.tol)
         print(f"kernel {name}: kernel_ms={r['ms']} call_ms={r['call_ms']} "
               f"plain_ms={r['plain_ms']} bound_ms={r['bound_ms']} "
-              f"({r['bound_by']}) max_abs_err={r['max_abs_err']}")
+              f"({r['bound_by']}) library_ms={r['library_ms']} "
+              f"max_abs_err={r['max_abs_err']}")
         del b
     torch.cuda.synchronize()
 
     # ---- phase 3: the main path at Rodinia sizes ------------------------
-    wants = {n: e.reference(host_args[n]) for n, e in ents.items()}
+    wants, oracle_s = {}, {}
+    for n, e in ents.items():
+        t0 = time.perf_counter()
+        wants[n] = e.reference(host_args[n])
+        oracle_s[n] = time.perf_counter() - t0
     stats = {n: cuda_suite.ChainStats() for n in ents}
-    walls = {}
-    for kern in lower_cuda.KERNELS.values():
-        kern.launches = 0
+    walls, launches = {}, {}
     for name, entry in ents.items():
+        for kern in lower_cuda.KERNELS.values():
+            kern.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out, _ = cuda_suite.run_entry(entry, "cuda", args=host_args[name],
@@ -283,6 +358,10 @@ def main() -> int:
                                       chain_stats=stats[name])
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
+        counts = {n: k.launches for n, k in lower_cuda.KERNELS.items()}
+        launches[name] = counts.pop(name)
+        if any(counts.values()):
+            raise AssertionError(f"{name}: other kernels launched: {counts}")
         for k, v in wants[name].items():
             got = out[k].cpu().numpy()
             if got.shape != v.shape or not np.isfinite(got).all() or \
@@ -291,16 +370,24 @@ def main() -> int:
                                      f"oracle")
             if v.dtype.kind == "i" and not np.array_equal(got, v):
                 raise AssertionError(f"{name}: {k} not bit-identical")
-    launches = {n: k.launches for n, k in lower_cuda.KERNELS.items()}
-    for name in ents:
+        if name == "streamcluster":
+            # the oracle has no ndirty: it counts the distinct centres
+            # that switchers leave
+            moved = np.unique(host_args[name]["assign"][
+                wants[name]["switched"] == 1]).size
+            if out["ndirty"].tolist() != [moved]:
+                raise AssertionError(f"streamcluster: ndirty "
+                                     f"{out['ndirty'].tolist()} != {moved}")
+    for name, entry in ents.items():
         ran = launches[name]
-        if ran == 0 or ran != stats[name].launches:
+        expect = 1 if entry.chain is None else stats[name].launches
+        if ran == 0 or ran != expect:
             raise AssertionError(f"{name}: kernel counted {ran} launches, "
-                                 f"chain ran {stats[name].launches}")
+                                 f"the entry ran {expect}")
         rows[name]["launches"] = ran
         print(f"main {name}: {SIZES[name]} wall_s={walls[name]} "
               f"launches={ran} us_per_launch={walls[name] / ran * 1e6} "
-              f"oracle=match")
+              f"oracle_s={oracle_s[name]} oracle=match")
 
     nw = "needle_nw"
     layers = layer_us(ents[nw], host_args[nw], dev, api, carry,

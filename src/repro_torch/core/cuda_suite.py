@@ -1,16 +1,21 @@
-"""CUDA-style kernel suite of the port: the four Rodinia wavefront chains.
+"""CUDA-style kernel suite of the port: eight Rodinia kernels.
 
 Each entry is a kernel written in the port's IR (stages over
 :class:`~repro_torch.core.kernel.Ctx`), a native descriptor naming its
 hand-written CUDA kernel for the ``cuda`` backend, and a NumPy oracle:
 
-| kernel        | Rodinia    | features exercised                              |
-|---------------|------------|-------------------------------------------------|
-| bfs_frontier  | bfs        | atomicCAS, atomicAdd, __syncthreads_count, const, stop-flag chain |
-| pathfinder    | pathfinder | __shared__ halo, barrier, row chain             |
-| needle_nw     | nw         | anti-diagonal wavefront chain                   |
-| hotspot       | hotspot    | 2-D dim3, 2-D shared halo, const, ping-pong chain |
+| kernel         | Rodinia       | features exercised                              |
+|----------------|---------------|-------------------------------------------------|
+| bfs_frontier   | bfs           | atomicCAS, atomicAdd, __syncthreads_count, const, stop-flag chain |
+| pathfinder     | pathfinder    | __shared__ halo, barrier, row chain             |
+| needle_nw      | nw            | anti-diagonal wavefront chain                   |
+| hotspot        | hotspot       | 2-D dim3, 2-D shared halo, const, ping-pong chain |
+| backprop_layer | backprop      | barrier-tree reduction, const, owned-slice writes |
+| lud_diag       | lud           | 2-D shared tile, b-1 barrier-separated steps    |
+| lavamd         | lavaMD        | neighbour-list gather into shared, register accumulator across barriers |
+| streamcluster  | streamcluster | contended atomicAdd, first-wins atomicCAS claims |
 
+The first four are launch chains; the last four are single launches.
 ``make_args`` and ``reference`` are NumPy, with the reference package's
 inputs for the same generator (the builders take size keywords whose
 defaults are the reference's sizes).  The BFS and NW oracles are
@@ -234,6 +239,192 @@ def make_hotspot(h: int, w: int, tile_y: int = 8, tile_x: int = 8,
 
 
 # --------------------------------------------------------------------------
+# backprop_layer (Rodinia backprop): forward pass of one layer (barrier-tree
+# dot product + sigmoid) fused with the weight-delta update.  Each block
+# owns one hidden unit; thread i owns input i.
+# --------------------------------------------------------------------------
+def make_backprop_layer(in_n: int, out_n: int, lr: float = 0.3) -> KernelDef:
+    if in_n < 1 or in_n & (in_n - 1):
+        raise ValueError(f"backprop_layer: in_n must be a power of two, "
+                         f"got {in_n}")
+
+    def load(ctx, st):
+        v = (index.take(st.glob["inp"], ctx.tid)
+             * index.take(st.glob["w"], ctx.bid, ctx.tid))
+        return st.set_shared(s=index.put(st.shared["s"], ctx.tid, v))
+
+    def make_level(offset):
+        def level(ctx, st):
+            s = st.shared["s"]
+            mine = index.take(s, ctx.tid)
+            new = torch.where(ctx.tid < offset,
+                              mine + index.take(s, ctx.tid + offset), mine)
+            return st.set_shared(s=index.put(s, ctx.tid, new))
+        return level
+
+    def store(ctx, st):
+        j = ctx.bid
+        total = st.shared["s"][0] + index.take(st.glob["bias"], j)
+        h = 1.0 / (1.0 + torch.exp(-total))
+        hidden = index.put(st.glob["hidden"], _where(ctx.tid == 0, j, OOB), h)
+        wo = index.put(st.glob["w_out"], (j, ctx.tid),
+                       index.take(st.glob["w"], j, ctx.tid)
+                       + lr * index.take(st.glob["delta"], j)
+                       * index.take(st.glob["inp"], ctx.tid))
+        return st.set_glob(hidden=hidden, w_out=wo)
+
+    stages = [load]
+    off = in_n // 2
+    while off >= 1:
+        stages.append(make_level(off))
+        off //= 2
+    stages.append(store)
+    return KernelDef(
+        "backprop_layer", tuple(stages), writes=("hidden", "w_out"),
+        reads=("inp", "w", "bias", "delta", "hidden", "w_out"),
+        shared={"s": ((in_n,), torch.float32)},
+        combines={"hidden": "concat", "w_out": "concat"},
+        est_block_work=in_n * 10.0,
+        native=Native.of("backprop_layer", in_n=in_n, out_n=out_n, lr=lr),
+    )
+
+
+# --------------------------------------------------------------------------
+# lud_diag (Rodinia lud): the diagonal-block LU step.  Each block factors
+# its own b x b tile in shared memory - b-1 barrier-separated elimination
+# steps (Doolittle, no pivoting) - then writes L\U back to its owned rows.
+# --------------------------------------------------------------------------
+def make_lud_diag(ntiles: int, b: int) -> KernelDef:
+    def load(ctx, st):
+        row = ctx.bid * b + ctx.tid
+        return st.set_shared(s=index.put(st.shared["s"], ctx.tid,
+                                         index.take(st.glob["a"], row)))
+
+    def make_step(k):
+        def step(ctx, st):
+            s = st.shared["s"]
+            i = ctx.tid
+            m = index.take(s, i, k) / s[k, k]
+            cols = torch.arange(b, device=s.device)
+            upd = torch.where(cols[None, :] > k, s[k][None, :], 0.0)
+            newrow = index.take(s, i) - m[:, None] * upd
+            newrow[:, k] = m                  # k < b: always in range
+            return st.set_shared(s=index.put(s, _where(i > k, i, OOB),
+                                             newrow))
+        return step
+
+    def store(ctx, st):
+        row = ctx.bid * b + ctx.tid
+        return st.set_glob(lu=index.put(st.glob["lu"], row,
+                                        index.take(st.shared["s"], ctx.tid)))
+
+    stages = [load] + [make_step(k) for k in range(b - 1)] + [store]
+    return KernelDef(
+        "lud_diag", tuple(stages), writes=("lu",), reads=("a", "lu"),
+        shared={"s": ((b, b), torch.float32)},
+        combines={"lu": "concat"},
+        est_block_work=b * b * b * 2.0,
+        native=Native.of("lud_diag", ntiles=ntiles, b=b),
+    )
+
+
+# --------------------------------------------------------------------------
+# lavamd (Rodinia lavaMD): particle potential over a neighbour-box list.
+# Each block owns one home box; for every neighbour box it stages that
+# box's positions and charges into shared memory, barriers, and adds the
+# pairwise potential into a register accumulator that lives across
+# 2*nnei barriers.
+# --------------------------------------------------------------------------
+def make_lavamd(nboxes: int, ppb: int, nnei: int,
+                alpha: float = 0.5) -> KernelDef:
+    def init(ctx, st):
+        return st.with_priv({"acc": torch.zeros(ctx.tid.shape,
+                                                dtype=torch.float32,
+                                                device=ctx.tid.device)})
+
+    def make_load(k):
+        def load(ctx, st):
+            base = index.take(st.glob["nbr"], ctx.bid, k) * ppb
+            sy = index.put(st.shared["sy"], ctx.tid,
+                           index.take(st.glob["pos"], base + ctx.tid))
+            sq = index.put(st.shared["sq"], ctx.tid,
+                           index.take(st.glob["q"], base + ctx.tid))
+            return st.set_shared(sy=sy, sq=sq)
+        return load
+
+    def compute(ctx, st):
+        x = index.take(st.glob["pos"], ctx.bid * ppb + ctx.tid)
+        sy, sq = st.shared["sy"], st.shared["sq"]
+        d = x[:, None] - sy[None, :]
+        u = torch.sum(sq[None, :] * torch.exp(-alpha * d * d), dim=1)
+        return st.with_priv({"acc": st.priv["acc"] + u})
+
+    def store(ctx, st):
+        f = index.put(st.glob["force"], ctx.bid * ppb + ctx.tid,
+                      st.priv["acc"])
+        return st.with_priv({}).set_glob(force=f)
+
+    stages = [init]
+    for k in range(nnei):
+        stages += [make_load(k), compute]
+    stages.append(store)
+    return KernelDef(
+        "lavamd", tuple(stages), writes=("force",),
+        reads=("pos", "q", "nbr", "force"),
+        shared={"sy": ((ppb,), torch.float32),
+                "sq": ((ppb,), torch.float32)},
+        combines={"force": "concat"},  # block b owns rows [b*ppb, b*ppb+ppb)
+        est_block_work=nnei * ppb * ppb * 6.0,
+        native=Native.of("lavamd", nboxes=nboxes, ppb=ppb, nnei=nnei,
+                         alpha=alpha),
+    )
+
+
+# --------------------------------------------------------------------------
+# streamcluster (Rodinia streamcluster pgain): evaluate opening a candidate
+# centre.  Every point compares its current assignment cost with the
+# candidate's; switchers add their saving to the global gain and to their
+# old centre's saving with atomicAdd, and claim the old centre's dirty flag
+# with atomicCAS (the winner bumps the distinct-dirty counter).
+# --------------------------------------------------------------------------
+def make_streamcluster(n: int, k: int) -> KernelDef:
+    def stage(ctx, st):
+        i = _gid(ctx)
+        g = i.clamp(max=n - 1)
+        valid = i < n
+        a = index.take(st.glob["assign"], g)
+        px, py = index.take(st.glob["px"], g), index.take(st.glob["py"], g)
+        cx, cy, cand = st.glob["cx"], st.glob["cy"], st.glob["cand"]
+        dcur = (px - index.take(cx, a)) ** 2 + (py - index.take(cy, a)) ** 2
+        dcand = (px - cand[0]) ** 2 + (py - cand[1]) ** 2
+        sw = valid & (dcand < dcur)
+        save = dcur - dcand
+        gain = ctx.atomic_add(st.glob["gain"], _where(sw, 0, OOB), save)
+        csave = ctx.atomic_add(st.glob["csave"], _where(sw, a, OOB), save)
+        # inactive threads CAS a past-the-end slot with an impossible
+        # compare value (the bfs_frontier idiom)
+        dirty, old = ctx.atomic_cas(st.glob["dirty"], _where(sw, a, k),
+                                    _where(sw, 0, -1), torch.ones_like(a))
+        won = sw & (old == 0)
+        ndirty = ctx.atomic_add(st.glob["ndirty"], _where(won, 0, OOB), 1)
+        switched = index.put(st.glob["switched"], _where(sw, i, OOB), 1)
+        return st.set_glob(gain=gain, csave=csave, dirty=dirty,
+                           ndirty=ndirty, switched=switched)
+
+    return KernelDef(
+        "streamcluster", (stage,),
+        writes=("gain", "csave", "dirty", "ndirty", "switched"),
+        reads=("px", "py", "cx", "cy", "cand", "assign", "gain", "csave",
+               "dirty", "ndirty", "switched"),
+        combines={"gain": "sum", "csave": "sum", "dirty": "max",
+                  "ndirty": "sum", "switched": "sum"},
+        donates=("gain", "csave", "dirty", "ndirty", "switched"),
+        est_block_work=64.0,
+        native=Native.of("streamcluster", n=n, k=k),
+    )
+
+
+# --------------------------------------------------------------------------
 # Suite registry: kernel + launch config + inputs + numpy oracle
 # --------------------------------------------------------------------------
 @dataclasses.dataclass
@@ -262,21 +453,35 @@ class SuiteEntry:
 
 
 def run_entry(entry: SuiteEntry, backend: str = "loop", *, rng=None,
-              args: dict | None = None, grain=1, pool=None,
-              with_reference: bool = True, chain_mode: str = "host",
+              args: dict | None = None, grain=1, pool=None, grid=None,
+              block=None, with_reference: bool = True,
+              chain_mode: str = "host",
               chain_stats: ChainStats | None = None, device=None):
     """Execute a suite entry end to end under one backend.
 
-    The entry's :class:`LaunchChain` replays with every step routed
-    through the same options (every entry of this slice is a chain).
+    A plain entry is one launch, at ``grid``/``block`` when given and at
+    the entry's geometry otherwise; a chain entry replays its
+    :class:`LaunchChain` with every step routed through the same options
+    (its geometry is per step, so overrides raise ``ValueError``).
     Inputs come from ``entry.make_args`` (seeded ``rng``, default
     ``default_rng(42)``) or ``args``, and go to ``device`` through
     :func:`repro_torch.carry.from_reference` - the card unless the caller
     asks for ``"cpu"``.  Returns ``(out, want)``: the final buffer dict
     (tensors) and the NumPy oracle's expectation (``None`` when
-    ``with_reference=False``).  Only the host-hop chain mode is ported.
+    ``with_reference=False``).  ``chain_stats`` collects a chain's replay
+    counters.  Only the host-hop chain mode is ported; a plain entry
+    takes no other mode.
     """
-    if chain_mode != "host":
+    if entry.chain is None:
+        if chain_mode != "host":
+            raise ValueError(
+                f"entry {entry.name}: chain_mode={chain_mode!r} needs a "
+                f"LaunchChain entry (this one is a single launch)")
+    elif grid is not None or block is not None:
+        raise ValueError(
+            f"entry {entry.name}: geometry overrides are per-step for "
+            f"chain entries; rebuild the chain instead")
+    elif chain_mode != "host":
         raise NotImplementedError(
             f"chain_mode={chain_mode!r} is not ported yet: ROADMAP 1.7 "
             f"(streams, graphs)")
@@ -285,11 +490,16 @@ def run_entry(entry: SuiteEntry, backend: str = "loop", *, rng=None,
                                else np.random.default_rng(42))
     want = entry.reference(args) if with_reference else None
     bufs = carry.from_reference(args, const=entry.const, device=device)
+    kw = dict(backend=backend, grain=grain, pool=pool)
+    if entry.chain is None:
+        return launch(entry.kernel,
+                      grid=entry.grid if grid is None else grid,
+                      block=entry.block if block is None else block,
+                      args=bufs, dyn_shared=entry.dyn_shared, **kw), want
 
     def launch_step(step, b):
         return launch(step.kernel, grid=step.grid, block=step.block,
-                      args=b, dyn_shared=step.dyn_shared, backend=backend,
-                      grain=grain, pool=pool)
+                      args=b, dyn_shared=step.dyn_shared, **kw)
 
     return entry.chain.run(launch_step, bufs, stats=chain_stats), want
 
@@ -489,3 +699,137 @@ def entry_hotspot(h: int = 32, w: int = 64, iters: int = 4,
         "hotspot", ("barrier", "dim3", "chain", "const"), kernel,
         (w // 8, h // 8), (8, 8), None, margs, ref, chain=chain,
         const=("p",), tol=1e-4, rodinia="hotspot")
+
+
+def entry_backprop_layer(in_n: int = 64, out_n: int = 16,
+                         lr: float = 0.3) -> SuiteEntry:
+    kernel = make_backprop_layer(in_n, out_n, lr)
+
+    def margs(r):
+        return {"inp": r.standard_normal(in_n, dtype=np.float32),
+                "w": r.standard_normal((out_n, in_n),
+                                       dtype=np.float32) * 0.5,
+                "bias": r.standard_normal(out_n, dtype=np.float32),
+                "delta": r.standard_normal(out_n, dtype=np.float32),
+                "hidden": np.zeros(out_n, np.float32),
+                "w_out": np.zeros((out_n, in_n), np.float32)}
+
+    def ref(a):
+        w, inp = np.asarray(a["w"]), np.asarray(a["inp"])
+        hidden = 1.0 / (1.0 + np.exp(-(w @ inp + a["bias"])))
+        w_out = w + lr * np.asarray(a["delta"])[:, None] * inp[None, :]
+        return {"hidden": hidden.astype(np.float32),
+                "w_out": w_out.astype(np.float32)}
+
+    return SuiteEntry(
+        "backprop_layer", ("barrier", "const"), kernel, out_n, in_n, None,
+        margs, ref, const=("inp", "w", "bias", "delta"),
+        rodinia="backprop")
+
+
+def entry_lud_diag(ntiles: int = 8, b: int = 16) -> SuiteEntry:
+    kernel = make_lud_diag(ntiles, b)
+
+    def margs(r):
+        a = 0.1 * r.standard_normal((ntiles * b, b)).astype(np.float32)
+        for t in range(ntiles):                 # diagonally dominant tiles
+            a[t * b:(t + 1) * b] += 4.0 * np.eye(b, dtype=np.float32)
+        return {"a": a, "lu": np.zeros((ntiles * b, b), np.float32)}
+
+    def ref(a):
+        src = np.asarray(a["a"])
+        lu = np.zeros_like(src)
+        for t in range(ntiles):
+            m = src[t * b:(t + 1) * b].copy()
+            for k in range(b - 1):
+                m[k + 1:, k] = m[k + 1:, k] / m[k, k]
+                m[k + 1:, k + 1:] -= np.outer(m[k + 1:, k], m[k, k + 1:])
+            lu[t * b:(t + 1) * b] = m
+        return {"lu": lu}
+
+    return SuiteEntry(
+        "lud_diag", ("barrier",), kernel, ntiles, b, None, margs, ref,
+        tol=1e-4, rodinia="lud")
+
+
+def entry_lavamd(nboxes: int = 8, ppb: int = 32, nnei: int = 3,
+                 alpha: float = 0.5) -> SuiteEntry:
+    kernel = make_lavamd(nboxes, ppb, nnei, alpha)
+    n = nboxes * ppb
+
+    def margs(r):
+        nbr = np.empty((nboxes, nnei), np.int32)
+        nbr[:, 0] = np.arange(nboxes)                    # home box first
+        nbr[:, 1] = (np.arange(nboxes) + 1) % nboxes     # ring neighbours
+        for k in range(2, nnei):
+            nbr[:, k] = r.integers(0, nboxes, nboxes)
+        return {"pos": r.uniform(-2.0, 2.0, n).astype(np.float32),
+                "q": r.uniform(0.1, 1.0, n).astype(np.float32),
+                "nbr": nbr,
+                "force": np.zeros(n, np.float32)}
+
+    def ref(a):
+        pos = np.asarray(a["pos"], np.float32)
+        q = np.asarray(a["q"], np.float32)
+        nbr = np.asarray(a["nbr"])
+        force = np.zeros(n, np.float32)
+        for b in range(nboxes):
+            xi = pos[b * ppb:(b + 1) * ppb]
+            acc = np.zeros(ppb, np.float32)
+            for k in range(nnei):
+                nb = int(nbr[b, k])
+                y = pos[nb * ppb:(nb + 1) * ppb]
+                qq = q[nb * ppb:(nb + 1) * ppb]
+                d = xi[:, None] - y[None, :]
+                acc = acc + np.sum(qq[None, :] * np.exp(-alpha * d * d),
+                                   axis=1, dtype=np.float32)
+            force[b * ppb:(b + 1) * ppb] = acc
+        return {"force": force}
+
+    return SuiteEntry(
+        "lavamd", ("barrier", "demotion", "const"), kernel, nboxes, ppb,
+        None, margs, ref, const=("pos", "q", "nbr"), tol=1e-4,
+        rodinia="lavaMD")
+
+
+def entry_streamcluster(n: int = 256, k: int = 8,
+                        block: int = 64) -> SuiteEntry:
+    grid = n // block
+    kernel = make_streamcluster(n, k)
+
+    def margs(r):
+        return {"px": r.integers(0, 100, n).astype(np.int32),
+                "py": r.integers(0, 100, n).astype(np.int32),
+                "cx": r.integers(0, 100, k).astype(np.int32),
+                "cy": r.integers(0, 100, k).astype(np.int32),
+                "cand": r.integers(0, 100, 2).astype(np.int32),
+                "assign": r.integers(0, k, n).astype(np.int32),
+                "gain": np.zeros(1, np.int32),
+                "csave": np.zeros(k, np.int32),
+                "dirty": np.zeros(k, np.int32),
+                "ndirty": np.zeros(1, np.int32),
+                "switched": np.zeros(n, np.int32)}
+
+    def ref(a):
+        px = np.asarray(a["px"], np.int64)
+        py = np.asarray(a["py"], np.int64)
+        cx, cy = np.asarray(a["cx"]), np.asarray(a["cy"])
+        assign = np.asarray(a["assign"])
+        cand = np.asarray(a["cand"])
+        dcur = (px - cx[assign]) ** 2 + (py - cy[assign]) ** 2
+        dcand = (px - cand[0]) ** 2 + (py - cand[1]) ** 2
+        sw = dcand < dcur
+        save = dcur - dcand
+        gain = np.asarray([save[sw].sum()], np.int32)
+        csave = np.bincount(assign[sw], weights=save[sw].astype(np.float64),
+                            minlength=k).astype(np.int32)
+        dirty = np.zeros(k, np.int32)
+        dirty[np.unique(assign[sw])] = 1
+        return {"gain": gain, "csave": csave, "dirty": dirty,
+                "switched": sw.astype(np.int32)}
+
+    return SuiteEntry(
+        "streamcluster", ("atomic", "atomic_cas"), kernel, grid, block,
+        None, margs, ref,
+        const=("px", "py", "cx", "cy", "cand", "assign"),
+        rodinia="streamcluster")

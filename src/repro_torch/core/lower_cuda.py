@@ -322,8 +322,224 @@ HOTSPOT = CudaKernel(
     source="src/repro_torch/csrc/hotspot.cu")
 
 
+# --------------------------------------------------------------------------
+# backprop_layer
+# --------------------------------------------------------------------------
+#: the kernel's physical block; a wider logical block (one thread per
+#: input) gives each thread the inputs t + BACKPROP_THREADS * m
+BACKPROP_THREADS = 1024
+BACKPROP_MAX_PER_THREAD = 64     # instantiated in csrc/backprop_layer.cu
+
+
+def backprop_layer_plain(bufs, grid: Dim3, block: Dim3, *, in_n: int,
+                         out_n: int, lr: float):
+    """The hidden units the grid covers: the reference's barrier tree
+    (offsets ``in_n/2`` down to 1) over ``inp * w``, a sigmoid, and the
+    weight update ``w + lr * delta * inp``."""
+    rows = grid.x
+    w, inp = bufs["w"][:rows], bufs["inp"]
+    s = inp[None, :] * w
+    off = in_n // 2
+    while off >= 1:
+        s = s[:, :off] + s[:, off:2 * off]
+        off //= 2
+    total = s[:, 0] + bufs["bias"][:rows]
+    hidden, w_out = bufs["hidden"].clone(), bufs["w_out"].clone()
+    hidden[:rows] = 1.0 / (1.0 + torch.exp(-total))
+    w_out[:rows] = w + lr * bufs["delta"][:rows, None] * inp[None, :]
+    return {"hidden": hidden, "w_out": w_out}
+
+
+def _backprop_check(grid: Dim3, block: Dim3, params: dict):
+    _one_dim("backprop_layer")(grid, block, params)
+    in_n, out_n = params["in_n"], params["out_n"]
+    if block.x != in_n:
+        raise UnsupportedKernel(f"backprop_layer: the tree runs one logical "
+                                f"thread per input; block {block.x} != "
+                                f"in_n {in_n}")
+    if in_n > BACKPROP_THREADS * BACKPROP_MAX_PER_THREAD:
+        raise UnsupportedKernel(f"backprop_layer: in_n {in_n} exceeds the "
+                                f"kernel's {BACKPROP_MAX_PER_THREAD} inputs "
+                                f"per thread")
+    if grid.x > out_n:
+        raise UnsupportedKernel(f"backprop_layer: grid {grid.x} exceeds "
+                                f"out_n {out_n}")
+
+
+BACKPROP_LAYER = CudaKernel(
+    name="backprop_layer", symbol="launch_backprop_layer",
+    argtypes=(_P,) * 6 + (_I, _F, _I, _I) + (_P,),
+    buffers={"inp": _F32, "w": _F32, "bias": _F32, "delta": _F32,
+             "hidden": _F32, "w_out": _F32},
+    writes=("hidden", "w_out"),
+    shapes=lambda *, in_n, out_n, lr: {
+        "inp": (in_n,), "w": (out_n, in_n), "bias": (out_n,),
+        "delta": (out_n,), "hidden": (out_n,), "w_out": (out_n, in_n)},
+    check=_backprop_check, plain=backprop_layer_plain,
+    cargs=lambda b, grid, block, *, in_n, out_n, lr: [
+        _ptr(b["inp"]), _ptr(b["w"]), _ptr(b["bias"]), _ptr(b["delta"]),
+        _ptr(b["hidden"]), _ptr(b["w_out"]), in_n, lr, grid.x,
+        min(in_n, BACKPROP_THREADS)],
+    source="src/repro_torch/csrc/backprop_layer.cu")
+
+
+# --------------------------------------------------------------------------
+# lud_diag
+# --------------------------------------------------------------------------
+LUD_MAX_B = 32                   # the kernel's __shared__ tile
+
+
+def lud_diag_plain(bufs, grid: Dim3, block: Dim3, *, ntiles: int, b: int):
+    """Doolittle LU (no pivoting) of each diagonal tile the grid covers,
+    step by step as the reference's threads do it."""
+    t = grid.x
+    s = bufs["a"][:t * b].reshape(t, b, b).clone()
+    cols = torch.arange(b, device=s.device)
+    for k in range(b - 1):
+        m = s[:, k + 1:, k] / s[:, k:k + 1, k]
+        upd = torch.where(cols[None, :] > k, s[:, k, :], 0.0)
+        s[:, k + 1:, :] = s[:, k + 1:, :] - m[:, :, None] * upd[:, None, :]
+        s[:, k + 1:, k] = m
+    lu = bufs["lu"].clone()
+    lu[:t * b] = s.reshape(t * b, b)
+    return {"lu": lu}
+
+
+def _lud_check(grid: Dim3, block: Dim3, params: dict):
+    _one_dim("lud_diag")(grid, block, params)
+    ntiles, b = params["ntiles"], params["b"]
+    if block.x != b or not 1 <= b <= LUD_MAX_B:
+        raise UnsupportedKernel(f"lud_diag: one thread per row of a tile of "
+                                f"at most {LUD_MAX_B} rows; got block "
+                                f"{block.x}, b = {b}")
+    if grid.x > ntiles:
+        raise UnsupportedKernel(f"lud_diag: grid {grid.x} exceeds ntiles "
+                                f"{ntiles}")
+
+
+LUD_DIAG = CudaKernel(
+    name="lud_diag", symbol="launch_lud_diag",
+    argtypes=(_P,) * 2 + (_I,) * 2 + (_P,),
+    buffers={"a": _F32, "lu": _F32},
+    writes=("lu",),
+    shapes=lambda *, ntiles, b: {"a": (ntiles * b, b),
+                                 "lu": (ntiles * b, b)},
+    check=_lud_check, plain=lud_diag_plain,
+    cargs=lambda bf, grid, block, *, ntiles, b: [
+        _ptr(bf["a"]), _ptr(bf["lu"]), b, grid.x],
+    source="src/repro_torch/csrc/lud_diag.cu")
+
+
+# --------------------------------------------------------------------------
+# lavamd
+# --------------------------------------------------------------------------
+def lavamd_plain(bufs, grid: Dim3, block: Dim3, *, nboxes: int, ppb: int,
+                 nnei: int, alpha: float):
+    """The potential of every particle in the home boxes the grid covers,
+    one neighbour at a time: ``acc += sum_j q_j exp(-alpha (x - y_j)^2)``.
+    Temporaries stay at ``boxes x ppb x ppb``."""
+    boxes = grid.x
+    pos, q = bufs["pos"], bufs["q"]
+    t = torch.arange(ppb, device=pos.device)
+    x = pos[:boxes * ppb].reshape(boxes, ppb)
+    acc = torch.zeros_like(x)
+    for k in range(nnei):
+        src = bufs["nbr"][:boxes, k].long()[:, None] * ppb + t[None, :]
+        d = x[:, :, None] - index.take(pos, src)[:, None, :]
+        u = torch.sum(index.take(q, src)[:, None, :]
+                      * torch.exp(-alpha * d * d), dim=2)
+        acc = acc + u
+    force = bufs["force"].clone()
+    force[:boxes * ppb] = acc.reshape(-1)
+    return {"force": force}
+
+
+def _lavamd_check(grid: Dim3, block: Dim3, params: dict):
+    _one_dim("lavamd")(grid, block, params)
+    if block.x != params["ppb"] or block.x > 1024:
+        raise UnsupportedKernel(f"lavamd: one thread per particle of a box "
+                                f"(ppb <= 1024); got block {block.x}, ppb = "
+                                f"{params['ppb']}")
+    if grid.x > params["nboxes"]:
+        raise UnsupportedKernel(f"lavamd: grid {grid.x} exceeds nboxes "
+                                f"{params['nboxes']}")
+
+
+LAVAMD = CudaKernel(
+    name="lavamd", symbol="launch_lavamd",
+    argtypes=(_P,) * 4 + (_I,) * 3 + (_F, _I) + (_P,),
+    buffers={"pos": _F32, "q": _F32, "nbr": _I32, "force": _F32},
+    writes=("force",),
+    shapes=lambda *, nboxes, ppb, nnei, alpha: {
+        "pos": (nboxes * ppb,), "q": (nboxes * ppb,), "nbr": (nboxes, nnei),
+        "force": (nboxes * ppb,)},
+    check=_lavamd_check, plain=lavamd_plain,
+    cargs=lambda b, grid, block, *, nboxes, ppb, nnei, alpha: [
+        _ptr(b["pos"]), _ptr(b["q"]), _ptr(b["nbr"]), _ptr(b["force"]),
+        nboxes, ppb, nnei, alpha, grid.x],
+    source="src/repro_torch/csrc/lavamd.cu")
+
+
+# --------------------------------------------------------------------------
+# streamcluster
+# --------------------------------------------------------------------------
+def streamcluster_plain(bufs, grid: Dim3, block: Dim3, *, n: int, k: int):
+    """One pgain evaluation over the points the grid covers.  Every result
+    is order-free: sums of integer savings, and ``ndirty`` gains one for
+    each distinct centre whose flag a switcher turns from 0 to 1."""
+    m = min(n, grid.size * block.size)
+    a = bufs["assign"][:m].long()
+    px, py = bufs["px"][:m], bufs["py"][:m]
+    cand = bufs["cand"]
+    dcur = ((px - index.take(bufs["cx"], a)) ** 2
+            + (py - index.take(bufs["cy"], a)) ** 2)
+    dcand = (px - cand[0]) ** 2 + (py - cand[1]) ** 2
+    sw = dcand < dcur
+    save = dcur - dcand
+    ok = sw & (a >= 0) & (a < k)       # drop-mode: no slot past k
+    claimed = torch.unique(a[ok])
+    fresh = bufs["dirty"][claimed] == 0
+    dirty, switched = bufs["dirty"].clone(), bufs["switched"].clone()
+    dirty[claimed[fresh]] = 1
+    switched[:m][sw] = 1
+    return {"gain": bufs["gain"] + save[sw].sum().to(_I32),
+            "csave": bufs["csave"].index_add(0, a[ok], save[ok]),
+            "dirty": dirty,
+            "ndirty": bufs["ndirty"] + fresh.sum().to(_I32),
+            "switched": switched}
+
+
+def _streamcluster_check(grid: Dim3, block: Dim3, params: dict):
+    _one_dim("streamcluster")(grid, block, params)
+    if block.x % 32 or block.x > 1024:
+        raise UnsupportedKernel(f"streamcluster: the gain is summed per "
+                                f"full warp; block {block.x} is not a "
+                                f"multiple of 32 up to 1024")
+
+
+STREAMCLUSTER = CudaKernel(
+    name="streamcluster", symbol="launch_streamcluster",
+    argtypes=(_P,) * 11 + (_I,) * 4 + (_P,),
+    buffers={name: _I32 for name in (
+        "px", "py", "cx", "cy", "cand", "assign", "gain", "csave", "dirty",
+        "ndirty", "switched")},
+    writes=("gain", "csave", "dirty", "ndirty", "switched"),
+    shapes=lambda *, n, k: {
+        "px": (n,), "py": (n,), "assign": (n,), "switched": (n,),
+        "cx": (k,), "cy": (k,), "csave": (k,), "dirty": (k,), "cand": (2,),
+        "gain": (1,), "ndirty": (1,)},
+    check=_streamcluster_check, plain=streamcluster_plain,
+    cargs=lambda b, grid, block, *, n, k: [
+        *(_ptr(b[name]) for name in (
+            "px", "py", "cx", "cy", "cand", "assign", "gain", "csave",
+            "dirty", "ndirty", "switched")),
+        n, k, grid.x, block.x],
+    source="src/repro_torch/csrc/streamcluster.cu")
+
+
 KERNELS: dict[str, CudaKernel] = {
-    k.name: k for k in (BFS_FRONTIER, PATHFINDER, NEEDLE_NW, HOTSPOT)}
+    k.name: k for k in (BFS_FRONTIER, PATHFINDER, NEEDLE_NW, HOTSPOT,
+                        BACKPROP_LAYER, LUD_DIAG, LAVAMD, STREAMCLUSTER)}
 
 
 def kernel_for(kernel: KernelDef) -> CudaKernel:

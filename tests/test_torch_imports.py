@@ -49,8 +49,9 @@ def test_every_module_imports_with_jax_and_reference_blocked():
 def test_kernel_sources_live_in_the_port():
     from repro_torch.core import _native
     srcs = [p.name for p in _native.sources()]
-    assert srcs == ["bfs_frontier.cu", "hotspot.cu", "needle_nw.cu",
-                    "pathfinder.cu"]
+    assert srcs == ["backprop_layer.cu", "bfs_frontier.cu", "hotspot.cu",
+                    "lavamd.cu", "lud_diag.cu", "needle_nw.cu",
+                    "pathfinder.cu", "streamcluster.cu"]
     for p in _native.sources():
         assert p.parent == PORT / "csrc"
         text = p.read_text()

@@ -15,7 +15,8 @@ from repro_torch import carry
 from repro_torch.core import _native, cuda_suite, lower_cuda
 from repro_torch.core.dim3 import Dim3
 
-NAMES = ("bfs_frontier", "pathfinder", "needle_nw", "hotspot")
+NAMES = ("bfs_frontier", "pathfinder", "needle_nw", "hotspot",
+         "backprop_layer", "lud_diag", "lavamd", "streamcluster")
 
 
 def test_build_key_covers_every_source_and_flag(monkeypatch, tmp_path):
@@ -67,22 +68,36 @@ def _state(name):
 @pytest.mark.parametrize("name", NAMES)
 def test_kernel_matches_its_plain_version_on_the_card(card, name):
     entry, args = _state(name)
-    step = entry.chain.steps[0]
+    if entry.chain is None:
+        kernel, grid, block = entry.kernel, entry.grid, entry.block
+    else:
+        step = entry.chain.steps[0]
+        kernel, grid, block = step.kernel, step.grid, step.block
     kern = lower_cuda.KERNELS[name]
-    params = dict(step.kernel.native.params)
+    params = dict(kernel.native.params)
     bufs = carry.from_reference(args, device=card)
     before = kern.launches
-    got = kern(bufs, grid=step.grid, block=step.block, **params)
+    got = kern(bufs, grid=grid, block=block, **params)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
-    want = kern.plain(bufs, Dim3.of(step.grid), Dim3.of(step.block),
-                      **params)
+    want = kern.plain(bufs, Dim3.of(grid), Dim3.of(block), **params)
     for k in kern.writes:
-        if name == "hotspot":      # nvcc contracts to FMAs: entry tol
-            torch.testing.assert_close(got[k], want[k], rtol=1e-4,
-                                       atol=1e-4)
+        if got[k].is_floating_point():  # contraction, exp: entry tol
+            torch.testing.assert_close(got[k], want[k], rtol=entry.tol,
+                                       atol=entry.tol)
         else:
             assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.gpu
+def test_backprop_maps_a_wide_logical_block_onto_1024_threads(card):
+    # 4096 inputs: each thread folds four in registers, in the
+    # reference's tree order, before the shared tree
+    entry = cuda_suite.entry_backprop_layer(in_n=4096, out_n=3)
+    out, want = cuda_suite.run_entry(entry, "cuda", device=card)
+    for k, v in want.items():
+        np.testing.assert_allclose(out[k].cpu().numpy(), v, rtol=entry.tol,
+                                   atol=entry.tol)
 
 
 @pytest.mark.gpu

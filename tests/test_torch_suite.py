@@ -1,12 +1,13 @@
-"""The port's four Rodinia chains against the JAX package, on the CPU.
+"""The port's eight Rodinia entries against the JAX package, on the CPU.
 
 Inputs come from ``np.random.default_rng(42)`` and go to both packages.
 The port's ``run_entry`` under ``vector``, ``loop`` and ``cuda`` (the
 kernels' plain versions, since the tensors lie on the CPU) must match the
 reference's ``loop`` and ``pallas`` (interpret mode) runs: bit for bit for
-bfs, pathfinder and nw, whose arithmetic is integer, and within 1e-4 for
-hotspot, the entry's own tolerance (``SuiteEntry.tol``) - XLA and PyTorch
-may contract or order the float32 thermal update differently.
+the integer entries (bfs, pathfinder, nw, streamcluster), and within the
+entry's own tolerance (``SuiteEntry.tol``) for the float32 ones (hotspot,
+backprop, lud, lavamd) - XLA and PyTorch may contract or order float32
+sums and updates differently.
 """
 import functools
 
@@ -20,10 +21,12 @@ from repro.core import cuda_suite as jsuite
 from repro_torch import carry
 from repro_torch.core import _native, cuda_suite, lower_cuda
 from repro_torch.core.api import compiled, launch
+from repro_torch.core.dim3 import Dim3
 from repro_torch.core.kernel import KernelDef, UnsupportedKernel
 
-NAMES = ("bfs_frontier", "pathfinder", "needle_nw", "hotspot")
-HOTSPOT_TOL = 1e-4          # entry_hotspot's tol (cuda_suite.py:1878)
+CHAINS = ("bfs_frontier", "pathfinder", "needle_nw", "hotspot")
+SINGLE = ("backprop_layer", "lud_diag", "lavamd", "streamcluster")
+NAMES = CHAINS + SINGLE
 
 
 def _entries(name, **kw):
@@ -35,15 +38,30 @@ def _np(v):
     return v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
+@functools.cache
+def _tol(name):
+    return _entries(name)[1].tol
+
+
 def _assert_match(name, got, want, keys):
+    """Integer buffers bit for bit, float32 ones within the entry's tol."""
     for k in keys:
         g, w = _np(got[k]), _np(want[k])
         assert g.shape == w.shape, (name, k)
-        if name == "hotspot":
-            np.testing.assert_allclose(g, w, rtol=HOTSPOT_TOL,
-                                       atol=HOTSPOT_TOL, err_msg=k)
+        if g.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=_tol(name),
+                                       atol=_tol(name), err_msg=k)
         else:
             np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+def _geometry(entry):
+    """``(kernel, grid, block)`` of one launch: a chain's first step, or
+    the single launch of a plain entry."""
+    if entry.chain is None:
+        return entry.kernel, entry.grid, entry.block
+    step = entry.chain.steps[0]
+    return step.kernel, step.grid, step.block
 
 
 @functools.cache
@@ -75,7 +93,11 @@ def test_make_args_bit_equal(name):
     ("bfs_frontier", {}), ("bfs_frontier", {"n": 512, "deg": 6}),
     ("pathfinder", {}), ("pathfinder", {"scale": 3}),
     ("needle_nw", {}), ("needle_nw", {"n": 48, "penalty": 10}),
-    ("hotspot", {}), ("hotspot", {"h": 16, "w": 24, "iters": 7})])
+    ("hotspot", {}), ("hotspot", {"h": 16, "w": 24, "iters": 7}),
+    ("backprop_layer", {}), ("backprop_layer", {"in_n": 256, "out_n": 4}),
+    ("lud_diag", {}), ("lud_diag", {"ntiles": 3, "b": 5}),
+    ("lavamd", {}), ("lavamd", {"nboxes": 5, "ppb": 7, "nnei": 4}),
+    ("streamcluster", {}), ("streamcluster", {"n": 512, "k": 20})])
 def test_vectorised_oracles_equal_reference_loops(name, kw):
     jentry, tentry = _entries(name, **kw)
     args = jentry.make_args(np.random.default_rng(42))
@@ -93,7 +115,7 @@ def test_run_entry_matches_reference(name, backend, ref):
     out, twant = _port_run(name, backend)
     _assert_match(name, out, jout, jout.keys())
     # and the oracle, within the entry's tolerance
-    tol = _entries(name)[1].tol
+    tol = _tol(name)
     for k, v in want.items():
         np.testing.assert_allclose(out[k], v, rtol=tol, atol=tol, err_msg=k)
         np.testing.assert_array_equal(twant[k], v, err_msg=k)
@@ -102,7 +124,8 @@ def test_run_entry_matches_reference(name, backend, ref):
 def _launch_state(name):
     """``(jax entry, port entry, args)`` for one launch with real work:
     BFS at its widest level on a graph where claims collide, nw on its
-    longest diagonal, the others at their chain's first launch."""
+    longest diagonal, the other chains at their first launch, and the
+    single-launch entries at their one launch."""
     if name == "bfs_frontier":
         n = 512
         jentry, tentry = _entries(name, n=n, deg=6)
@@ -130,16 +153,16 @@ def test_plain_version_matches_one_reference_launch(name):
 
 def _check_plain_launch(name):
     jentry, tentry, args = _launch_state(name)
-    step = jentry.chain.steps[0]
+    jkernel, grid, block = _geometry(jentry)
     jbufs = {k: jnp.asarray(v) for k, v in args.items()}
-    want = japi.launch(step.kernel, grid=step.grid, block=step.block,
-                       args=jbufs, backend="loop")
-    tstep = tentry.chain.steps[0]
+    want = japi.launch(jkernel, grid=grid, block=block, args=jbufs,
+                       backend="loop")
+    tkernel, tgrid, tblock = _geometry(tentry)
     kern = lower_cuda.KERNELS[name]
     bufs = carry.from_reference(args, device="cpu")
     before = kern.launches
-    got = kern(bufs, grid=tstep.grid, block=tstep.block,
-               **dict(tstep.kernel.native.params))
+    got = kern(bufs, grid=tgrid, block=tblock,
+               **dict(tkernel.native.params))
     assert kern.launches == before        # the plain version is no launch
     _assert_match(name, got, want, kern.writes)
     for k, v in args.items():              # functional: inputs untouched
@@ -175,11 +198,11 @@ def test_bfs_launch_settles_contested_claims_like_the_reference():
 @pytest.mark.parametrize("name", NAMES)
 def test_chevron_launch_on_cuda_backend(name):
     _, tentry, args = _launch_state(name)
-    step = tentry.chain.steps[0]
+    kernel, grid, block = _geometry(tentry)
     bufs = carry.from_reference(args, const=tentry.const, device="cpu")
-    got = step.kernel[step.grid, step.block].on(backend="cuda")(**bufs)
-    want = step.kernel[step.grid, step.block].on(backend="vector")(bufs)
-    _assert_match(name, got, want, step.kernel.writes)
+    got = kernel[grid, block].on(backend="cuda")(**bufs)
+    want = kernel[grid, block].on(backend="vector")(bufs)
+    _assert_match(name, got, want, kernel.writes)
 
 
 @pytest.mark.parametrize("backend", ("loop", "loop_nowarp", "naive",
@@ -192,16 +215,17 @@ def test_coverage_cells_match_reference(name, backend):
     from repro.core.kernel import UnsupportedKernel as JUnsupported
 
     jentry, tentry, args = _launch_state(name)
-    jstep, tstep = jentry.chain.steps[0], tentry.chain.steps[0]
+    jkernel, grid, block = _geometry(jentry)
+    tkernel, tgrid, tblock = _geometry(tentry)
     try:
-        japi.compiled(jstep.kernel, grid=jstep.grid, block=jstep.block,
+        japi.compiled(jkernel, grid=grid, block=block,
                       args={k: jnp.asarray(v) for k, v in args.items()},
                       backend="pallas" if backend == "cuda" else backend)
         jok = True
     except JUnsupported:
         jok = False
     try:
-        compiled(tstep.kernel, grid=tstep.grid, block=tstep.block,
+        compiled(tkernel, grid=tgrid, block=tblock,
                  args=carry.from_reference(args, device="cpu"),
                  backend=backend)
         tok = True
@@ -286,5 +310,100 @@ def test_cpu_runs_build_and_launch_nothing(monkeypatch):
         stats[name] = cuda_suite.ChainStats()
         cuda_suite.run_entry(tentry, "cuda", device="cpu",
                              chain_stats=stats[name])
-        assert stats[name].launches > 0
+        # a chain counts its launches; a single launch replays no chain
+        assert (stats[name].launches > 0) == (name in CHAINS)
     assert {n: k.launches for n, k in lower_cuda.KERNELS.items()} == before
+
+
+@pytest.mark.parametrize("backend", ("vector", "cuda"))
+@pytest.mark.parametrize("name,grid,block", [
+    ("lud_diag", 3, None), ("streamcluster", 2, None),
+    ("streamcluster", 8, 32), ("lavamd", 5, None)])
+def test_run_entry_single_launch_honours_geometry_overrides(name, grid,
+                                                           block, backend):
+    # the override reaches the launch: only the blocks it names run, as
+    # in the reference's run_entry with the same override
+    jentry, tentry = _entries(name)
+    jout, _ = jsuite.run_entry(jentry, "loop", grid=grid, block=block)
+    out, _ = cuda_suite.run_entry(tentry, backend, grid=grid, block=block,
+                                  device="cpu")
+    full, _ = cuda_suite.run_entry(tentry, backend, device="cpu")
+    _assert_match(name, out, jout, tentry.kernel.writes)
+    if block is None:          # fewer blocks: some outputs stay unwritten
+        assert any(not np.array_equal(_np(out[k]), _np(full[k]))
+                   for k in tentry.kernel.writes)
+
+
+def test_run_entry_rejects_modes_and_overrides_it_cannot_apply():
+    _, plain = _entries("lud_diag")
+    _, chain = _entries("pathfinder")
+    with pytest.raises(ValueError, match="single launch"):
+        cuda_suite.run_entry(plain, "vector", chain_mode="device",
+                             device="cpu")
+    with pytest.raises(ValueError, match="per-step"):
+        cuda_suite.run_entry(chain, "vector", grid=2, device="cpu")
+    with pytest.raises(ValueError, match="per-step"):
+        cuda_suite.run_entry(chain, "vector", block=32, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP 1.7"):
+        cuda_suite.run_entry(chain, "vector", chain_mode="graph",
+                             device="cpu")
+
+
+def test_backprop_plain_version_covers_a_block_wider_than_cuda_allows():
+    # 2048 inputs: the kernel folds two inputs per thread in registers
+    # before its shared tree; the plain version keeps the same tree order
+    jentry, tentry = _entries("backprop_layer", in_n=2048, out_n=4)
+    args = jentry.make_args(np.random.default_rng(42))
+    want = japi.launch(jentry.kernel, grid=jentry.grid, block=jentry.block,
+                       args={k: jnp.asarray(v) for k, v in args.items()},
+                       backend="loop")
+    assert tentry.block == 2048 > lower_cuda.BACKPROP_THREADS
+    kern = lower_cuda.KERNELS["backprop_layer"]
+    got = kern(carry.from_reference(args, device="cpu"), grid=tentry.grid,
+               block=tentry.block, **dict(tentry.kernel.native.params))
+    _assert_match("backprop_layer", got, want, kern.writes)
+    np.testing.assert_allclose(_np(got["hidden"]),
+                               tentry.reference(args)["hidden"],
+                               rtol=tentry.tol, atol=tentry.tol)
+
+
+@pytest.mark.parametrize("backend", ("vector", "loop", "cuda"))
+def test_streamcluster_ndirty_counts_distinct_claimed_centres(backend):
+    # the oracle does not return ndirty: hold it against the JAX run and
+    # against the number of distinct centres that switchers leave
+    jout, want = _jax_run("streamcluster", "loop")
+    out, _ = _port_run("streamcluster", backend)
+    args = _entries("streamcluster")[0].make_args(np.random.default_rng(42))
+    moved = np.unique(args["assign"][want["switched"] == 1])
+    assert out["ndirty"].tolist() == jout["ndirty"].tolist() == [moved.size]
+    k = args["dirty"].size
+    assert out["dirty"].shape == (k,)       # no slot past k
+    np.testing.assert_array_equal(np.flatnonzero(out["dirty"]), moved)
+
+
+@pytest.mark.parametrize("name,bad", [
+    ("backprop_layer", {"block": 32}),
+    ("backprop_layer", {"grid": 17}),
+    ("lud_diag", {"block": 8}),
+    ("lud_diag", {"grid": 9}),
+    ("lavamd", {"block": 16}),
+    ("lavamd", {"grid": 9}),
+    ("streamcluster", {"block": 48, "grid": 6})])
+def test_single_launch_wrappers_reject_geometry_they_cannot_run(name, bad):
+    _, tentry, args = _launch_state(name)
+    kern = lower_cuda.KERNELS[name]
+    geom = {"grid": tentry.grid, "block": tentry.block, **bad}
+    with pytest.raises(UnsupportedKernel):
+        kern(carry.from_reference(args, device="cpu"), **geom,
+             **dict(tentry.kernel.native.params))
+
+
+def test_wrappers_reject_sizes_their_kernels_cannot_hold():
+    with pytest.raises(UnsupportedKernel, match="inputs per thread"):
+        lower_cuda.KERNELS["backprop_layer"].check(
+            Dim3(1), Dim3(131072), {"in_n": 131072, "out_n": 1})
+    with pytest.raises(UnsupportedKernel, match="at most 32"):
+        lower_cuda.KERNELS["lud_diag"].check(Dim3(1), Dim3(64),
+                                             {"ntiles": 1, "b": 64})
+    with pytest.raises(ValueError, match="power of two"):
+        cuda_suite.make_backprop_layer(48, 4)
