@@ -7,24 +7,33 @@ Phases, each printing its own lines:
 
 1. the card (``nvidia-smi`` name and power limit) and the ``nvcc`` build
    of ``src/repro_torch/csrc/*.cu`` into ``build/repro_torch/``;
-2. per hand-written kernel: one launch at the main path's shape through
-   the kernel and through its plain PyTorch version on the same inputs on
-   the card, compared (exactly for the int32 kernels, within the entry's
-   ``tol`` for the float32 ones), then both timed with CUDA events, the
-   median of 25 runs after warm-up.  ``ms`` is the kernel alone (its
-   written buffers restored between runs, outside the timed window);
-   ``call_ms`` adds the wrapper's functional copy of the written buffers;
-   ``bound_ms`` is the least time the card could take for the launch's
-   bytes and operations; ``library_ms`` times the one PyTorch call that
-   computes the same function, where there is one (lud's unpivoted
-   ``torch.linalg.lu_factor``);
-3. the main path: the eight Rodinia entries at Rodinia 3.1's run-script
+2. per hand-written kernel (14: srad_step, nn and kmeans run two kernels
+   an iteration): one launch at the main path's shape through the kernel
+   and through its plain PyTorch version on the same inputs on the card,
+   compared (bit for bit for the int32 kernels and for srad_stats, nn_*
+   and kmeans_*, within the entry's ``tol`` for the other float32 ones),
+   then both timed with CUDA events, the median of 25 runs after
+   warm-up.  A chain's first kernel runs on the entry's inputs, a later
+   one on the state that one launch of each kernel before it leaves.
+   ``ms`` is the kernel alone (its written buffers restored between runs,
+   outside the timed window); ``call_ms`` adds the wrapper's functional
+   copy of the written buffers; ``bound_ms`` is the least time the card
+   could take for the launch's bytes and operations; ``library_ms`` times
+   the one PyTorch call that computes the same function, where there is
+   one (lud's unpivoted ``torch.linalg.lu_factor``; the per-block sums of
+   ``x`` for srad_stats; the per-block ``torch.min`` of the distances for
+   nn_reduce, when its indices agree);
+3. the main path: the eleven Rodinia entries at Rodinia 3.1's run-script
    sizes through ``run_entry(entry, backend="cuda")`` - chevron/api/
    backends/``lower_cuda`` - with every launch count set to 0 just before
-   and read just after, each checked against the port's NumPy oracle
-   (timed, since lavaMD's runs 27,000 NumPy steps); four entries are
-   launch chains and four single launches; then needle_nw's host time per
-   launch, layer by layer;
+   and read just after; each kernel of the entry must have launched, and
+   their launches must sum to the chain's count.  Each entry is checked
+   against the port's NumPy oracle (timed, since lavaMD's runs 27,000
+   NumPy steps): integer buffers and all of kmeans's bit for bit, the
+   other float32 ones within the entry's ``tol``.  Seven entries are
+   launch chains and four single launches.  Every entry draws its inputs
+   from one generator seeded with ``SEED``, in the order of ``SIZES``.
+   Then needle_nw's host time per launch, layer by layer;
 4. the kernels' JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -54,6 +63,13 @@ F32_OPS_PER_S = 67e12            # H100 SXM float32 outside tensor cores
 #: throughput, compute capability 9.0) x 132 SMs x 1.98 GHz boost clock
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
 REPLACES = "src/repro/core/pallas_emit.py:34"
+#: float32 kernels held to the entry's tol against their plain versions
+#: (FMA contraction, exp, a fold in another order); every other kernel is
+#: held bit for bit
+TOLERANT = ("hotspot", "srad_update", "backprop_layer", "lud_diag",
+            "lavamd")
+#: entries whose float32 results the oracle fixes bit for bit
+EXACT_ENTRIES = ("kmeans",)
 SLEEP_CYCLES = 1_000_000         # keeps the card busy while a run enqueues
 RUNS, WARMUP = 25, 3
 
@@ -70,6 +86,15 @@ SIZES = {
     "lavamd": {"nboxes": 1000, "ppb": 100, "nnei": 27, "alpha": 0.5},
     # sc_gpu 10 20 256 65536 65536 ...: 65,536 points, kmax 20
     "streamcluster": {"n": 65536, "k": 20, "block": 64},
+    # the two-kernel chains come last, so that the entries above draw the
+    # same inputs from the one generator as they did before these three
+    # srad_v2: srad 2048 2048 0 127 0 127 0.5 2
+    "srad_step": {"h": 2048, "w": 2048, "iters": 2, "lam": 0.5},
+    # nn filelist_4 -r 5 -lat 30 -lng 90 (42,764 records, raised to the
+    # 256 x 256 that the one-block select takes)
+    "nn": {"n": 65536, "block": 256, "knn": 5},
+    # kmeans -o -i kdd_cup (494,020 points, 7,720 whole blocks of 64)
+    "kmeans": {"n": 494080, "k": 4, "block": 64, "repeat": 12},
 }
 
 
@@ -107,22 +132,14 @@ def entries(cuda_suite):
             for name, size in SIZES.items()}
 
 
-def geometry(entry):
-    """``(kernel, grid, block)`` of the launch phase 2 measures: a
-    chain's first step, or a plain entry's one launch."""
-    if entry.chain is None:
-        return entry.kernel, entry.grid, entry.block
-    step = entry.chain.steps[0]
-    return step.kernel, step.grid, step.block
-
-
 def launch_inputs(name: str, args: dict, cuda_suite, dev) -> dict:
-    """One launch's buffers on the card, at a state the main path reaches.
+    """The buffers of an entry's first launch on the card, at a state the
+    main path reaches.
 
     BFS takes the level with the widest frontier (the state before its
     expansion is fixed by the distances alone); nw its longest diagonal;
-    pathfinder and hotspot their chain's first launch; the single-launch
-    entries their one launch.
+    the other chains their first launch; the single-launch entries their
+    one launch.
     """
     args = dict(args)
     if name == "bfs_frontier":
@@ -140,7 +157,7 @@ def launch_inputs(name: str, args: dict, cuda_suite, dev) -> dict:
             for k, v in args.items()}
 
 
-def bound(name: str, b: dict, p: dict, grid) -> tuple[float, str]:
+def bound(name: str, b: dict, p: dict, grid, block) -> tuple[float, str]:
     """Least time (ms) the card could take for one launch: every byte the
     launch needs read once and every byte it writes written once, over
     the memory rate, against its operations over the peak rate of the
@@ -169,6 +186,30 @@ def bound(name: str, b: dict, p: dict, grid) -> tuple[float, str]:
         cells = p["h"] * p["w"]
         nbytes = i4 * 3 * cells                 # t, p in; t_out out
         ops_ms = 15.0 * cells / F32_OPS_PER_S * 1e3   # flops per cell
+    elif name == "srad_stats":
+        npix = p["h"] * p["w"]
+        nbytes = i4 * (npix + 2 * grid.x)        # x in; psum, psq out
+        ops_ms = 3.0 * npix / F32_OPS_PER_S * 1e3     # square, two adds
+    elif name == "srad_update":
+        npix = p["h"] * p["w"]
+        # x and the partials in; y out
+        nbytes = i4 * (2 * npix + b["psum"].numel() + b["psq"].numel())
+        # about 30 float operations per pixel, four of them divisions
+        ops_ms = 30.0 * npix / F32_OPS_PER_S * 1e3
+    elif name == "nn_reduce":
+        # lat, lng, taken, target in; pval, pidx out
+        nbytes = i4 * (3 * p["n"] + 2 + 2 * grid.x)
+    elif name == "nn_select":
+        # pval, pidx, step in; out_d, out_i, one taken flag out
+        nbytes = i4 * (2 * block.x + 1 + 3)
+    elif name == "kmeans_assign":
+        n, k = p["n"], p["k"]
+        # px, py, assign in, assign out; the centroids; sums, counts and
+        # changed read and written
+        nbytes = i4 * (4 * n + 2 * k + 2 * (3 * k + 1))
+        ops_ms = 5.0 * n * k / F32_OPS_PER_S * 1e3    # a distance per pair
+    elif name == "kmeans_update":
+        nbytes = i4 * 7 * p["k"]                 # sums, count, cx, cy; cx, cy
     elif name == "backprop_layer":
         weights = p["out_n"] * p["in_n"]
         # inp, w, bias, delta in; hidden, w_out out
@@ -210,14 +251,15 @@ def bound(name: str, b: dict, p: dict, grid) -> tuple[float, str]:
 
 def compare(name: str, got: dict, want: dict, writes, tol: float) -> float:
     """Max abs error of the kernel against its plain version; raises when
-    they disagree (exact for int32, ``tol`` for float32)."""
+    they disagree (``tol`` for the float32 results of the ``TOLERANT``
+    kernels, exact otherwise)."""
     err = 0.0
     for k in writes:
         g, w = got[k], want[k]
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"{name}: {k} is {g.dtype}{tuple(g.shape)}"
                                  f", plain gives {w.dtype}{tuple(w.shape)}")
-        if g.dtype == torch.float32:
+        if g.dtype == torch.float32 and name in TOLERANT:
             if not (torch.isfinite(g).all()
                     and torch.allclose(g, w, rtol=tol, atol=tol)):
                 raise AssertionError(f"{name}: {k} disagrees with plain")
@@ -227,18 +269,33 @@ def compare(name: str, got: dict, want: dict, writes, tol: float) -> float:
     return err
 
 
-def library_call(name: str, b: dict, params: dict, grid):
+def library_call(name: str, b: dict, params: dict, grid, block, got):
     """The one PyTorch call that computes the kernel's function, or None.
 
-    Timed beside the kernel as a yardstick; the port never calls it."""
+    Timed beside the kernel as a yardstick; the port never calls it.
+    srad_stats's call gives ``psum`` alone; nn_reduce's takes the
+    distances as its input and counts only where its indices are the
+    kernel's."""
     if name == "lud_diag":
         tile = params["b"]
         a = b["a"][:grid.x * tile].reshape(grid.x, tile, tile)
         return lambda: torch.linalg.lu_factor(a, pivot=False)
+    if name == "srad_stats":
+        xv = b["x"].view(grid.x, block.x)
+        return lambda: xv.sum(1)
+    if name == "nn_reduce":
+        tgt = b["target"]
+        d = (b["lat"] - tgt[0]) ** 2 + (b["lng"] - tgt[1]) ** 2
+        dv = torch.where(b["taken"] == 0, d, torch.inf).view(grid.x, block.x)
+        val, idx = torch.min(dv, 1)
+        rec = idx + block.x * torch.arange(grid.x, device=idx.device)
+        if torch.equal(rec.to(torch.int32), got["pidx"]):
+            return lambda: torch.min(dv, 1)
     return None
 
 
-def check_and_time(name, kern, b, params, grid, block, tol) -> dict:
+def check_and_time(name, kern, b, params, grid, block, tol):
+    """The kernel's row of the JSON line, and its launch's outputs."""
     got = kern(b, grid=grid, block=block, **params)
     want = kern.plain(b, grid, block, **params)
     torch.cuda.synchronize()
@@ -254,14 +311,14 @@ def check_and_time(name, kern, b, params, grid, block, tol) -> dict:
                  before=restore)
     call_ms = time_ms(lambda: kern(b, grid=grid, block=block, **params))
     plain_ms = time_ms(lambda: kern.plain(b, grid, block, **params))
-    lib = library_call(name, b, params, grid)
+    lib = library_call(name, b, params, grid, block, got)
     library_ms = None if lib is None else time_ms(lib)
-    bound_ms, bound_by = bound(name, b, params, grid)
+    bound_ms, bound_by = bound(name, b, params, grid, block)
     return {"name": name, "route": "cuda", "source": kern.source,
             "replaces": REPLACES, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
-            "call_ms": call_ms}
+            "call_ms": call_ms}, got
 
 
 def layer_us(entry, args: dict, dev, api, carry, kern, n=512) -> dict:
@@ -324,19 +381,27 @@ def main() -> int:
     host_args = {n: e.make_args(rng) for n, e in ents.items()}
 
     # ---- phase 2: each kernel against its plain version, and timed ------
-    rows = {}
+    rows, kernels_of = {}, {}
     for name, entry in ents.items():
-        kern = lower_cuda.KERNELS[name]
-        kernel, grid, block = geometry(entry)
-        grid, block = Dim3.of(grid), Dim3.of(block)
-        params = dict(kernel.native.params)
         b = launch_inputs(name, host_args[name], cuda_suite, dev)
-        rows[name] = r = check_and_time(name, kern, b, params, grid, block,
-                                        entry.tol)
-        print(f"kernel {name}: kernel_ms={r['ms']} call_ms={r['call_ms']} "
-              f"plain_ms={r['plain_ms']} bound_ms={r['bound_ms']} "
-              f"({r['bound_by']}) library_ms={r['library_ms']} "
-              f"max_abs_err={r['max_abs_err']}")
+        steps = cuda_suite.entry_steps(entry)
+        kernels_of[name] = [step.kernel.name for step in steps]
+        for j, step in enumerate(steps):
+            if j and step.prepare is not None:
+                b = {**b, **step.prepare(0, b)}
+            kname = step.kernel.name
+            kern = lower_cuda.KERNELS[kname]
+            grid, block = Dim3.of(step.grid), Dim3.of(step.block)
+            params = dict(step.kernel.native.params)
+            rows[kname], got = check_and_time(kname, kern, b, params, grid,
+                                              block, entry.tol)
+            r = rows[kname]
+            print(f"kernel {kname}: kernel_ms={r['ms']} "
+                  f"call_ms={r['call_ms']} plain_ms={r['plain_ms']} "
+                  f"bound_ms={r['bound_ms']} ({r['bound_by']}) "
+                  f"library_ms={r['library_ms']} "
+                  f"max_abs_err={r['max_abs_err']}")
+            b = {**b, **got}        # the state the next step starts from
         del b
     torch.cuda.synchronize()
 
@@ -359,7 +424,7 @@ def main() -> int:
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
         counts = {n: k.launches for n, k in lower_cuda.KERNELS.items()}
-        launches[name] = counts.pop(name)
+        launches[name] = {k: counts.pop(k) for k in kernels_of[name]}
         if any(counts.values()):
             raise AssertionError(f"{name}: other kernels launched: {counts}")
         for k, v in wants[name].items():
@@ -368,7 +433,8 @@ def main() -> int:
                     not np.allclose(got, v, rtol=entry.tol, atol=entry.tol):
                 raise AssertionError(f"{name}: {k} disagrees with the "
                                      f"oracle")
-            if v.dtype.kind == "i" and not np.array_equal(got, v):
+            exact = v.dtype.kind == "i" or name in EXACT_ENTRIES
+            if exact and not np.array_equal(got, v):
                 raise AssertionError(f"{name}: {k} not bit-identical")
         if name == "streamcluster":
             # the oracle has no ndirty: it counts the distinct centres
@@ -379,20 +445,24 @@ def main() -> int:
                 raise AssertionError(f"streamcluster: ndirty "
                                      f"{out['ndirty'].tolist()} != {moved}")
     for name, entry in ents.items():
-        ran = launches[name]
+        per_kernel = launches[name]
+        ran = sum(per_kernel.values())
         expect = 1 if entry.chain is None else stats[name].launches
-        if ran == 0 or ran != expect:
-            raise AssertionError(f"{name}: kernel counted {ran} launches, "
-                                 f"the entry ran {expect}")
-        rows[name]["launches"] = ran
+        if min(per_kernel.values()) == 0 or ran != expect:
+            raise AssertionError(f"{name}: kernels counted {per_kernel}, "
+                                 f"the entry ran {expect} launches")
+        for kname, count in per_kernel.items():
+            rows[kname]["launches"] = count
         print(f"main {name}: {SIZES[name]} wall_s={walls[name]} "
-              f"launches={ran} us_per_launch={walls[name] / ran * 1e6} "
+              f"launches={per_kernel} iterations={stats[name].iterations} "
+              f"host_syncs={stats[name].host_syncs} "
+              f"us_per_launch={walls[name] / ran * 1e6} "
               f"oracle_s={oracle_s[name]} oracle=match")
 
     nw = "needle_nw"
     layers = layer_us(ents[nw], host_args[nw], dev, api, carry,
                       lower_cuda.KERNELS[nw])
-    layers["chain_us"] = walls[nw] / launches[nw] * 1e6
+    layers["chain_us"] = walls[nw] / launches[nw][nw] * 1e6
     print(f"layers {nw}: " + " ".join(f"{k}={v}" for k, v in layers.items()))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

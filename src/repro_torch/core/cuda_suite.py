@@ -1,8 +1,9 @@
-"""CUDA-style kernel suite of the port: eight Rodinia kernels.
+"""CUDA-style kernel suite of the port: the eleven Rodinia entries.
 
-Each entry is a kernel written in the port's IR (stages over
-:class:`~repro_torch.core.kernel.Ctx`), a native descriptor naming its
-hand-written CUDA kernel for the ``cuda`` backend, and a NumPy oracle:
+Each entry is a kernel (two for srad_step, nn and kmeans) written in the
+port's IR (stages over :class:`~repro_torch.core.kernel.Ctx`), a native
+descriptor naming its hand-written CUDA kernel for the ``cuda`` backend,
+and a NumPy oracle:
 
 | kernel         | Rodinia       | features exercised                              |
 |----------------|---------------|-------------------------------------------------|
@@ -10,12 +11,15 @@ hand-written CUDA kernel for the ``cuda`` backend, and a NumPy oracle:
 | pathfinder     | pathfinder    | __shared__ halo, barrier, row chain             |
 | needle_nw      | nw            | anti-diagonal wavefront chain                   |
 | hotspot        | hotspot       | 2-D dim3, 2-D shared halo, const, ping-pong chain |
+| srad_step      | srad          | barrier-tree partials folded by a 2-D stencil kernel, two-kernel chain |
+| nn             | nn            | cane record files, lexicographic arg-min tree, two-kernel top-k chain |
+| kmeans         | kmeans        | contended float atomicAdd, two-kernel chain with a stop flag |
 | backprop_layer | backprop      | barrier-tree reduction, const, owned-slice writes |
 | lud_diag       | lud           | 2-D shared tile, b-1 barrier-separated steps    |
 | lavamd         | lavaMD        | neighbour-list gather into shared, register accumulator across barriers |
 | streamcluster  | streamcluster | contended atomicAdd, first-wins atomicCAS claims |
 
-The first four are launch chains; the last four are single launches.
+The first seven are launch chains; the last four are single launches.
 ``make_args`` and ``reference`` are NumPy, with the reference package's
 inputs for the same generator (the builders take size keywords whose
 defaults are the reference's sizes).  The BFS and NW oracles are
@@ -425,6 +429,283 @@ def make_streamcluster(n: int, k: int) -> KernelDef:
 
 
 # --------------------------------------------------------------------------
+# srad_step (Rodinia srad): speckle-reducing anisotropic diffusion.  Each
+# iteration is a two-kernel chain: a barrier-tree statistics reduction into
+# per-block partials, then a 2-D dim3 stencil update whose diffusion
+# coefficient comes from the image-wide statistics (the update kernel folds
+# the partials; Rodinia folds them on the host).
+# --------------------------------------------------------------------------
+def make_srad_stats(h: int, w: int, block: int) -> KernelDef:
+    npix = h * w
+    if block < 1 or block & (block - 1):
+        raise ValueError(f"srad_stats: block must be a power of two, got "
+                         f"{block}")
+
+    def load(ctx, st):
+        gid = _gid(ctx)
+        g = gid.clamp(max=npix - 1)
+        v = torch.where(gid < npix, index.take(st.glob["x"], g // w, g % w),
+                        0.0)
+        return st.set_shared(s1=index.put(st.shared["s1"], ctx.tid, v),
+                             s2=index.put(st.shared["s2"], ctx.tid, v * v))
+
+    def make_level(offset):
+        def level(ctx, st):
+            s1, s2 = st.shared["s1"], st.shared["s2"]
+            lower = ctx.tid < offset
+            m1, m2 = index.take(s1, ctx.tid), index.take(s2, ctx.tid)
+            n1 = torch.where(lower, m1 + index.take(s1, ctx.tid + offset), m1)
+            n2 = torch.where(lower, m2 + index.take(s2, ctx.tid + offset), m2)
+            return st.set_shared(s1=index.put(s1, ctx.tid, n1),
+                                 s2=index.put(s2, ctx.tid, n2))
+        return level
+
+    def store(ctx, st):
+        idx = _where(ctx.tid == 0, ctx.bid, OOB)
+        return st.set_glob(
+            psum=index.put(st.glob["psum"], idx, st.shared["s1"][0]),
+            psq=index.put(st.glob["psq"], idx, st.shared["s2"][0]))
+
+    stages = [load]
+    off = block // 2
+    while off >= 1:
+        stages.append(make_level(off))
+        off //= 2
+    stages.append(store)
+    return KernelDef(
+        "srad_stats", tuple(stages), writes=("psum", "psq"),
+        reads=("x", "psum", "psq"),
+        shared={"s1": ((block,), torch.float32),
+                "s2": ((block,), torch.float32)},
+        combines={"psum": "sum", "psq": "sum"},
+        donates=("psum", "psq"),
+        est_block_work=block * 8.0,
+        native=Native.of("srad_stats", h=h, w=w, nthreads=block),
+    )
+
+
+def make_srad_update(h: int, w: int, lam: float = 0.2, tile_y: int = 8,
+                     tile_x: int = 8) -> KernelDef:
+    npix = h * w
+
+    def stage(ctx, st):
+        tx, ty, _ = ctx.tid3
+        bx, by, _ = ctx.bid3
+        r, c = by * tile_y + ty, bx * tile_x + tx
+        x = st.glob["x"]
+        total = torch.sum(st.glob["psum"])
+        totsq = torch.sum(st.glob["psq"])
+        mean = total / npix
+        var = totsq / npix - mean * mean
+        q0 = var / (mean * mean)
+        rc, cc = r.clamp(0, h - 1), c.clamp(0, w - 1)
+
+        def at(rr, cx):
+            return index.take(x, rr.clamp(0, h - 1), cx.clamp(0, w - 1))
+
+        xc = index.take(x, rc, cc)
+        dn = at(rc - 1, cc) - xc
+        ds = at(rc + 1, cc) - xc
+        dw = at(rc, cc - 1) - xc
+        de = at(rc, cc + 1) - xc
+        g2 = (dn * dn + ds * ds + dw * dw + de * de) / (xc * xc)
+        ll = (dn + ds + dw + de) / xc
+        num = 0.5 * g2 - 0.0625 * (ll * ll)
+        den = (1.0 + 0.25 * ll) * (1.0 + 0.25 * ll)
+        q = num / den
+        cd = 1.0 / (1.0 + (q - q0) / (q0 * (1.0 + q0)))
+        cd = cd.clamp(0.0, 1.0)
+        v = xc + 0.25 * lam * cd * (dn + ds + dw + de)
+        idx = _where((r < h) & (c < w), rc, OOB)
+        return st.set_glob(y=index.put(st.glob["y"], (idx, cc), v))
+
+    native = (Native.of("srad_update", h=h, w=w, lam=lam)
+              if (tile_y, tile_x) == (8, 8) else None)
+    return KernelDef(
+        "srad_update", (stage,), writes=("y",),
+        reads=("x", "psum", "psq", "y"),
+        combines={"y": "sum"},
+        donates=("y",),
+        est_block_work=tile_y * tile_x * 24.0,
+        native=native,
+    )
+
+
+# --------------------------------------------------------------------------
+# nn (Rodinia nn): k-nearest-neighbour search over hurricane records read
+# through the cane text format (rodinia_io).  Each of the k output slots is
+# one chain iteration: a barrier-tree arg-min into per-block partials, then
+# a one-block final arg-min whose winner is appended to the output and
+# masked out of the next pass through the ``taken`` flags.  The (value,
+# index) pairs reduce lexicographically, so ties go to the lowest record
+# index, as np.argmin's first minimum does.
+# --------------------------------------------------------------------------
+def _nn_argmin_level(off):
+    def level(ctx, st):
+        sv, si = st.shared["sv"], st.shared["si"]
+        v1, i1 = index.take(sv, ctx.tid), index.take(si, ctx.tid)
+        v2 = index.take(sv, ctx.tid + off)
+        i2 = index.take(si, ctx.tid + off)
+        take = (ctx.tid < off) & ((v2 < v1) | ((v2 == v1) & (i2 < i1)))
+        return st.set_shared(
+            sv=index.put(sv, ctx.tid, torch.where(take, v2, v1)),
+            si=index.put(si, ctx.tid, torch.where(take, i2, i1)))
+    return level
+
+
+def _argmin_stages(load, store, width: int) -> tuple:
+    stages = [load]
+    off = width // 2
+    while off >= 1:
+        stages.append(_nn_argmin_level(off))
+        off //= 2
+    return (*stages, store)
+
+
+def make_nn_reduce(n: int, block: int) -> KernelDef:
+    if block < 1 or block & (block - 1):
+        raise ValueError(f"nn_reduce: block must be a power of two, got "
+                         f"{block}")
+
+    def load(ctx, st):
+        i = _gid(ctx)
+        g = i.clamp(max=n - 1)
+        tgt = st.glob["target"]
+        dx = index.take(st.glob["lat"], g) - tgt[0]
+        dy = index.take(st.glob["lng"], g) - tgt[1]
+        d = dx * dx + dy * dy
+        d = torch.where((i < n) & (index.take(st.glob["taken"], g) == 0), d,
+                        torch.inf)
+        return st.set_shared(sv=index.put(st.shared["sv"], ctx.tid, d),
+                             si=index.put(st.shared["si"], ctx.tid, g))
+
+    def store(ctx, st):
+        idx = _where(ctx.tid == 0, ctx.bid, OOB)
+        return st.set_glob(
+            pval=index.put(st.glob["pval"], idx, st.shared["sv"][0]),
+            pidx=index.put(st.glob["pidx"], idx, st.shared["si"][0]))
+
+    return KernelDef(
+        "nn_reduce", _argmin_stages(load, store, block),
+        writes=("pval", "pidx"),
+        reads=("lat", "lng", "target", "taken", "pval", "pidx"),
+        shared={"sv": ((block,), torch.float32),
+                "si": ((block,), torch.int32)},
+        combines={"pval": "concat", "pidx": "concat"},
+        donates=("pval", "pidx"),
+        est_block_work=block * 8.0,
+        native=Native.of("nn_reduce", n=n, nthreads=block),
+    )
+
+
+def make_nn_select(nblocks: int) -> KernelDef:
+    if nblocks < 1 or nblocks & (nblocks - 1):
+        raise ValueError(f"nn_select: nblocks must be a power of two, got "
+                         f"{nblocks}")
+
+    def load(ctx, st):
+        return st.set_shared(
+            sv=index.put(st.shared["sv"], ctx.tid,
+                         index.take(st.glob["pval"], ctx.tid)),
+            si=index.put(st.shared["si"], ctx.tid,
+                         index.take(st.glob["pidx"], ctx.tid)))
+
+    def store(ctx, st):
+        step = st.glob["step"][0]
+        win_v, win_i = st.shared["sv"][0], st.shared["si"][0]
+        oidx = _where(ctx.tid == 0, step, OOB)
+        return st.set_glob(
+            out_d=index.put(st.glob["out_d"], oidx, win_v),
+            out_i=index.put(st.glob["out_i"], oidx, win_i),
+            taken=index.put(st.glob["taken"], _where(ctx.tid == 0, win_i, OOB),
+                            1))
+
+    return KernelDef(
+        "nn_select", _argmin_stages(load, store, nblocks),
+        writes=("out_d", "out_i", "taken"),
+        reads=("pval", "pidx", "step", "out_d", "out_i", "taken"),
+        shared={"sv": ((nblocks,), torch.float32),
+                "si": ((nblocks,), torch.int32)},
+        combines={"out_d": "sum", "out_i": "sum", "taken": "max"},
+        est_block_work=nblocks * 6.0,
+        native=Native.of("nn_select", nblocks=nblocks),
+    )
+
+
+# --------------------------------------------------------------------------
+# kmeans (Rodinia kmeans): Lloyd iterations as a LaunchChain with a stop
+# flag.  The assign kernel labels every point with its nearest centroid and
+# adds per-cluster coordinate sums, counts and a moved-points counter with
+# atomicAdd; the update kernel recomputes the centroids from the sums.  The
+# coordinates are integer-valued floats, so every sum and the centroid
+# division are exact on every backend.
+# --------------------------------------------------------------------------
+def make_kmeans_assign(n: int, k: int) -> KernelDef:
+    def stage(ctx, st):
+        i = _gid(ctx)
+        g = i.clamp(max=n - 1)
+        px, py = index.take(st.glob["px"], g), index.take(st.glob["py"], g)
+        cx, cy = st.glob["cx"], st.glob["cy"]
+
+        def dist(c):
+            dx, dy = px - cx[c], py - cy[c]
+            return dx * dx + dy * dy
+
+        best = torch.zeros_like(g)
+        bestd = dist(0)
+        for c in range(1, k):
+            dc = dist(c)
+            closer = dc < bestd          # strict: ties keep the lower c
+            best = torch.where(closer, c, best)
+            bestd = torch.where(closer, dc, bestd)
+        valid = i < n
+        moved = valid & (index.take(st.glob["assign"], g) != best)
+        changed = ctx.atomic_add(st.glob["changed"], _where(moved, 0, OOB), 1)
+        assign = index.put(st.glob["assign"], _where(valid, i, OOB), best)
+        bidx = _where(valid, best, OOB)
+        return st.set_glob(
+            changed=changed, assign=assign,
+            sumx=ctx.atomic_add(st.glob["sumx"], bidx, px),
+            sumy=ctx.atomic_add(st.glob["sumy"], bidx, py),
+            count=ctx.atomic_add(st.glob["count"], bidx, 1))
+
+    return KernelDef(
+        "kmeans_assign", (stage,),
+        writes=("assign", "changed", "sumx", "sumy", "count"),
+        reads=("px", "py", "cx", "cy", "assign", "changed", "sumx", "sumy",
+               "count"),
+        combines={"assign": "concat", "changed": "sum", "sumx": "sum",
+                  "sumy": "sum", "count": "sum"},
+        donates=("changed", "sumx", "sumy", "count"),
+        est_block_work=k * 64.0,
+        native=Native.of("kmeans_assign", n=n, k=k),
+    )
+
+
+def make_kmeans_update(k: int) -> KernelDef:
+    def stage(ctx, st):
+        c = ctx.bid
+        cnt = index.take(st.glob["count"], c)
+        safe = cnt.clamp(min=1).to(torch.float32)
+        empty = cnt == 0                 # an empty cluster keeps its centroid
+        nx = torch.where(empty, index.take(st.glob["cx"], c),
+                         index.take(st.glob["sumx"], c) / safe)
+        ny = torch.where(empty, index.take(st.glob["cy"], c),
+                         index.take(st.glob["sumy"], c) / safe)
+        idx = _where(ctx.tid == 0, c, OOB)
+        return st.set_glob(cx=index.put(st.glob["cx"], idx, nx),
+                           cy=index.put(st.glob["cy"], idx, ny))
+
+    return KernelDef(
+        "kmeans_update", (stage,), writes=("cx", "cy"),
+        reads=("sumx", "sumy", "count", "cx", "cy"),
+        combines={"cx": "concat", "cy": "concat"},
+        est_block_work=16.0,
+        native=Native.of("kmeans_update", k=k),
+    )
+
+
+# --------------------------------------------------------------------------
 # Suite registry: kernel + launch config + inputs + numpy oracle
 # --------------------------------------------------------------------------
 @dataclasses.dataclass
@@ -450,6 +731,16 @@ class SuiteEntry:
     const: tuple[str, ...] = ()
     tol: float = 2e-5
     rodinia: str = ""
+
+
+def entry_steps(entry: SuiteEntry) -> tuple[ChainStep, ...]:
+    """The launches of one iteration: a chain's steps in order (two
+    different kernels for srad_step, nn and kmeans), or a plain entry's
+    one launch."""
+    if entry.chain is None:
+        return (ChainStep(entry.kernel, entry.grid, entry.block,
+                          entry.dyn_shared),)
+    return tuple(entry.chain.steps)
 
 
 def run_entry(entry: SuiteEntry, backend: str = "loop", *, rng=None,
@@ -699,6 +990,183 @@ def entry_hotspot(h: int = 32, w: int = 64, iters: int = 4,
         "hotspot", ("barrier", "dim3", "chain", "const"), kernel,
         (w // 8, h // 8), (8, 8), None, margs, ref, chain=chain,
         const=("p",), tol=1e-4, rodinia="hotspot")
+
+
+def entry_srad_step(scale: int = 1, iters: int = 2, lam: float = 0.2, *,
+                    h: int = 32, w: int | None = None) -> SuiteEntry:
+    w = 64 * scale if w is None else w
+    block = 128
+    npix = h * w
+    grid1 = npix // block
+    stats_k = make_srad_stats(h, w, block)
+    update_k = make_srad_update(h, w, lam)
+
+    def margs(r):
+        return {"x": np.exp(0.1 * r.standard_normal((h, w))
+                            ).astype(np.float32),
+                "y": np.zeros((h, w), np.float32),
+                "psum": np.zeros(grid1, np.float32),
+                "psq": np.zeros(grid1, np.float32)}
+
+    def ref(a):
+        x = np.asarray(a["x"]).astype(np.float32).copy()
+        for _ in range(iters):
+            total = x.sum(dtype=np.float32)
+            totsq = (x * x).sum(dtype=np.float32)
+            mean = total / npix
+            var = totsq / npix - mean * mean
+            q0 = var / (mean * mean)
+            xp = np.pad(x, 1, mode="edge")
+            dn = xp[:-2, 1:-1] - x
+            ds = xp[2:, 1:-1] - x
+            dw = xp[1:-1, :-2] - x
+            de = xp[1:-1, 2:] - x
+            g2 = (dn * dn + ds * ds + dw * dw + de * de) / (x * x)
+            ll = (dn + ds + dw + de) / x
+            num = 0.5 * g2 - 0.0625 * (ll * ll)
+            den = (1.0 + 0.25 * ll) * (1.0 + 0.25 * ll)
+            q = num / den
+            cd = np.clip(1.0 / (1.0 + (q - q0) / (q0 * (1.0 + q0))), 0, 1)
+            x = (x + 0.25 * lam * cd * (dn + ds + dw + de)
+                 ).astype(np.float32)
+        return {"y": x}
+
+    def prep_stats(it, bufs):
+        if it == 0:
+            return {}
+        # x <-> y ping-pong, partials re-zeroed
+        return {"x": bufs["y"], "y": torch.zeros_like(bufs["y"]),
+                "psum": torch.zeros_like(bufs["psum"]),
+                "psq": torch.zeros_like(bufs["psq"])}
+
+    chain = LaunchChain(
+        steps=(ChainStep(stats_k, grid1, block, prepare=prep_stats),
+               ChainStep(update_k, (w // 8, h // 8), (8, 8))),
+        repeat=iters,
+    )
+    return SuiteEntry(
+        "srad_step", ("barrier", "dim3", "chain"), stats_k, grid1, block,
+        None, margs, ref, chain=chain, tol=1e-4, rodinia="srad")
+
+
+def entry_nn(n: int = 256, block: int = 64, knn: int = 8) -> SuiteEntry:
+    grid = n // block
+    reduce_k = make_nn_reduce(n, block)
+    select_k = make_nn_select(grid)
+
+    def margs(r):
+        lat = r.uniform(0.0, 90.0, n).astype(np.float32)
+        lng = r.uniform(0.0, 180.0, n).astype(np.float32)
+        # round-trip through the cane record-file format: the parsed
+        # arrays are what the kernels and the oracle both consume
+        lat, lng = rodinia_io.parse_records(
+            rodinia_io.format_records(lat, lng))
+        return {"lat": lat, "lng": lng,
+                "target": np.asarray([30.0, 90.0], np.float32),
+                "taken": np.zeros(n, np.int32),
+                "pval": np.zeros(grid, np.float32),
+                "pidx": np.zeros(grid, np.int32),
+                "out_d": np.zeros(knn, np.float32),
+                "out_i": np.zeros(knn, np.int32),
+                "step": np.zeros(1, np.int32)}
+
+    def ref(a):
+        lat = np.asarray(a["lat"], np.float32)
+        lng = np.asarray(a["lng"], np.float32)
+        tgt = np.asarray(a["target"], np.float32)
+        work = (lat - tgt[0]) ** 2 + (lng - tgt[1]) ** 2
+        taken = np.zeros(n, np.int32)
+        out_d = np.zeros(knn, np.float32)
+        out_i = np.zeros(knn, np.int32)
+        for t in range(knn):
+            w = int(np.argmin(work))     # first minimum: lowest index
+            out_d[t] = work[w]
+            out_i[t] = w
+            taken[w] = 1
+            work[w] = np.inf
+        return {"out_d": out_d, "out_i": out_i, "taken": taken}
+
+    chain = LaunchChain(
+        steps=(ChainStep(reduce_k, grid, block),
+               ChainStep(select_k, 1, grid,
+                         prepare=lambda it, bufs: {
+                             "step": _scalar(it, bufs)})),
+        repeat=knn,
+    )
+    return SuiteEntry(
+        "nn", ("barrier", "chain", "const"), reduce_k, grid, block, None,
+        margs, ref, chain=chain, const=("lat", "lng", "target"),
+        rodinia="nn")
+
+
+def entry_kmeans(n: int = 256, k: int = 4, block: int = 64,
+                 repeat: int = 12) -> SuiteEntry:
+    grid = n // block
+    assign_k = make_kmeans_assign(n, k)
+    update_k = make_kmeans_update(k)
+
+    def margs(r):
+        centers = np.asarray([[10, 10], [40, 12], [12, 44], [44, 40]],
+                             np.float32)[:k]
+        which = r.integers(0, k, n)
+        px = (centers[which, 0] + r.integers(-4, 5, n)).astype(np.float32)
+        py = (centers[which, 1] + r.integers(-4, 5, n)).astype(np.float32)
+        return {"px": px, "py": py,
+                "cx": px[:k].copy(), "cy": py[:k].copy(),
+                "assign": np.zeros(n, np.int32),
+                "changed": np.zeros(1, np.int32),
+                "sumx": np.zeros(k, np.float32),
+                "sumy": np.zeros(k, np.float32),
+                "count": np.zeros(k, np.int32)}
+
+    def ref(a):
+        px = np.asarray(a["px"], np.float32)
+        py = np.asarray(a["py"], np.float32)
+        cx = np.asarray(a["cx"], np.float32).copy()
+        cy = np.asarray(a["cy"], np.float32).copy()
+        assign = np.asarray(a["assign"]).copy()
+        sx = np.zeros(k, np.float32)
+        sy = np.zeros(k, np.float32)
+        cnt = np.zeros(k, np.int32)
+        moved = 0
+        for _ in range(repeat):
+            d = ((px[:, None] - cx[None, :]) ** 2
+                 + (py[:, None] - cy[None, :]) ** 2)
+            best = np.argmin(d, axis=1).astype(np.int32)
+            moved = int((best != assign).sum())
+            assign = best
+            cnt = np.bincount(best, minlength=k).astype(np.int32)
+            sx = np.bincount(best, weights=px,
+                             minlength=k).astype(np.float32)
+            sy = np.bincount(best, weights=py,
+                             minlength=k).astype(np.float32)
+            safe = np.maximum(cnt, 1).astype(np.float32)
+            cx = np.where(cnt == 0, cx, sx / safe).astype(np.float32)
+            cy = np.where(cnt == 0, cy, sy / safe).astype(np.float32)
+            if moved == 0:
+                break
+        return {"assign": assign, "cx": cx, "cy": cy, "count": cnt,
+                "sumx": sx, "sumy": sy,
+                "changed": np.asarray([moved], np.int32)}
+
+    def prep_assign(it, bufs):
+        if it == 0:
+            return {}
+        # the per-iteration accumulators, re-zeroed
+        return {name: torch.zeros_like(bufs[name])
+                for name in ("changed", "sumx", "sumy", "count")}
+
+    chain = LaunchChain(
+        steps=(ChainStep(assign_k, grid, block, prepare=prep_assign),
+               ChainStep(update_k, k, 8)),
+        repeat=repeat,                # upper bound; the stop flag ends it
+        # read back to the host once per iteration, as the reference's
+        # host mode does
+        stop=lambda bufs: int(bufs["changed"][0]) == 0,
+    )
+    return SuiteEntry(
+        "kmeans", ("atomic", "chain"), assign_k, grid, block, None,
+        margs, ref, chain=chain, const=("px", "py"), rodinia="kmeans")
 
 
 def entry_backprop_layer(in_n: int = 64, out_n: int = 16,

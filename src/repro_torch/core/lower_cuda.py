@@ -134,6 +134,18 @@ def _one_dim(name):
     return check
 
 
+def _halving_tree(*rows: torch.Tensor) -> list[torch.Tensor]:
+    """Column 0 of each ``[blocks, width]`` tensor after the barrier tree
+    that adds ``s[t + off]`` into ``s[t]`` for ``t < off``, ``off`` from
+    ``width / 2`` down to 1: the kernels' order of additions."""
+    rows = list(rows)
+    off = rows[0].shape[1] // 2
+    while off >= 1:
+        rows = [r[:, :off] + r[:, off:2 * off] for r in rows]
+        off //= 2
+    return [r[:, 0] for r in rows]
+
+
 # --------------------------------------------------------------------------
 # bfs_frontier
 # --------------------------------------------------------------------------
@@ -338,12 +350,7 @@ def backprop_layer_plain(bufs, grid: Dim3, block: Dim3, *, in_n: int,
     weight update ``w + lr * delta * inp``."""
     rows = grid.x
     w, inp = bufs["w"][:rows], bufs["inp"]
-    s = inp[None, :] * w
-    off = in_n // 2
-    while off >= 1:
-        s = s[:, :off] + s[:, off:2 * off]
-        off //= 2
-    total = s[:, 0] + bufs["bias"][:rows]
+    total = _halving_tree(inp[None, :] * w)[0] + bufs["bias"][:rows]
     hidden, w_out = bufs["hidden"].clone(), bufs["w_out"].clone()
     hidden[:rows] = 1.0 / (1.0 + torch.exp(-total))
     w_out[:rows] = w + lr * bufs["delta"][:rows, None] * inp[None, :]
@@ -537,9 +544,289 @@ STREAMCLUSTER = CudaKernel(
     source="src/repro_torch/csrc/streamcluster.cu")
 
 
+# --------------------------------------------------------------------------
+# srad_stats, srad_update
+# --------------------------------------------------------------------------
+SRAD_TILE = 8
+
+
+def _pow2_block(name: str, block: Dim3, nthreads: int) -> None:
+    b = block.x
+    if b < 1 or b & (b - 1) or b > 1024 or b != nthreads:
+        raise UnsupportedKernel(f"{name}: the tree runs over a block of "
+                                f"{nthreads} threads, a power of two up to "
+                                f"1024; got block {b}")
+
+
+def srad_stats_plain(b, grid: Dim3, block: Dim3, *, h: int, w: int,
+                     nthreads: int):
+    """Per-block sums of ``x`` and ``x * x``, in the tree's order."""
+    npix, nb, bs = h * w, grid.x, block.x
+    gid = torch.arange(nb * bs, device=b["x"].device)
+    v = torch.where(gid < npix, b["x"].reshape(-1)[gid.clamp(max=npix - 1)],
+                    0.0).view(nb, bs)
+    s1, s2 = _halving_tree(v, v * v)
+    bid = torch.arange(nb, device=v.device)
+    return {"psum": index.put(b["psum"], bid, s1),
+            "psq": index.put(b["psq"], bid, s2)}
+
+
+def _srad_stats_check(grid: Dim3, block: Dim3, params: dict):
+    _one_dim("srad_stats")(grid, block, params)
+    _pow2_block("srad_stats", block, params["nthreads"])
+    if params["h"] * params["w"] >= _INT_MAX:
+        raise UnsupportedKernel("srad_stats: h*w overflows int32")
+
+
+SRAD_STATS = CudaKernel(
+    name="srad_stats", symbol="launch_srad_stats",
+    argtypes=(_P,) * 3 + (_I,) * 5 + (_P,),
+    buffers={"x": _F32, "psum": _F32, "psq": _F32},
+    writes=("psum", "psq"),
+    shapes=lambda *, h, w, nthreads: {
+        "x": (h, w), "psum": (h * w // nthreads,),
+        "psq": (h * w // nthreads,)},
+    check=_srad_stats_check, plain=srad_stats_plain,
+    cargs=lambda b, grid, block, *, h, w, nthreads: [
+        _ptr(b["x"]), _ptr(b["psum"]), _ptr(b["psq"]), h * w,
+        b["psum"].numel(), b["psq"].numel(), grid.x, block.x],
+    source="src/repro_torch/csrc/srad.cu")
+
+
+def srad_update_plain(b, grid: Dim3, block: Dim3, *, h: int, w: int,
+                      lam: float):
+    """One diffusion step over the pixels the grid covers, edges clamped,
+    with q0 from the totals of the partials."""
+    x = b["x"]
+    npix = h * w
+    mean = torch.sum(b["psum"]) / npix
+    var = torch.sum(b["psq"]) / npix - mean * mean
+    q0 = var / (mean * mean)
+    nr, nc = min(h, grid.y * block.y), min(w, grid.x * block.x)
+    r = torch.arange(nr, device=x.device)[:, None]
+    c = torch.arange(nc, device=x.device)[None, :]
+
+    def at(rr, cc):
+        return x[rr.clamp(0, h - 1), cc.clamp(0, w - 1)]
+
+    xc = x[:nr, :nc]
+    dn, ds = at(r - 1, c) - xc, at(r + 1, c) - xc
+    dw, de = at(r, c - 1) - xc, at(r, c + 1) - xc
+    g2 = (dn * dn + ds * ds + dw * dw + de * de) / (xc * xc)
+    ll = (dn + ds + dw + de) / xc
+    num = 0.5 * g2 - 0.0625 * (ll * ll)
+    den = (1.0 + 0.25 * ll) * (1.0 + 0.25 * ll)
+    q = num / den
+    cd = (1.0 / (1.0 + (q - q0) / (q0 * (1.0 + q0)))).clamp(0.0, 1.0)
+    y = b["y"].clone()
+    y[:nr, :nc] = xc + 0.25 * lam * cd * (dn + ds + dw + de)
+    return {"y": y}
+
+
+def _srad_update_check(grid: Dim3, block: Dim3, params: dict):
+    if block != Dim3(SRAD_TILE, SRAD_TILE) or grid.z != 1:
+        raise UnsupportedKernel(f"srad_update: the kernel's shared tile is "
+                                f"{SRAD_TILE}x{SRAD_TILE} over a 2-D grid; "
+                                f"got {grid} x {block}")
+
+
+SRAD_UPDATE = CudaKernel(
+    name="srad_update", symbol="launch_srad_update",
+    argtypes=(_P,) * 5 + (_I,) * 4 + (_F,) * 2 + (_I,) * 2 + (_P,),
+    buffers={"x": _F32, "psum": _F32, "psq": _F32, "y": _F32},
+    writes=("y",),
+    shapes=lambda *, h, w, lam: {"x": (h, w), "y": (h, w)},
+    check=_srad_update_check, plain=srad_update_plain,
+    # the launch's two totals: the fold pass writes them, the stencil
+    # reads them
+    scratch=lambda b, **_: {"tot": torch.empty(2, dtype=_F32,
+                                               device=b["x"].device)},
+    cargs=lambda b, grid, block, *, h, w, lam: [
+        _ptr(b["x"]), _ptr(b["psum"]), _ptr(b["psq"]), _ptr(b["tot"]),
+        _ptr(b["y"]), h, w, b["psum"].numel(), b["psq"].numel(),
+        float(h * w), 0.25 * lam, grid.x, grid.y],
+    source="src/repro_torch/csrc/srad.cu")
+
+
+# --------------------------------------------------------------------------
+# nn_reduce, nn_select
+# --------------------------------------------------------------------------
+def _lexicographic_min(v: torch.Tensor, i: torch.Tensor):
+    """The least (value, index) pair of each row: the minimum value, and
+    the lowest index that holds it.  Any tree of the kernels' pairwise
+    step gives this pair, whatever its order."""
+    m = v.amin(dim=-1, keepdim=True)
+    win = torch.where(v == m, i, _INT_MAX).amin(dim=-1)
+    return m.squeeze(-1), win
+
+
+def nn_reduce_plain(b, grid: Dim3, block: Dim3, *, n: int, nthreads: int):
+    """Each block's nearest untaken record to the target."""
+    nb, bs = grid.x, block.x
+    i = torch.arange(nb * bs, device=b["lat"].device)
+    g = i.clamp(max=n - 1)
+    tgt = b["target"]
+    dx, dy = b["lat"][g] - tgt[0], b["lng"][g] - tgt[1]
+    d = torch.where((i < n) & (b["taken"][g] == 0), dx * dx + dy * dy,
+                    torch.inf)
+    val, win = _lexicographic_min(d.view(nb, bs), g.view(nb, bs))
+    bid = torch.arange(nb, device=d.device)
+    return {"pval": index.put(b["pval"], bid, val),
+            "pidx": index.put(b["pidx"], bid, win)}
+
+
+def _nn_reduce_check(grid: Dim3, block: Dim3, params: dict):
+    _one_dim("nn_reduce")(grid, block, params)
+    _pow2_block("nn_reduce", block, params["nthreads"])
+
+
+NN_REDUCE = CudaKernel(
+    name="nn_reduce", symbol="launch_nn_reduce",
+    argtypes=(_P,) * 6 + (_I,) * 5 + (_P,),
+    buffers={"lat": _F32, "lng": _F32, "target": _F32, "taken": _I32,
+             "pval": _F32, "pidx": _I32},
+    writes=("pval", "pidx"),
+    shapes=lambda *, n, nthreads: {"lat": (n,), "lng": (n,), "taken": (n,),
+                                   "target": (2,)},
+    check=_nn_reduce_check, plain=nn_reduce_plain,
+    cargs=lambda b, grid, block, *, n, nthreads: [
+        _ptr(b["lat"]), _ptr(b["lng"]), _ptr(b["target"]), _ptr(b["taken"]),
+        _ptr(b["pval"]), _ptr(b["pidx"]), n, b["pval"].numel(),
+        b["pidx"].numel(), grid.x, block.x],
+    source="src/repro_torch/csrc/nn.cu")
+
+
+def nn_select_plain(b, grid: Dim3, block: Dim3, *, nblocks: int):
+    """The least of the partials goes to output slot ``step[0]``, and its
+    record is marked taken."""
+    val, win = _lexicographic_min(b["pval"], b["pidx"])
+    step = b["step"][0]
+    return {"out_d": index.put(b["out_d"], step, val),
+            "out_i": index.put(b["out_i"], step, win),
+            "taken": index.put(b["taken"], win, 1)}
+
+
+def _nn_select_check(grid: Dim3, block: Dim3, params: dict):
+    _one_dim("nn_select")(grid, block, params)
+    _pow2_block("nn_select", block, params["nblocks"])
+
+
+NN_SELECT = CudaKernel(
+    name="nn_select", symbol="launch_nn_select",
+    argtypes=(_P,) * 6 + (_I,) * 5 + (_P,),
+    buffers={"pval": _F32, "pidx": _I32, "step": _I32, "out_d": _F32,
+             "out_i": _I32, "taken": _I32},
+    writes=("out_d", "out_i", "taken"),
+    shapes=lambda *, nblocks: {"pval": (nblocks,), "pidx": (nblocks,),
+                               "step": (1,)},
+    check=_nn_select_check, plain=nn_select_plain,
+    cargs=lambda b, grid, block, *, nblocks: [
+        _ptr(b["pval"]), _ptr(b["pidx"]), _ptr(b["step"]), _ptr(b["out_d"]),
+        _ptr(b["out_i"]), _ptr(b["taken"]), b["out_d"].numel(),
+        b["out_i"].numel(), b["taken"].numel(), grid.x, block.x],
+    source="src/repro_torch/csrc/nn.cu")
+
+
+# --------------------------------------------------------------------------
+# kmeans_assign, kmeans_update
+# --------------------------------------------------------------------------
+KMEANS_MAX_K = 32                # the assign kernel's __shared__ bins
+
+
+def kmeans_assign_plain(b, grid: Dim3, block: Dim3, *, n: int, k: int):
+    """Nearest centroid of each point the grid covers (ties to the lower
+    centre), with the per-cluster sums, counts and moved points added."""
+    m = min(n, grid.size * block.size)
+    px, py, cx, cy = b["px"][:m], b["py"][:m], b["cx"], b["cy"]
+
+    def dist(c):
+        dx, dy = px - cx[c], py - cy[c]
+        return dx * dx + dy * dy
+
+    best = torch.zeros(m, dtype=_I32, device=px.device)
+    bestd = dist(0)
+    for c in range(1, k):
+        dc = dist(c)
+        closer = dc < bestd
+        best = torch.where(closer, c, best)
+        bestd = torch.where(closer, dc, bestd)
+    moved = (b["assign"][:m] != best).sum(dtype=_I32)
+    assign = b["assign"].clone()
+    assign[:m] = best
+    lbl = best.long()
+    return {"assign": assign, "changed": b["changed"] + moved,
+            "sumx": b["sumx"].index_add(0, lbl, px),
+            "sumy": b["sumy"].index_add(0, lbl, py),
+            "count": b["count"] + torch.bincount(lbl, minlength=k).to(_I32)}
+
+
+def _kmeans_assign_check(grid: Dim3, block: Dim3, params: dict):
+    _one_dim("kmeans_assign")(grid, block, params)
+    if block.x % 32 or block.x > 1024:
+        raise UnsupportedKernel(f"kmeans_assign: the sums are reduced per "
+                                f"full warp; block {block.x} is not a "
+                                f"multiple of 32 up to 1024")
+    if not 1 <= params["k"] <= KMEANS_MAX_K:
+        raise UnsupportedKernel(f"kmeans_assign: k = {params['k']}; the "
+                                f"kernel holds 1 to {KMEANS_MAX_K} clusters")
+
+
+KMEANS_ASSIGN = CudaKernel(
+    name="kmeans_assign", symbol="launch_kmeans_assign",
+    argtypes=(_P,) * 9 + (_I,) * 4 + (_P,),
+    buffers={"px": _F32, "py": _F32, "cx": _F32, "cy": _F32,
+             "assign": _I32, "changed": _I32, "sumx": _F32, "sumy": _F32,
+             "count": _I32},
+    writes=("assign", "changed", "sumx", "sumy", "count"),
+    shapes=lambda *, n, k: {
+        "px": (n,), "py": (n,), "assign": (n,), "cx": (k,), "cy": (k,),
+        "sumx": (k,), "sumy": (k,), "count": (k,), "changed": (1,)},
+    check=_kmeans_assign_check, plain=kmeans_assign_plain,
+    cargs=lambda b, grid, block, *, n, k: [
+        *(_ptr(b[name]) for name in (
+            "px", "py", "cx", "cy", "assign", "changed", "sumx", "sumy",
+            "count")),
+        n, k, grid.x, block.x],
+    source="src/repro_torch/csrc/kmeans.cu")
+
+
+def kmeans_update_plain(b, grid: Dim3, block: Dim3, *, k: int):
+    """Each cluster's centroid: its sums over its count (IEEE division);
+    an empty cluster keeps its centroid."""
+    cnt = b["count"]
+    safe = cnt.clamp(min=1).to(_F32)
+    empty = cnt == 0
+    return {"cx": torch.where(empty, b["cx"], b["sumx"] / safe),
+            "cy": torch.where(empty, b["cy"], b["sumy"] / safe)}
+
+
+def _kmeans_update_check(grid: Dim3, block: Dim3, params: dict):
+    _one_dim("kmeans_update")(grid, block, params)
+    if grid.x != params["k"]:
+        raise UnsupportedKernel(f"kmeans_update: one block per cluster; "
+                                f"grid {grid.x} != k = {params['k']}")
+
+
+KMEANS_UPDATE = CudaKernel(
+    name="kmeans_update", symbol="launch_kmeans_update",
+    argtypes=(_P,) * 5 + (_I,) * 2 + (_P,),
+    buffers={"sumx": _F32, "sumy": _F32, "count": _I32, "cx": _F32,
+             "cy": _F32},
+    writes=("cx", "cy"),
+    shapes=lambda *, k: {name: (k,) for name in (
+        "sumx", "sumy", "count", "cx", "cy")},
+    check=_kmeans_update_check, plain=kmeans_update_plain,
+    cargs=lambda b, grid, block, *, k: [
+        _ptr(b["sumx"]), _ptr(b["sumy"]), _ptr(b["count"]), _ptr(b["cx"]),
+        _ptr(b["cy"]), k, block.x],
+    source="src/repro_torch/csrc/kmeans.cu")
+
+
 KERNELS: dict[str, CudaKernel] = {
     k.name: k for k in (BFS_FRONTIER, PATHFINDER, NEEDLE_NW, HOTSPOT,
-                        BACKPROP_LAYER, LUD_DIAG, LAVAMD, STREAMCLUSTER)}
+                        SRAD_STATS, SRAD_UPDATE, NN_REDUCE, NN_SELECT,
+                        KMEANS_ASSIGN, KMEANS_UPDATE, BACKPROP_LAYER,
+                        LUD_DIAG, LAVAMD, STREAMCLUSTER)}
 
 
 def kernel_for(kernel: KernelDef) -> CudaKernel:

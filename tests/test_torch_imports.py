@@ -50,8 +50,8 @@ def test_kernel_sources_live_in_the_port():
     from repro_torch.core import _native
     srcs = [p.name for p in _native.sources()]
     assert srcs == ["backprop_layer.cu", "bfs_frontier.cu", "hotspot.cu",
-                    "lavamd.cu", "lud_diag.cu", "needle_nw.cu",
-                    "pathfinder.cu", "streamcluster.cu"]
+                    "kmeans.cu", "lavamd.cu", "lud_diag.cu", "needle_nw.cu",
+                    "nn.cu", "pathfinder.cu", "srad.cu", "streamcluster.cu"]
     for p in _native.sources():
         assert p.parent == PORT / "csrc"
         text = p.read_text()

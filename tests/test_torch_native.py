@@ -15,8 +15,13 @@ from repro_torch import carry
 from repro_torch.core import _native, cuda_suite, lower_cuda
 from repro_torch.core.dim3 import Dim3
 
-NAMES = ("bfs_frontier", "pathfinder", "needle_nw", "hotspot",
-         "backprop_layer", "lud_diag", "lavamd", "streamcluster")
+NAMES = ("bfs_frontier", "pathfinder", "needle_nw", "hotspot", "srad_step",
+         "nn", "kmeans", "backprop_layer", "lud_diag", "lavamd",
+         "streamcluster")
+#: each kernel's (entry, step index in the chain's iteration)
+STEPS = {step.kernel.name: (name, i) for name in NAMES
+         for i, step in enumerate(cuda_suite.entry_steps(
+             getattr(cuda_suite, f"entry_{name}")()))}
 
 
 def test_build_key_covers_every_source_and_flag(monkeypatch, tmp_path):
@@ -64,25 +69,41 @@ def _state(name):
     return entry, args
 
 
+def _launch(step, bufs):
+    return lower_cuda.KERNELS[step.kernel.name](
+        bufs, grid=step.grid, block=step.block,
+        **dict(step.kernel.native.params))
+
+
+#: kernels whose float results equal their plain versions bit for bit
+BIT_EXACT = ("srad_stats", "nn_reduce", "nn_select", "kmeans_assign",
+             "kmeans_update")
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", NAMES)
-def test_kernel_matches_its_plain_version_on_the_card(card, name):
+@pytest.mark.parametrize("kname", tuple(STEPS))
+def test_kernel_matches_its_plain_version_on_the_card(card, kname):
+    # a later step of a chain runs on the state one launch of each step
+    # before it leaves, after its own prepare hook
+    name, j = STEPS[kname]
     entry, args = _state(name)
-    if entry.chain is None:
-        kernel, grid, block = entry.kernel, entry.grid, entry.block
-    else:
-        step = entry.chain.steps[0]
-        kernel, grid, block = step.kernel, step.grid, step.block
-    kern = lower_cuda.KERNELS[name]
-    params = dict(kernel.native.params)
+    steps = cuda_suite.entry_steps(entry)
     bufs = carry.from_reference(args, device=card)
+    for step in steps[:j]:
+        bufs = {**bufs, **_launch(step, bufs)}
+    step = steps[j]
+    if j and step.prepare is not None:
+        bufs = {**bufs, **step.prepare(0, bufs)}
+    kern = lower_cuda.KERNELS[kname]
+    params = dict(step.kernel.native.params)
     before = kern.launches
-    got = kern(bufs, grid=grid, block=block, **params)
+    got = _launch(step, bufs)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
-    want = kern.plain(bufs, Dim3.of(grid), Dim3.of(block), **params)
+    want = kern.plain(bufs, Dim3.of(step.grid), Dim3.of(step.block),
+                      **params)
     for k in kern.writes:
-        if got[k].is_floating_point():  # contraction, exp: entry tol
+        if got[k].is_floating_point() and kname not in BIT_EXACT:
             torch.testing.assert_close(got[k], want[k], rtol=entry.tol,
                                        atol=entry.tol)
         else:

@@ -1,13 +1,16 @@
-"""The port's eight Rodinia entries against the JAX package, on the CPU.
+"""The port's eleven Rodinia entries against the JAX package, on the CPU.
 
 Inputs come from ``np.random.default_rng(42)`` and go to both packages.
 The port's ``run_entry`` under ``vector``, ``loop`` and ``cuda`` (the
 kernels' plain versions, since the tensors lie on the CPU) must match the
 reference's ``loop`` and ``pallas`` (interpret mode) runs: bit for bit for
-the integer entries (bfs, pathfinder, nw, streamcluster), and within the
-entry's own tolerance (``SuiteEntry.tol``) for the float32 ones (hotspot,
-backprop, lud, lavamd) - XLA and PyTorch may contract or order float32
-sums and updates differently.
+every integer buffer and for all of kmeans's buffers (its float sums are
+of integer values, exact in any order), and within the entry's own
+tolerance (``SuiteEntry.tol``) for the other float32 buffers (hotspot,
+srad, nn's distances, backprop, lud, lavamd) - XLA and PyTorch may
+contract or order float32 sums and updates differently.  srad_step, nn
+and kmeans run two different kernels per iteration; the per-launch tests
+take every kernel of every entry.
 """
 import functools
 
@@ -24,14 +27,30 @@ from repro_torch.core.api import compiled, launch
 from repro_torch.core.dim3 import Dim3
 from repro_torch.core.kernel import KernelDef, UnsupportedKernel
 
-CHAINS = ("bfs_frontier", "pathfinder", "needle_nw", "hotspot")
+CHAINS = ("bfs_frontier", "pathfinder", "needle_nw", "hotspot",
+          "srad_step", "nn", "kmeans")
 SINGLE = ("backprop_layer", "lud_diag", "lavamd", "streamcluster")
 NAMES = CHAINS + SINGLE
+#: float buffers held bit for bit: kmeans's sums are of integer-valued
+#: floats, and its centroids one IEEE division of them
+BIT_EXACT = ("kmeans", "kmeans_assign", "kmeans_update")
 
 
 def _entries(name, **kw):
     return (getattr(jsuite, f"entry_{name}")(**kw),
             getattr(cuda_suite, f"entry_{name}")(**kw))
+
+
+def _kernel_steps() -> dict:
+    """Each kernel's ``(entry, step index)``: one step for the single
+    launches and bfs, pathfinder, nw, hotspot; two for srad, nn, kmeans."""
+    return {step.kernel.name: (name, i) for name in NAMES
+            for i, step in enumerate(cuda_suite.entry_steps(
+                getattr(cuda_suite, f"entry_{name}")()))}
+
+
+STEPS = _kernel_steps()
+KERNEL_NAMES = tuple(STEPS)
 
 
 def _np(v):
@@ -44,24 +63,23 @@ def _tol(name):
 
 
 def _assert_match(name, got, want, keys):
-    """Integer buffers bit for bit, float32 ones within the entry's tol."""
+    """Integer buffers bit for bit, float32 ones within the entry's tol
+    (bit for bit too for the entries and kernels in ``BIT_EXACT``)."""
     for k in keys:
         g, w = _np(got[k]), _np(want[k])
         assert g.shape == w.shape, (name, k)
-        if g.dtype.kind == "f":
-            np.testing.assert_allclose(g, w, rtol=_tol(name),
-                                       atol=_tol(name), err_msg=k)
+        if g.dtype.kind == "f" and name not in BIT_EXACT:
+            tol = _tol(STEPS[name][0] if name in STEPS else name)
+            np.testing.assert_allclose(g, w, rtol=tol, atol=tol, err_msg=k)
         else:
             np.testing.assert_array_equal(g, w, err_msg=k)
 
 
-def _geometry(entry):
-    """``(kernel, grid, block)`` of one launch: a chain's first step, or
-    the single launch of a plain entry."""
-    if entry.chain is None:
-        return entry.kernel, entry.grid, entry.block
-    step = entry.chain.steps[0]
-    return step.kernel, step.grid, step.block
+def _jax_steps(jentry):
+    """The reference entry's launches of one iteration."""
+    if jentry.chain is None:
+        return [jsuite.ChainStep(jentry.kernel, jentry.grid, jentry.block)]
+    return list(jentry.chain.steps)
 
 
 @functools.cache
@@ -94,6 +112,9 @@ def test_make_args_bit_equal(name):
     ("pathfinder", {}), ("pathfinder", {"scale": 3}),
     ("needle_nw", {}), ("needle_nw", {"n": 48, "penalty": 10}),
     ("hotspot", {}), ("hotspot", {"h": 16, "w": 24, "iters": 7}),
+    ("srad_step", {}), ("srad_step", {"scale": 2, "iters": 3, "lam": 0.5}),
+    ("nn", {}), ("nn", {"n": 512, "block": 32, "knn": 5}),
+    ("kmeans", {}), ("kmeans", {"n": 512, "k": 3, "repeat": 5}),
     ("backprop_layer", {}), ("backprop_layer", {"in_n": 256, "out_n": 4}),
     ("lud_diag", {}), ("lud_diag", {"ntiles": 3, "b": 5}),
     ("lavamd", {}), ("lavamd", {"nboxes": 5, "ppb": 7, "nnei": 4}),
@@ -114,10 +135,10 @@ def test_run_entry_matches_reference(name, backend, ref):
     jout, want = _jax_run(name, ref)
     out, twant = _port_run(name, backend)
     _assert_match(name, out, jout, jout.keys())
-    # and the oracle, within the entry's tolerance
-    tol = _tol(name)
+    # and the oracle, within the entry's tolerance (exact where the
+    # reference's results are)
+    _assert_match(name, out, want, want.keys())
     for k, v in want.items():
-        np.testing.assert_allclose(out[k], v, rtol=tol, atol=tol, err_msg=k)
         np.testing.assert_array_equal(twant[k], v, err_msg=k)
 
 
@@ -146,18 +167,39 @@ def _launch_state(name):
     return jentry, tentry, args
 
 
-@pytest.mark.parametrize("name", NAMES)
+def _step_state(kname):
+    """``(jax step, port step, args)`` for one launch of kernel ``kname``:
+    the entry's launch state, advanced through the reference's launches
+    of the steps before it in the chain's first iteration (a later step
+    takes its own ``prepare`` hook first)."""
+    name, j = STEPS[kname]
+    jentry, tentry, args = _launch_state(name)
+    jsteps, tsteps = _jax_steps(jentry), cuda_suite.entry_steps(tentry)
+    jbufs = {k: jnp.asarray(v) for k, v in args.items()}
+    for i, step in enumerate(jsteps[:j + 1]):
+        if i and step.prepare is not None:
+            jbufs = {**jbufs, **step.prepare(0, jbufs)}
+        if i < j:
+            jbufs = {**jbufs, **japi.launch(step.kernel, grid=step.grid,
+                                            block=step.block, args=jbufs,
+                                            backend="loop")}
+    args = {k: np.asarray(v) for k, v in jbufs.items()}
+    assert tsteps[j].kernel.name == kname
+    return jsteps[j], tsteps[j], args
+
+
+@pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_plain_version_matches_one_reference_launch(name):
     _check_plain_launch(name)
 
 
 def _check_plain_launch(name):
-    jentry, tentry, args = _launch_state(name)
-    jkernel, grid, block = _geometry(jentry)
+    jstep, tstep, args = _step_state(name)
+    grid, block = jstep.grid, jstep.block
     jbufs = {k: jnp.asarray(v) for k, v in args.items()}
-    want = japi.launch(jkernel, grid=grid, block=block, args=jbufs,
+    want = japi.launch(jstep.kernel, grid=grid, block=block, args=jbufs,
                        backend="loop")
-    tkernel, tgrid, tblock = _geometry(tentry)
+    tkernel, tgrid, tblock = tstep.kernel, tstep.grid, tstep.block
     kern = lower_cuda.KERNELS[name]
     bufs = carry.from_reference(args, device="cpu")
     before = kern.launches
@@ -195,10 +237,11 @@ def test_bfs_launch_settles_contested_claims_like_the_reference():
     _check_plain_launch("bfs_frontier")
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_chevron_launch_on_cuda_backend(name):
-    _, tentry, args = _launch_state(name)
-    kernel, grid, block = _geometry(tentry)
+    _, tstep, args = _step_state(name)
+    kernel, grid, block = tstep.kernel, tstep.grid, tstep.block
+    tentry = _entries(STEPS[name][0])[1]
     bufs = carry.from_reference(args, const=tentry.const, device="cpu")
     got = kernel[grid, block].on(backend="cuda")(**bufs)
     want = kernel[grid, block].on(backend="vector")(bufs)
@@ -207,16 +250,16 @@ def test_chevron_launch_on_cuda_backend(name):
 
 @pytest.mark.parametrize("backend", ("loop", "loop_nowarp", "naive",
                                      "vector", "cuda"))
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_coverage_cells_match_reference(name, backend):
     # a Table-II cell: the backend expresses the kernel, or raises
     # UnsupportedKernel before it runs, exactly when the reference's
     # does (the port's cuda stands where the reference's pallas does)
     from repro.core.kernel import UnsupportedKernel as JUnsupported
 
-    jentry, tentry, args = _launch_state(name)
-    jkernel, grid, block = _geometry(jentry)
-    tkernel, tgrid, tblock = _geometry(tentry)
+    jstep, tstep, args = _step_state(name)
+    jkernel, grid, block = jstep.kernel, jstep.grid, jstep.block
+    tkernel, tgrid, tblock = tstep.kernel, tstep.grid, tstep.block
     try:
         japi.compiled(jkernel, grid=grid, block=block,
                       args={k: jnp.asarray(v) for k, v in args.items()},
@@ -250,7 +293,8 @@ def test_kernel_without_native_body_is_unsupported_on_cuda():
 @pytest.mark.parametrize("make", [
     lambda: cuda_suite.make_pathfinder(256, 32),
     lambda: cuda_suite.make_pathfinder(256, 64, dtype=torch.float32),
-    lambda: cuda_suite.make_hotspot(32, 64, tile_y=4, tile_x=4)])
+    lambda: cuda_suite.make_hotspot(32, 64, tile_y=4, tile_x=4),
+    lambda: cuda_suite.make_srad_update(32, 64, tile_y=4, tile_x=4)])
 def test_variants_without_a_kernel_are_unsupported_on_cuda(make):
     k = make()
     assert k.native is None
@@ -407,3 +451,105 @@ def test_wrappers_reject_sizes_their_kernels_cannot_hold():
                                              {"ntiles": 1, "b": 64})
     with pytest.raises(ValueError, match="power of two"):
         cuda_suite.make_backprop_layer(48, 4)
+
+
+@functools.cache
+def _nn_tie_args():
+    # records on a lattice around the target (30, 90): many distances are
+    # exactly equal, and each nearest slot has several candidates
+    jentry, _ = _entries("nn", knn=3)
+    args = jentry.make_args(np.random.default_rng(42))
+    r = np.random.default_rng(7)
+    n = args["lat"].size
+    off = np.asarray([-3.0, -1.0, 1.0, 3.0], np.float32)
+    args["lat"] = (30.0 + r.choice(off, n)).astype(np.float32)
+    args["lng"] = (90.0 + r.choice(off, n)).astype(np.float32)
+    return args
+
+
+@pytest.mark.parametrize("backend", ("vector", "loop", "cuda"))
+def test_nn_equal_distances_go_to_the_lowest_record_index(backend):
+    args = _nn_tie_args()
+    jentry, tentry = _entries("nn", knn=3)
+    d = (args["lat"] - 30.0) ** 2 + (args["lng"] - 90.0) ** 2
+    assert (d == d.min()).sum() > 3           # every slot is a tie
+    out, want = cuda_suite.run_entry(tentry, backend, args=args,
+                                     device="cpu")
+    first = np.flatnonzero(d == d.min())[:3]  # np.argmin's picks, in order
+    np.testing.assert_array_equal(want["out_i"], first)
+    jout, _ = jsuite.run_entry(jentry, "loop", args=args)
+    for k in ("out_i", "taken"):
+        np.testing.assert_array_equal(_np(out[k]), want[k], err_msg=k)
+        np.testing.assert_array_equal(_np(out[k]), np.asarray(jout[k]),
+                                      err_msg=k)
+    np.testing.assert_array_equal(_np(out["out_d"]), want["out_d"])
+
+
+KMEANS_RUNS = [({}, 42), ({}, 7), ({"n": 512, "k": 3}, 7),
+               ({"n": 2048, "repeat": 3}, 7)]
+
+
+@functools.cache
+def _jax_kmeans_stats(i):
+    kw, seed = KMEANS_RUNS[i]
+    jentry, _ = _entries("kmeans", **kw)
+    stats = jsuite.ChainStats()
+    out, _ = jsuite.run_entry(jentry, "loop", chain_stats=stats,
+                              rng=np.random.default_rng(seed))
+    return stats, {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("backend", ("vector", "loop", "cuda"))
+@pytest.mark.parametrize("i", range(len(KMEANS_RUNS)),
+                         ids=["n256-s42", "n256-s7", "n512-k3-s7",
+                              "n2048-r3-s7"])
+def test_kmeans_chain_counts_equal_the_reference(i, backend):
+    # converged after 2 or 3 iterations, cut by the repeat bound while
+    # still moving (k = 3 never settles from these starting centroids),
+    # and cut by repeat = 3: the stop flag is read back once per
+    # iteration after the first, as the reference's host mode does
+    kw, seed = KMEANS_RUNS[i]
+    jstats, jout = _jax_kmeans_stats(i)
+    _, tentry = _entries("kmeans", **kw)
+    stats = cuda_suite.ChainStats()
+    out, want = cuda_suite.run_entry(tentry, backend, chain_stats=stats,
+                                     rng=np.random.default_rng(seed),
+                                     device="cpu")
+    assert (stats.iterations, stats.launches, stats.host_syncs) == (
+        jstats.iterations, jstats.launches, jstats.host_syncs)
+    _assert_match("kmeans", out, jout, jout.keys())
+    _assert_match("kmeans", out, want, want.keys())
+
+
+@pytest.mark.parametrize("name,bad", [
+    ("srad_stats", {"block": 96}),
+    ("nn_reduce", {"block": 48}),
+    ("nn_select", {"block": 2}),
+    ("kmeans_assign", {"block": 48}),
+    ("kmeans_update", {"grid": 3})])
+def test_chain_wrappers_reject_geometry_they_cannot_run(name, bad):
+    _, tstep, args = _step_state(name)
+    kern = lower_cuda.KERNELS[name]
+    geom = {"grid": tstep.grid, "block": tstep.block, **bad}
+    with pytest.raises(UnsupportedKernel):
+        kern(carry.from_reference(args, device="cpu"), **geom,
+             **dict(tstep.kernel.native.params))
+
+
+def test_chain_wrappers_reject_sizes_their_kernels_cannot_hold():
+    kerns = lower_cuda.KERNELS
+    with pytest.raises(UnsupportedKernel, match="power of two up to 1024"):
+        kerns["nn_select"].check(Dim3(1), Dim3(2048), {"nblocks": 2048})
+    with pytest.raises(UnsupportedKernel, match="power of two"):
+        kerns["srad_stats"].check(Dim3(16), Dim3(128),
+                                  {"h": 32, "w": 64, "nthreads": 64})
+    with pytest.raises(UnsupportedKernel, match="clusters"):
+        kerns["kmeans_assign"].check(Dim3(4), Dim3(64),
+                                     {"n": 256, "k": 33})
+    with pytest.raises(UnsupportedKernel, match="8x8"):
+        kerns["srad_update"].check(Dim3(8, 4), Dim3(16, 4), {})
+    for make in (lambda: cuda_suite.make_srad_stats(32, 64, 96),
+                 lambda: cuda_suite.make_nn_reduce(256, 48),
+                 lambda: cuda_suite.make_nn_select(6)):
+        with pytest.raises(ValueError, match="power of two"):
+            make()
