@@ -7,13 +7,13 @@ Phases, each printing its own lines:
 
 1. the card (``nvidia-smi`` name and power limit) and the ``nvcc`` build
    of ``src/repro_torch/csrc/*.cu`` into ``build/repro_torch/``;
-2. per hand-written kernel (14: srad_step, nn and kmeans run two kernels
-   an iteration): one launch at the main path's shape through the kernel
-   and through its plain PyTorch version on the same inputs on the card,
-   compared (bit for bit for the int32 kernels and for srad_stats, nn_*
-   and kmeans_*, within the entry's ``tol`` for the other float32 ones),
-   then both timed with CUDA events, the median of 25 runs after
-   warm-up.  A chain's first kernel runs on the entry's inputs, a later
+2. per hand-written kernel (20 for 17 entries: srad_step, nn and kmeans
+   run two kernels an iteration): one launch at the main path's shape
+   through the kernel and through its plain PyTorch version on the same
+   inputs on the card, compared (within the entry's ``tol`` for the
+   float32 results of the ``TOLERANT`` kernels, bit for bit for every
+   other kernel), then both timed with CUDA events, the median of 25 runs
+   after warm-up.  A chain's first kernel runs on the entry's inputs, a later
    one on the state that one launch of each kernel before it leaves.
    ``ms`` is the kernel alone (its written buffers restored between runs,
    outside the timed window); ``call_ms`` adds the wrapper's functional
@@ -21,17 +21,24 @@ Phases, each printing its own lines:
    could take for the launch's bytes and operations; ``library_ms`` times
    the one PyTorch call that computes the same function, where there is
    one (lud's unpivoted ``torch.linalg.lu_factor``; the per-block sums of
-   ``x`` for srad_stats; the per-block ``torch.min`` of the distances for
-   nn_reduce, when its indices agree);
+   ``x`` for srad_stats and the two reductions; the per-block
+   ``torch.min`` of the distances for nn_reduce, when its indices agree;
+   ``torch.add``, ``torch.flip``, ``torch.bincount`` and ``torch.matmul``
+   for vecadd, reverse, histogram and matmul_tiled).  Float32 matrix
+   products run in full float32: TF32 is switched off explicitly, or
+   matmul_tiled's plain version and yardstick would compute something
+   else;
 3. the main path: the eleven Rodinia entries at Rodinia 3.1's run-script
-   sizes through ``run_entry(entry, backend="cuda")`` - chevron/api/
+   sizes, and six textbook entries at sizes that load the card (``SIZES``),
+   through ``run_entry(entry, backend="cuda")`` - chevron/api/
    backends/``lower_cuda`` - with every launch count set to 0 just before
    and read just after; each kernel of the entry must have launched, and
    their launches must sum to the chain's count.  Each entry is checked
    against the port's NumPy oracle (timed, since lavaMD's runs 27,000
    NumPy steps): integer buffers and all of kmeans's bit for bit, the
-   other float32 ones within the entry's ``tol``.  Seven entries are
-   launch chains and four single launches.  Every entry draws its inputs
+   other float32 ones within the entry's ``tol`` (vecadd bit for bit).
+   Seven entries are launch chains and ten single launches.  Every entry
+   draws its inputs
    from one generator seeded with ``SEED``, in the order of ``SIZES``.
    Then needle_nw's host time per launch, layer by layer;
 4. the kernels' JSON line, the card line, and last
@@ -67,13 +74,14 @@ REPLACES = "src/repro/core/pallas_emit.py:34"
 #: (FMA contraction, exp, a fold in another order); every other kernel is
 #: held bit for bit
 TOLERANT = ("hotspot", "srad_update", "backprop_layer", "lud_diag",
-            "lavamd")
+            "lavamd", "matmul_tiled")
 #: entries whose float32 results the oracle fixes bit for bit
-EXACT_ENTRIES = ("kmeans",)
+EXACT_ENTRIES = ("kmeans", "vecadd")
 SLEEP_CYCLES = 1_000_000         # keeps the card busy while a run enqueues
 RUNS, WARMUP = 25, 3
 
-#: Rodinia 3.1 run-script sizes (inputs generated from SEED)
+#: Rodinia 3.1 run-script sizes, then the textbook entries at sizes that
+#: move tens of MB (inputs generated from SEED)
 SIZES = {
     "bfs_frontier": {"n": 1_000_000, "deg": 6},          # graph1MW_6
     "pathfinder": {"cols": 100_000, "rows": 100},        # 100000 100 20
@@ -95,6 +103,15 @@ SIZES = {
     "nn": {"n": 65536, "block": 256, "knn": 5},
     # kmeans -o -i kdd_cup (494,020 points, 7,720 whole blocks of 64)
     "kmeans": {"n": 494080, "k": 4, "block": 64, "repeat": 12},
+    # the textbook entries come after the Rodinia ones, for the same
+    # reason; none has a run script
+    "vecadd": {"n": 1 << 24, "block": 128},              # 201 MB moved
+    "reverse": {"n": 1024},             # CUDA's widest block, 1024 ints
+    # 2^24 8-bit pixels in int32, 1024 x 256 threads of 64 pixels each
+    "histogram": {"n": 1 << 24, "nbins": 256, "grid": 1024, "block": 256},
+    "reduce_shared": {"n": 1 << 24, "block": 256},       # 65,536 sums
+    "reduce_warp": {"n": 1 << 24, "block": 256},
+    "matmul_tiled": {"m": 2048, "n": 2048, "k": 2048},   # 65,536 tiles
 }
 
 
@@ -233,6 +250,20 @@ def bound(name: str, b: dict, p: dict, grid, block) -> tuple[float, str]:
         # and one exp on the special-function units
         ops_ms = max(5.0 * pairs / F32_OPS_PER_S,
                      pairs / SFU_OPS_PER_S) * 1e3
+    elif name == "vecadd":
+        nbytes = i4 * 3 * p["n"]                # a, b in; c out
+        ops_ms = p["n"] / F32_OPS_PER_S * 1e3
+    elif name == "reverse":
+        nbytes = i4 * 2 * block.x               # d in and out
+    elif name == "histogram_coalesced":
+        nbytes = i4 * (p["n"] + 2 * p["nbins"])   # x in; hist in and out
+    elif name in ("reduce_shared", "reduce_warp"):
+        nbytes = i4 * (p["n"] + grid.x)         # x in; a sum a block out
+        ops_ms = p["n"] / F32_OPS_PER_S * 1e3
+    elif name == "matmul_tiled":
+        m, n, k = p["m"], p["n"], p["k"]
+        nbytes = i4 * (m * k + k * n + m * n)   # a, b in; c out
+        ops_ms = 2.0 * m * n * k / F32_OPS_PER_S * 1e3
     else:                                       # streamcluster
         m, k = p["n"], p["k"]
         cand = b["cand"].long()
@@ -276,6 +307,21 @@ def library_call(name: str, b: dict, params: dict, grid, block, got):
     srad_stats's call gives ``psum`` alone; nn_reduce's takes the
     distances as its input and counts only where its indices are the
     kernel's."""
+    if name == "vecadd":
+        xa, xb = b["a"], b["b"]
+        return lambda: torch.add(xa, xb)
+    if name == "reverse":
+        d = b["d"]
+        return lambda: torch.flip(d, (0,))
+    if name == "histogram_coalesced":
+        x, nbins = b["x"], params["nbins"]
+        return lambda: torch.bincount(x, minlength=nbins).to(torch.int32)
+    if name in ("reduce_shared", "reduce_warp"):
+        xv = b["x"].view(grid.x, block.x)
+        return lambda: xv.sum(1)
+    if name == "matmul_tiled":
+        xa, xb = b["a"], b["b"]
+        return lambda: torch.matmul(xa, xb)
     if name == "lud_diag":
         tile = params["b"]
         a = b["a"][:grid.x * tile].reshape(grid.x, tile, tile)
@@ -367,6 +413,10 @@ def main() -> int:
     from repro_torch.core.dim3 import Dim3
 
     dev = torch.device("cuda")
+    # float32 products in full float32 (the reference's): under TF32 the
+    # plain version of matmul_tiled and its yardstick would compute
+    # something else
+    torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(f"card: {card}")
     lib = _native.library()
@@ -392,7 +442,7 @@ def main() -> int:
             kname = step.kernel.name
             kern = lower_cuda.KERNELS[kname]
             grid, block = Dim3.of(step.grid), Dim3.of(step.block)
-            params = dict(step.kernel.native.params)
+            params = lower_cuda.launch_params(step.kernel, step.dyn_shared)
             rows[kname], got = check_and_time(kname, kern, b, params, grid,
                                               block, entry.tol)
             r = rows[kname]

@@ -1,12 +1,19 @@
-"""CUDA-style kernel suite of the port: the eleven Rodinia entries.
+"""CUDA-style kernel suite of the port: the eleven Rodinia entries and six
+of the reference's textbook entries.
 
 Each entry is a kernel (two for srad_step, nn and kmeans) written in the
 port's IR (stages over :class:`~repro_torch.core.kernel.Ctx`), a native
 descriptor naming its hand-written CUDA kernel for the ``cuda`` backend,
 and a NumPy oracle:
 
-| kernel         | Rodinia       | features exercised                              |
+| kernel         | counterpart   | features exercised                              |
 |----------------|---------------|-------------------------------------------------|
+| vecadd         | Listing 1     | plain SPMD                                      |
+| reverse        | Listing 3     | extern __shared__ sized by the launch, barrier  |
+| histogram      | Hetero-Mark HIST | global integer atomics, strided access       |
+| reduce_shared  | reductions    | barrier tree                                    |
+| reduce_warp    | Crystal q11-q13 | __shfl_xor_sync butterflies                   |
+| matmul_tiled   | lud/gemm      | shared tiles, register accumulator across 2k/8 barriers |
 | bfs_frontier   | bfs           | atomicCAS, atomicAdd, __syncthreads_count, const, stop-flag chain |
 | pathfinder     | pathfinder    | __shared__ halo, barrier, row chain             |
 | needle_nw      | nw            | anti-diagonal wavefront chain                   |
@@ -19,12 +26,14 @@ and a NumPy oracle:
 | lavamd         | lavaMD        | neighbour-list gather into shared, register accumulator across barriers |
 | streamcluster  | streamcluster | contended atomicAdd, first-wins atomicCAS claims |
 
-The first seven are launch chains; the last four are single launches.
-``make_args`` and ``reference`` are NumPy, with the reference package's
-inputs for the same generator (the builders take size keywords whose
-defaults are the reference's sizes).  The BFS and NW oracles are
-vectorised (by level and by anti-diagonal) so they stay fast at Rodinia
-sizes; they compute the same values as the reference's loops.
+bfs_frontier to kmeans are launch chains; the others are single
+launches.  ``make_args`` and ``reference`` are NumPy, with the reference
+package's inputs for the same generator (the builders take size keywords
+whose defaults are the reference's sizes: ``build_suite(1)``'s for the
+six textbook entries, which the reference defines inline there).  The
+BFS and NW oracles are vectorised (by level and by anti-diagonal) so they
+stay fast at Rodinia sizes; they compute the same values as the
+reference's loops.
 """
 from __future__ import annotations
 
@@ -56,6 +65,209 @@ def _where(cond, a, b):
     """``jnp.where`` over index values: int64, on ``cond``'s device."""
     return torch.where(cond, torch.as_tensor(a, device=cond.device),
                        torch.as_tensor(b, device=cond.device))
+
+
+# --------------------------------------------------------------------------
+# vecadd (paper Listing 1)
+# --------------------------------------------------------------------------
+def make_vecadd(n: int) -> KernelDef:
+    """dtype-agnostic stages; the native kernel takes float32 only."""
+    def stage(ctx, st):
+        gid = _gid(ctx)
+        val = index.take(st.glob["a"], gid) + index.take(st.glob["b"], gid)
+        return st.set_glob(c=index.put(st.glob["c"], _where(gid < n, gid, OOB),
+                                       val))
+
+    return KernelDef("vecadd", (stage,), writes=("c",),
+                     reads=("a", "b", "c"), est_block_work=3e2,
+                     native=Native.of("vecadd", n=n))
+
+
+# --------------------------------------------------------------------------
+# reverse (paper Listing 3: extern __shared__, one __syncthreads).  The
+# shared array's extent is the launch's dyn_shared slot; ``n`` is the length
+# of ``d``.
+# --------------------------------------------------------------------------
+def make_reverse(n: int) -> KernelDef:
+    def load(ctx, st):
+        s = index.put(st.shared["s"], ctx.tid,
+                      index.take(st.glob["d"], ctx.tid))
+        return st.set_shared(s=s)
+
+    def store(ctx, st):
+        ns = st.shared["s"].shape[0]
+        d = index.put(st.glob["d"], ctx.tid,
+                      index.take(st.shared["s"], ns - ctx.tid - 1))
+        return st.set_glob(d=d)
+
+    return KernelDef(
+        "reverse", (load, store), writes=("d",), reads=("d",),
+        shared={"s": ((-1,), torch.int32)}, est_block_work=2e2,
+        native=Native.of("reverse", n=n),
+    )
+
+
+# --------------------------------------------------------------------------
+# histogram (Hetero-Mark HIST; GPU-coalesced stride of Fig. 10a by default)
+# --------------------------------------------------------------------------
+def make_histogram(n: int, nbins: int, total_threads: int,
+                   layout: str = "coalesced") -> KernelDef:
+    if layout not in ("coalesced", "contiguous"):
+        raise ValueError(f"histogram: unknown layout {layout!r}")
+    iters = -(-n // total_threads)
+
+    def stage(ctx, st):
+        x, hist = st.glob["x"], st.glob["hist"]
+        gid = _gid(ctx)
+        for k in range(iters):
+            if layout == "coalesced":      # GPU-friendly large stride
+                idx = gid + k * total_threads
+            else:                          # CPU-friendly contiguous (Fig 10c)
+                idx = gid * iters + k
+            v = index.take(x, idx.clamp(max=n - 1))
+            hist = index.put(hist, _where(idx < n, v, OOB), 1, op="add")
+        return st.set_glob(hist=hist)
+
+    return KernelDef(
+        f"histogram_{layout}", (stage,), writes=("hist",),
+        reads=("x", "hist"), est_block_work=3e2 * iters,
+        native=Native.of(f"histogram_{layout}", n=n, nbins=nbins,
+                         total_threads=total_threads))
+
+
+# --------------------------------------------------------------------------
+# reduce_shared: classic barrier-tree block reduction (log2(block) stages)
+# --------------------------------------------------------------------------
+def make_reduce_shared(n: int, block: int,
+                       dtype=torch.float32) -> KernelDef:
+    if block < 1 or block & (block - 1):
+        raise ValueError(f"reduce_shared: block must be a power of two, got "
+                         f"{block}")
+
+    def load(ctx, st):
+        gid = _gid(ctx)
+        v = torch.where(gid < n, index.take(st.glob["x"], gid.clamp(max=n - 1)),
+                        0.0)
+        return st.set_shared(s=index.put(st.shared["s"], ctx.tid, v))
+
+    def make_level(offset):
+        def level(ctx, st):
+            s = st.shared["s"]
+            mine = index.take(s, ctx.tid)
+            new = torch.where(ctx.tid < offset,
+                              mine + index.take(s, ctx.tid + offset), mine)
+            return st.set_shared(s=index.put(s, ctx.tid, new))
+        return level
+
+    def store(ctx, st):
+        idx = _where(ctx.tid == 0, ctx.bid, OOB)
+        return st.set_glob(out=index.put(st.glob["out"], idx,
+                                         st.shared["s"][0]))
+
+    stages = [load]
+    off = block // 2
+    while off >= 1:
+        stages.append(make_level(off))
+        off //= 2
+    stages.append(store)
+    return KernelDef(
+        "reduce_shared", tuple(stages), writes=("out",), reads=("x", "out"),
+        shared={"s": ((block,), dtype)}, est_block_work=block * 8.0,
+        native=Native.of("reduce_shared", n=n, nthreads=block),
+    )
+
+
+# --------------------------------------------------------------------------
+# reduce_warp: shuffle-based reduction (warp-level features; COX/CuPBoP only)
+# --------------------------------------------------------------------------
+def make_reduce_warp(n: int, block: int, dtype=torch.float32) -> KernelDef:
+    nwarps = block // 32
+
+    def warp_phase(ctx, st):
+        gid = _gid(ctx)
+        val = torch.where(gid < n,
+                          index.take(st.glob["x"], gid.clamp(max=n - 1)), 0.0)
+        for off in (16, 8, 4, 2, 1):
+            val = val + ctx.shfl_xor(val, off)
+        idx = _where(ctx.lane == 0, ctx.warp, OOB)
+        return st.with_priv({"v": val}).set_shared(
+            s=index.put(st.shared["s"], idx, val))
+
+    def final_phase(ctx, st):
+        s = st.shared["s"]
+        v = torch.where(ctx.tid < nwarps,
+                        index.take(s, ctx.tid.clamp(max=nwarps - 1)), 0.0)
+        for off in (16, 8, 4, 2, 1):
+            v = v + ctx.shfl_xor(v, off)
+        idx = _where(ctx.tid == 0, ctx.bid, OOB)
+        return st.with_priv({}).set_glob(
+            out=index.put(st.glob["out"], idx, v))
+
+    return KernelDef(
+        "reduce_warp", (warp_phase, final_phase), writes=("out",),
+        reads=("x", "out"),
+        shared={"s": ((nwarps,), dtype)}, uses_warp=True,
+        est_block_work=block * 4.0,
+        native=Native.of("reduce_warp", n=n, nthreads=block),
+    )
+
+
+# --------------------------------------------------------------------------
+# matmul_tiled: shared-memory tiled GEMM; acc is a register demoted across
+# 2*KT barriers (the hard case for fission correctness)
+# --------------------------------------------------------------------------
+def make_matmul_tiled(m: int, n: int, k: int, tile: int = 8,
+                      dtype=torch.float32) -> KernelDef:
+    if m % tile or n % tile or k % tile:
+        raise ValueError(f"matmul_tiled: m, n, k = {m}, {n}, {k} must be "
+                         f"multiples of the tile {tile}")
+    kt = k // tile
+    ntiles_n = n // tile
+
+    def coords(ctx):
+        ty, tx = ctx.tid // tile, ctx.tid % tile
+        by, bx = ctx.bid // ntiles_n, ctx.bid % ntiles_n
+        return ty, tx, by * tile + ty, bx * tile + tx
+
+    def init(ctx, st):
+        return st.with_priv({"acc": torch.zeros(ctx.tid.shape, dtype=dtype,
+                                                device=ctx.tid.device)})
+
+    def make_load(kk):
+        def load(ctx, st):
+            ty, tx, row, col = coords(ctx)
+            sa = index.put(st.shared["sa"], (ty, tx),
+                           index.take(st.glob["a"], row, kk * tile + tx))
+            sb = index.put(st.shared["sb"], (ty, tx),
+                           index.take(st.glob["b"], kk * tile + ty, col))
+            return st.set_shared(sa=sa, sb=sb)
+        return load
+
+    def compute(ctx, st):
+        ty, tx, _, _ = coords(ctx)
+        sa, sb = st.shared["sa"], st.shared["sb"]
+        acc = st.priv["acc"] + torch.einsum(
+            "ti,it->t", index.take(sa, ty), sb[:, tx.long()])
+        return st.with_priv({"acc": acc})
+
+    def store(ctx, st):
+        _, _, row, col = coords(ctx)
+        c = index.put(st.glob["c"], (row, col), st.priv["acc"])
+        return st.with_priv({}).set_glob(c=c)
+
+    stages = [init]
+    for kk in range(kt):
+        stages += [make_load(kk), compute]
+    stages.append(store)
+    native = (Native.of("matmul_tiled", m=m, n=n, k=k)
+              if tile == 8 else None)
+    return KernelDef(
+        "matmul_tiled", tuple(stages), writes=("c",), reads=("a", "b", "c"),
+        shared={"sa": ((tile, tile), dtype),
+                "sb": ((tile, tile), dtype)},
+        est_block_work=tile * tile * k * 2.0,
+        native=native,
+    )
 
 
 # --------------------------------------------------------------------------
@@ -1301,3 +1513,99 @@ def entry_streamcluster(n: int = 256, k: int = 8,
         None, margs, ref,
         const=("px", "py", "cx", "cy", "cand", "assign"),
         rodinia="streamcluster")
+
+
+# --------------------------------------------------------------------------
+# The reference's textbook entries (build_suite(1)'s sizes as defaults)
+# --------------------------------------------------------------------------
+def entry_vecadd(n: int = 4096, block: int = 128) -> SuiteEntry:
+    def margs(r):
+        return {"a": r.standard_normal(n, dtype=np.float32),
+                "b": r.standard_normal(n, dtype=np.float32),
+                "c": np.zeros(n, np.float32)}
+
+    return SuiteEntry(
+        "vecadd", ("spmd",), make_vecadd(n), -(-n // block), block, None,
+        margs, lambda a: {"c": a["a"] + a["b"]}, rodinia="(Listing 1)")
+
+
+def entry_reverse(n: int = 512) -> SuiteEntry:
+    """One block of ``n`` threads over ``d[n]``, with ``n`` int32 elements
+    of extern shared memory."""
+    return SuiteEntry(
+        "reverse", ("barrier", "dyn_shared"), make_reverse(n), 1, n, n,
+        lambda r: {"d": r.integers(0, 100, n).astype(np.int32)},
+        lambda a: {"d": a["d"][::-1].copy()}, rodinia="(Listing 3)")
+
+
+def entry_histogram(n: int = 4096, nbins: int = 64, grid: int = 16,
+                    block: int = 128,
+                    layout: str = "coalesced") -> SuiteEntry:
+    kernel = make_histogram(n, nbins, grid * block, layout)
+
+    def margs(r):
+        return {"x": r.integers(0, nbins, n).astype(np.int32),
+                "hist": np.zeros(nbins, np.int32)}
+
+    def ref(a):
+        return {"hist": np.bincount(a["x"], minlength=nbins)
+                .astype(np.int32)}
+
+    return SuiteEntry(
+        "histogram", ("atomic",), kernel, grid, block, None, margs, ref,
+        rodinia="Hetero-Mark HIST")
+
+
+def _reduce_entry(name: str, features: tuple, make, n: int, block: int,
+                  rodinia: str) -> SuiteEntry:
+    grid = -(-n // block)
+
+    def margs(r):
+        return {"x": r.standard_normal(n, dtype=np.float32),
+                "out": np.zeros(grid, np.float32)}
+
+    return SuiteEntry(
+        name, features, make(n, block), grid, block, None, margs,
+        lambda a: {"out": a["x"].reshape(-1, block).sum(1)},
+        rodinia=rodinia)
+
+
+def entry_reduce_shared(n: int = 2048, block: int = 256) -> SuiteEntry:
+    return _reduce_entry("reduce_shared", ("barrier",), make_reduce_shared,
+                         n, block, "srad/kmeans reductions")
+
+
+def entry_reduce_warp(n: int = 2048, block: int = 256) -> SuiteEntry:
+    return _reduce_entry("reduce_warp", ("warp",), make_reduce_warp, n,
+                         block, "Crystal q11-q13")
+
+
+def matmul_tol(k: int) -> float:
+    """matmul_tiled's oracle tolerance for depth ``k``: the reference's
+    2e-5 at k = 32, grown as ``(k / 32) ** 0.75`` (4.5e-4 at k = 2048).
+
+    ``tools/matmul_tol.py`` measures the plain version's worst error in
+    ``allclose``'s measure, ``|c - want| / (1 + |want|)``, at m = n =
+    2048 on the CPU: against NumPy's float32 product it grows 23-fold
+    from k = 32 to k = 2048 (3.3e-6 to 7.4e-5, about ``k ** 0.75``), so
+    the tolerance keeps the margin (6x) that 2e-5 has at k = 32."""
+    return 2e-5 * (k / 32) ** 0.75
+
+
+def entry_matmul_tiled(m: int = 32, n: int | None = None,
+                       k: int | None = None) -> SuiteEntry:
+    """``c[m, n] = a[m, k] @ b[k, n]`` in 8 x 8 tiles, one 64-thread
+    block per tile (square by default, as the reference's)."""
+    n = m if n is None else n
+    k = m if k is None else k
+
+    def margs(r):
+        return {"a": r.standard_normal((m, k), dtype=np.float32),
+                "b": r.standard_normal((k, n), dtype=np.float32),
+                "c": np.zeros((m, n), np.float32)}
+
+    return SuiteEntry(
+        "matmul_tiled", ("barrier", "demotion"),
+        make_matmul_tiled(m, n, k, tile=8), (m // 8) * (n // 8), 64, None,
+        margs, lambda a: {"c": a["a"] @ a["b"]}, tol=matmul_tol(k),
+        rodinia="lud/gemm")

@@ -52,7 +52,11 @@ class CudaKernel:
     expected shape of each from the scalar parameters; ``check`` validates
     the launch geometry; ``scratch`` allocates the device scratch a launch
     needs; ``cargs`` lists the C launcher's arguments (without the
-    trailing stream) for buffers on the card.
+    trailing stream) for buffers on the card.  ``extern`` is the element
+    type of the kernel's extern ``__shared__`` array, if it has one: its
+    launches then take a ``dyn_shared`` parameter (elements, as the IR
+    counts them), which ``cargs`` hands to the launcher in bytes for the
+    chevron's third slot.
     """
 
     name: str
@@ -66,6 +70,7 @@ class CudaKernel:
     cargs: Callable[..., list]
     source: str
     scratch: Callable[..., dict] = _no_scratch
+    extern: torch.dtype | None = None
     launches: int = 0
 
     def validate(self, glob: dict, grid: Dim3, block: Dim3,
@@ -144,6 +149,19 @@ def _halving_tree(*rows: torch.Tensor) -> list[torch.Tensor]:
         rows = [r[:, :off] + r[:, off:2 * off] for r in rows]
         off //= 2
     return [r[:, 0] for r in rows]
+
+
+def _block_values(b, grid: Dim3, block: Dim3, n: int) -> torch.Tensor:
+    """``x[gid]`` (0 past ``n``) for every thread, as ``[grid, block]``."""
+    gid = torch.arange(grid.x * block.x, device=b["x"].device)
+    return torch.where(gid < n, b["x"].reshape(-1)[gid.clamp(max=n - 1)],
+                       0.0).view(grid.x, block.x)
+
+
+def _put_per_block(out: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``out[bid] = vals[bid]`` for each block, dropping ids past ``out``."""
+    return index.put(out, torch.arange(vals.numel(), device=out.device),
+                     vals)
 
 
 # --------------------------------------------------------------------------
@@ -561,14 +579,10 @@ def _pow2_block(name: str, block: Dim3, nthreads: int) -> None:
 def srad_stats_plain(b, grid: Dim3, block: Dim3, *, h: int, w: int,
                      nthreads: int):
     """Per-block sums of ``x`` and ``x * x``, in the tree's order."""
-    npix, nb, bs = h * w, grid.x, block.x
-    gid = torch.arange(nb * bs, device=b["x"].device)
-    v = torch.where(gid < npix, b["x"].reshape(-1)[gid.clamp(max=npix - 1)],
-                    0.0).view(nb, bs)
+    v = _block_values(b, grid, block, h * w)
     s1, s2 = _halving_tree(v, v * v)
-    bid = torch.arange(nb, device=v.device)
-    return {"psum": index.put(b["psum"], bid, s1),
-            "psq": index.put(b["psq"], bid, s2)}
+    return {"psum": _put_per_block(b["psum"], s1),
+            "psq": _put_per_block(b["psq"], s2)}
 
 
 def _srad_stats_check(grid: Dim3, block: Dim3, params: dict):
@@ -822,11 +836,257 @@ KMEANS_UPDATE = CudaKernel(
     source="src/repro_torch/csrc/kmeans.cu")
 
 
+# --------------------------------------------------------------------------
+# vecadd
+# --------------------------------------------------------------------------
+def vecadd_plain(b, grid: Dim3, block: Dim3, *, n: int):
+    """``c[i] = a[i] + b[i]`` for the elements the grid covers."""
+    m = min(n, grid.size * block.size)
+    c = b["c"].clone()
+    c[:m] = b["a"][:m] + b["b"][:m]
+    return {"c": c}
+
+
+VECADD = CudaKernel(
+    name="vecadd", symbol="launch_vecadd",
+    argtypes=(_P,) * 3 + (_I,) * 3 + (_P,),
+    buffers={"a": _F32, "b": _F32, "c": _F32},
+    writes=("c",),
+    shapes=lambda *, n: {"a": (n,), "b": (n,), "c": (n,)},
+    check=_one_dim("vecadd"), plain=vecadd_plain,
+    cargs=lambda b, grid, block, *, n: [
+        _ptr(b["a"]), _ptr(b["b"]), _ptr(b["c"]), n, grid.x, block.x],
+    source="src/repro_torch/csrc/vecadd.cu")
+
+
+# --------------------------------------------------------------------------
+# reverse
+# --------------------------------------------------------------------------
+#: extern shared memory a block gets without an opt-in attribute
+_DEFAULT_DYN_SHARED_BYTES = 48 * 1024
+
+
+def reverse_plain(b, grid: Dim3, block: Dim3, *, n: int, dyn_shared: int):
+    """``d[t] = s[ns - 1 - t]`` for the block's threads, where ``s`` holds
+    ``d``'s first ``block`` values and zeros up to its ``ns =
+    dyn_shared`` elements."""
+    d = b["d"]
+    s = torch.zeros(dyn_shared, dtype=d.dtype, device=d.device)
+    s[:block.x] = d[:block.x]
+    out = d.clone()
+    out[:block.x] = s.flip(0)[:block.x]
+    return {"d": out}
+
+
+def _reverse_check(grid: Dim3, block: Dim3, params: dict):
+    _one_dim("reverse")(grid, block, params)
+    ns = params["dyn_shared"]
+    if ns is None:
+        raise ValueError("reverse: its shared array is extern (dynamic); "
+                         "pass dyn_shared= at launch")
+    if grid.x != 1:
+        raise UnsupportedKernel(f"reverse: one block; the reference's "
+                                f"blocks reverse the same d in turn, got "
+                                f"grid {grid.x}")
+    if block.x > params["n"]:
+        raise UnsupportedKernel(f"reverse: block {block.x} exceeds d's "
+                                f"{params['n']} elements")
+    if ns < block.x:
+        raise UnsupportedKernel(f"reverse: dyn_shared {ns} is smaller than "
+                                f"the block {block.x}; the kernel would "
+                                f"read past its shared array")
+    if ns * _I32.itemsize > _DEFAULT_DYN_SHARED_BYTES:
+        raise UnsupportedKernel(f"reverse: dyn_shared {ns} int32 exceeds "
+                                f"{_DEFAULT_DYN_SHARED_BYTES} bytes")
+
+
+REVERSE = CudaKernel(
+    name="reverse", symbol="launch_reverse",
+    argtypes=(_P, _I, _I, ctypes.c_size_t, _P),
+    buffers={"d": _I32},
+    writes=("d",),
+    shapes=lambda *, n, dyn_shared: {"d": (n,)},
+    check=_reverse_check, plain=reverse_plain,
+    # the chevron's third slot in bytes; the IR counts int32 elements
+    cargs=lambda b, grid, block, *, n, dyn_shared: [
+        _ptr(b["d"]), grid.x, block.x, dyn_shared * _I32.itemsize],
+    source="src/repro_torch/csrc/reverse.cu", extern=_I32)
+
+
+# --------------------------------------------------------------------------
+# histogram_coalesced, histogram_contiguous
+# --------------------------------------------------------------------------
+#: the kernel's per-block private histogram lives in dynamic shared memory
+HISTOGRAM_MAX_BINS = _DEFAULT_DYN_SHARED_BYTES // 4
+_LAYOUTS = {"coalesced": 0, "contiguous": 1}
+
+
+def _histogram_plain(layout: str):
+    def plain(b, grid: Dim3, block: Dim3, *, n: int, nbins: int,
+              total_threads: int):
+        """Each thread the grid covers counts its ``iters`` pixels: at
+        ``gid + k * total_threads`` (coalesced) or ``gid * iters + k``
+        (contiguous), ``k < iters``, those below ``n``."""
+        iters = -(-n // total_threads)
+        gid = torch.arange(grid.size * block.size,
+                           device=b["x"].device)[:, None]
+        k = torch.arange(iters, device=gid.device)[None, :]
+        idx = (gid + k * total_threads if layout == "coalesced"
+               else gid * iters + k)
+        v = b["x"][idx[idx < n]].long()
+        v = torch.where(v < 0, v + nbins, v)      # scatter rule: wrap, drop
+        v = v[(v >= 0) & (v < nbins)]
+        return {"hist": b["hist"] + torch.bincount(v, minlength=nbins)
+                .to(_I32)}
+    return plain
+
+
+def _histogram_check(grid: Dim3, block: Dim3, params: dict):
+    _one_dim("histogram")(grid, block, params)
+    nbins = params["nbins"]
+    if not 1 <= nbins <= HISTOGRAM_MAX_BINS:
+        raise UnsupportedKernel(f"histogram: {nbins} bins; the kernel's "
+                                f"shared histogram holds 1 to "
+                                f"{HISTOGRAM_MAX_BINS}")
+
+
+def _histogram(layout: str) -> CudaKernel:
+    return CudaKernel(
+        name=f"histogram_{layout}", symbol="launch_histogram",
+        argtypes=(_P,) * 2 + (_I,) * 7 + (_P,),
+        buffers={"x": _I32, "hist": _I32},
+        writes=("hist",),
+        shapes=lambda *, n, nbins, total_threads: {"x": (n,),
+                                                   "hist": (nbins,)},
+        check=_histogram_check, plain=_histogram_plain(layout),
+        cargs=lambda b, grid, block, *, n, nbins, total_threads: [
+            _ptr(b["x"]), _ptr(b["hist"]), n, nbins, total_threads,
+            -(-n // total_threads), _LAYOUTS[layout], grid.x, block.x],
+        source="src/repro_torch/csrc/histogram.cu")
+
+
+HISTOGRAM_COALESCED = _histogram("coalesced")
+HISTOGRAM_CONTIGUOUS = _histogram("contiguous")
+
+
+# --------------------------------------------------------------------------
+# reduce_shared, reduce_warp
+# --------------------------------------------------------------------------
+def reduce_shared_plain(b, grid: Dim3, block: Dim3, *, n: int,
+                        nthreads: int):
+    """Each block's sum, in the barrier tree's order."""
+    (s,) = _halving_tree(_block_values(b, grid, block, n))
+    return {"out": _put_per_block(b["out"], s)}
+
+
+def _butterfly(v: torch.Tensor) -> torch.Tensor:
+    """``v + shfl_xor(v, off)`` for ``off`` = 16, 8, 4, 2, 1 over the
+    last axis (32 lanes), level by level as the kernel adds."""
+    lane = torch.arange(32, device=v.device)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[..., lane ^ off]
+    return v
+
+
+def reduce_warp_plain(b, grid: Dim3, block: Dim3, *, n: int,
+                      nthreads: int):
+    """Each block's sum: a butterfly in each warp, then one over the warps'
+    sums in warp 0 (lanes past the warp count hold 0)."""
+    nwarps = block.x // 32
+    per_warp = _butterfly(_block_values(b, grid, block, n)
+                          .view(grid.x, nwarps, 32))[..., 0]
+    lanes = torch.zeros(grid.x, 32, dtype=per_warp.dtype,
+                        device=per_warp.device)
+    lanes[:, :nwarps] = per_warp
+    return {"out": _put_per_block(b["out"], _butterfly(lanes)[:, 0])}
+
+
+def _reduce_warp_check(grid: Dim3, block: Dim3, params: dict):
+    _one_dim("reduce_warp")(grid, block, params)
+    if block.x % 32 or not 32 <= block.x <= 1024 \
+            or block.x != params["nthreads"]:
+        raise UnsupportedKernel(f"reduce_warp: whole warps, a block of "
+                                f"{params['nthreads']} threads up to 1024; "
+                                f"got block {block.x}")
+
+
+def _reduce(name: str, plain, check) -> CudaKernel:
+    return CudaKernel(
+        name=name, symbol=f"launch_{name}",
+        argtypes=(_P,) * 2 + (_I,) * 4 + (_P,),
+        buffers={"x": _F32, "out": _F32},
+        writes=("out",),
+        shapes=lambda *, n, nthreads: {"x": (n,)},
+        check=check, plain=plain,
+        cargs=lambda b, grid, block, *, n, nthreads: [
+            _ptr(b["x"]), _ptr(b["out"]), n, b["out"].numel(), grid.x,
+            block.x],
+        source=f"src/repro_torch/csrc/{name}.cu")
+
+
+def _reduce_shared_check(grid: Dim3, block: Dim3, params: dict):
+    _one_dim("reduce_shared")(grid, block, params)
+    _pow2_block("reduce_shared", block, params["nthreads"])
+
+
+REDUCE_SHARED = _reduce("reduce_shared", reduce_shared_plain,
+                        _reduce_shared_check)
+REDUCE_WARP = _reduce("reduce_warp", reduce_warp_plain, _reduce_warp_check)
+
+
+# --------------------------------------------------------------------------
+# matmul_tiled
+# --------------------------------------------------------------------------
+MATMUL_TILE = 8
+
+
+def matmul_tiled_plain(b, grid: Dim3, block: Dim3, *, m: int, n: int,
+                       k: int):
+    """``a @ b`` accumulated one 8-deep k-tile at a time, written to the
+    8 x 8 output tiles the grid covers (tile ``by * n/8 + bx``)."""
+    a, bm, t = b["a"], b["b"], MATMUL_TILE
+    acc = torch.zeros(m, n, dtype=a.dtype, device=a.device)
+    for kk in range(0, k, t):
+        acc = acc + a[:, kk:kk + t] @ bm[kk:kk + t, :]
+    r = torch.arange(m, device=a.device)[:, None] // t
+    c = torch.arange(n, device=a.device)[None, :] // t
+    return {"c": torch.where(r * (n // t) + c < grid.x, acc, b["c"])}
+
+
+def _matmul_check(grid: Dim3, block: Dim3, params: dict):
+    _one_dim("matmul_tiled")(grid, block, params)
+    m, n, k = params["m"], params["n"], params["k"]
+    t = MATMUL_TILE
+    if block.x != t * t:
+        raise UnsupportedKernel(f"matmul_tiled: one thread per element of a "
+                                f"{t}x{t} tile; got block {block.x}")
+    if m % t or n % t or k % t:
+        raise UnsupportedKernel(f"matmul_tiled: m, n, k = {m}, {n}, {k} "
+                                f"are not multiples of {t}")
+    if grid.x > (m // t) * (n // t):
+        raise UnsupportedKernel(f"matmul_tiled: grid {grid.x} exceeds the "
+                                f"{(m // t) * (n // t)} output tiles")
+
+
+MATMUL_TILED = CudaKernel(
+    name="matmul_tiled", symbol="launch_matmul_tiled",
+    argtypes=(_P,) * 3 + (_I,) * 3 + (_P,),
+    buffers={"a": _F32, "b": _F32, "c": _F32},
+    writes=("c",),
+    shapes=lambda *, m, n, k: {"a": (m, k), "b": (k, n), "c": (m, n)},
+    check=_matmul_check, plain=matmul_tiled_plain,
+    cargs=lambda b, grid, block, *, m, n, k: [
+        _ptr(b["a"]), _ptr(b["b"]), _ptr(b["c"]), n, k, grid.x],
+    source="src/repro_torch/csrc/matmul_tiled.cu")
+
+
 KERNELS: dict[str, CudaKernel] = {
     k.name: k for k in (BFS_FRONTIER, PATHFINDER, NEEDLE_NW, HOTSPOT,
                         SRAD_STATS, SRAD_UPDATE, NN_REDUCE, NN_SELECT,
                         KMEANS_ASSIGN, KMEANS_UPDATE, BACKPROP_LAYER,
-                        LUD_DIAG, LAVAMD, STREAMCLUSTER)}
+                        LUD_DIAG, LAVAMD, STREAMCLUSTER, VECADD, REVERSE,
+                        HISTOGRAM_COALESCED, HISTOGRAM_CONTIGUOUS,
+                        REDUCE_SHARED, REDUCE_WARP, MATMUL_TILED)}
 
 
 def kernel_for(kernel: KernelDef) -> CudaKernel:
@@ -848,8 +1108,18 @@ def check(kernel: KernelDef, block) -> None:
     kernel_for(kernel)
 
 
+def launch_params(kernel: KernelDef, dyn_shared=None) -> dict:
+    """The wrapper's keyword parameters for one launch of ``kernel``: its
+    native scalars, plus the launch's ``dyn_shared`` slot (in elements)
+    for a kernel with an extern ``__shared__`` array."""
+    params = dict(kernel.native.params)
+    if kernel_for(kernel).extern is not None:
+        params["dyn_shared"] = dyn_shared
+    return params
+
+
 def run(kernel: KernelDef, *, grid, block, glob, grain=1, dyn_shared=None,
         interpret=True) -> dict:
     outs = kernel_for(kernel)(glob, grid=grid, block=block,
-                              **dict(kernel.native.params))
+                              **launch_params(kernel, dyn_shared))
     return {**glob, **outs}

@@ -49,9 +49,11 @@ def test_every_module_imports_with_jax_and_reference_blocked():
 def test_kernel_sources_live_in_the_port():
     from repro_torch.core import _native
     srcs = [p.name for p in _native.sources()]
-    assert srcs == ["backprop_layer.cu", "bfs_frontier.cu", "hotspot.cu",
-                    "kmeans.cu", "lavamd.cu", "lud_diag.cu", "needle_nw.cu",
-                    "nn.cu", "pathfinder.cu", "srad.cu", "streamcluster.cu"]
+    assert srcs == ["backprop_layer.cu", "bfs_frontier.cu", "histogram.cu",
+                    "hotspot.cu", "kmeans.cu", "lavamd.cu", "lud_diag.cu",
+                    "matmul_tiled.cu", "needle_nw.cu", "nn.cu",
+                    "pathfinder.cu", "reduce_shared.cu", "reduce_warp.cu",
+                    "reverse.cu", "srad.cu", "streamcluster.cu", "vecadd.cu"]
     for p in _native.sources():
         assert p.parent == PORT / "csrc"
         text = p.read_text()

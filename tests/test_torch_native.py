@@ -14,10 +14,12 @@ import torch
 from repro_torch import carry
 from repro_torch.core import _native, cuda_suite, lower_cuda
 from repro_torch.core.dim3 import Dim3
+from repro_torch.core.kernel import UnsupportedKernel
 
 NAMES = ("bfs_frontier", "pathfinder", "needle_nw", "hotspot", "srad_step",
          "nn", "kmeans", "backprop_layer", "lud_diag", "lavamd",
-         "streamcluster")
+         "streamcluster", "vecadd", "reverse", "histogram", "reduce_shared",
+         "reduce_warp", "matmul_tiled")
 #: each kernel's (entry, step index in the chain's iteration)
 STEPS = {step.kernel.name: (name, i) for name in NAMES
          for i, step in enumerate(cuda_suite.entry_steps(
@@ -72,12 +74,12 @@ def _state(name):
 def _launch(step, bufs):
     return lower_cuda.KERNELS[step.kernel.name](
         bufs, grid=step.grid, block=step.block,
-        **dict(step.kernel.native.params))
+        **lower_cuda.launch_params(step.kernel, step.dyn_shared))
 
 
 #: kernels whose float results equal their plain versions bit for bit
 BIT_EXACT = ("srad_stats", "nn_reduce", "nn_select", "kmeans_assign",
-             "kmeans_update")
+             "kmeans_update", "vecadd", "reduce_shared", "reduce_warp")
 
 
 @pytest.mark.gpu
@@ -95,7 +97,7 @@ def test_kernel_matches_its_plain_version_on_the_card(card, kname):
     if j and step.prepare is not None:
         bufs = {**bufs, **step.prepare(0, bufs)}
     kern = lower_cuda.KERNELS[kname]
-    params = dict(step.kernel.native.params)
+    params = lower_cuda.launch_params(step.kernel, step.dyn_shared)
     before = kern.launches
     got = _launch(step, bufs)
     torch.cuda.synchronize()
@@ -130,3 +132,39 @@ def test_run_entry_on_the_default_device(card, name):
         assert out[k].device.type == "cuda"
         np.testing.assert_allclose(out[k].cpu().numpy(), v, rtol=entry.tol,
                                    atol=entry.tol)
+
+
+@pytest.mark.gpu
+def test_reverse_takes_its_shared_extent_from_the_launch(card):
+    # 1024 threads (CUDA's widest block) over 1024 ints of extern shared
+    # memory; a smaller extent is refused before anything launches
+    entry = cuda_suite.entry_reverse(n=1024)
+    assert entry.block == entry.dyn_shared == 1024
+    out, want = cuda_suite.run_entry(entry, "cuda", device=card)
+    assert torch.equal(out["d"].cpu(), torch.from_numpy(want["d"]))
+    kern = lower_cuda.KERNELS["reverse"]
+    before = kern.launches
+    with pytest.raises(UnsupportedKernel, match="smaller than the block"):
+        entry.kernel[1, 1024, 1000].on(backend="cuda")(d=out["d"])
+    assert kern.launches == before
+    # a wider extent: the cells past the block read as zeros
+    got = entry.kernel[1, 512, 1536].on(backend="cuda")(d=out["d"])
+    want = kern.plain({"d": out["d"]}, Dim3(1), Dim3(512), n=1024,
+                      dyn_shared=1536)
+    assert torch.equal(got["d"], want["d"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", (16, 5))
+def test_histogram_contiguous_layout_on_the_card(card, grid):
+    entry = cuda_suite.entry_histogram(layout="contiguous")
+    out, want = cuda_suite.run_entry(entry, "cuda", grid=grid, device=card)
+    kern = lower_cuda.KERNELS["histogram_contiguous"]
+    bufs = carry.from_reference(entry.make_args(np.random.default_rng(42)),
+                                device=card)
+    plain = kern.plain(bufs, Dim3(grid), Dim3(entry.block),
+                       **dict(entry.kernel.native.params))
+    assert torch.equal(out["hist"], plain["hist"])
+    if grid == entry.grid:
+        np.testing.assert_array_equal(out["hist"].cpu().numpy(),
+                                      want["hist"])

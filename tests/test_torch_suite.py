@@ -1,17 +1,21 @@
-"""The port's eleven Rodinia entries against the JAX package, on the CPU.
+"""The port's suite entries against the JAX package, on the CPU: the
+eleven Rodinia entries and six textbook ones (vecadd, reverse, histogram,
+reduce_shared, reduce_warp, matmul_tiled).
 
 Inputs come from ``np.random.default_rng(42)`` and go to both packages.
 The port's ``run_entry`` under ``vector``, ``loop`` and ``cuda`` (the
 kernels' plain versions, since the tensors lie on the CPU) must match the
 reference's ``loop`` and ``pallas`` (interpret mode) runs: bit for bit for
-every integer buffer and for all of kmeans's buffers (its float sums are
-of integer values, exact in any order), and within the entry's own
+every integer buffer, for all of kmeans's buffers (its float sums are
+of integer values, exact in any order) and for vecadd's and the two
+reductions' (whose order the reference fixes), and within the entry's own
 tolerance (``SuiteEntry.tol``) for the other float32 buffers (hotspot,
-srad, nn's distances, backprop, lud, lavamd) - XLA and PyTorch may
-contract or order float32 sums and updates differently.  srad_step, nn
-and kmeans run two different kernels per iteration; the per-launch tests
-take every kernel of every entry.
+srad, nn's distances, backprop, lud, lavamd, matmul_tiled) - XLA and
+PyTorch may contract or order float32 sums and updates differently.
+srad_step, nn and kmeans run two different kernels per iteration; the
+per-launch tests take every kernel of every entry.
 """
+import ctypes
 import functools
 
 import jax.numpy as jnp
@@ -30,15 +34,33 @@ from repro_torch.core.kernel import KernelDef, UnsupportedKernel
 CHAINS = ("bfs_frontier", "pathfinder", "needle_nw", "hotspot",
           "srad_step", "nn", "kmeans")
 SINGLE = ("backprop_layer", "lud_diag", "lavamd", "streamcluster")
-NAMES = CHAINS + SINGLE
-#: float buffers held bit for bit: kmeans's sums are of integer-valued
-#: floats, and its centroids one IEEE division of them
-BIT_EXACT = ("kmeans", "kmeans_assign", "kmeans_update")
+#: single launches that the reference's build_suite defines inline
+TEXTBOOK = ("vecadd", "reverse", "histogram", "reduce_shared",
+            "reduce_warp", "matmul_tiled")
+NAMES = CHAINS + SINGLE + TEXTBOOK
+#: float buffers held bit for bit against the reference's launches:
+#: kmeans's sums are of integer-valued floats, and its centroids one IEEE
+#: division of them; vecadd is one add; the reductions' trees and
+#: butterflies fix their order
+BIT_EXACT = ("kmeans", "kmeans_assign", "kmeans_update", "vecadd",
+             "reduce_shared", "reduce_warp")
+#: ... and against the NumPy oracle (whose sums take another order)
+ORACLE_EXACT = ("kmeans", "vecadd")
+
+
+@functools.cache
+def _jax_textbook():
+    return {e.name: e for e in jsuite.build_suite(1)
+            if e.name in TEXTBOOK}
 
 
 def _entries(name, **kw):
-    return (getattr(jsuite, f"entry_{name}")(**kw),
-            getattr(cuda_suite, f"entry_{name}")(**kw))
+    if name in TEXTBOOK:       # the reference has no entry_<name> for these
+        assert not kw, "build_suite(1) fixes the textbook entries' sizes"
+        jentry = _jax_textbook()[name]
+    else:
+        jentry = getattr(jsuite, f"entry_{name}")(**kw)
+    return jentry, getattr(cuda_suite, f"entry_{name}")(**kw)
 
 
 def _kernel_steps() -> dict:
@@ -62,13 +84,13 @@ def _tol(name):
     return _entries(name)[1].tol
 
 
-def _assert_match(name, got, want, keys):
+def _assert_match(name, got, want, keys, exact=BIT_EXACT):
     """Integer buffers bit for bit, float32 ones within the entry's tol
-    (bit for bit too for the entries and kernels in ``BIT_EXACT``)."""
+    (bit for bit too for the entries and kernels in ``exact``)."""
     for k in keys:
         g, w = _np(got[k]), _np(want[k])
         assert g.shape == w.shape, (name, k)
-        if g.dtype.kind == "f" and name not in BIT_EXACT:
+        if g.dtype.kind == "f" and name not in exact:
             tol = _tol(STEPS[name][0] if name in STEPS else name)
             np.testing.assert_allclose(g, w, rtol=tol, atol=tol, err_msg=k)
         else:
@@ -78,7 +100,8 @@ def _assert_match(name, got, want, keys):
 def _jax_steps(jentry):
     """The reference entry's launches of one iteration."""
     if jentry.chain is None:
-        return [jsuite.ChainStep(jentry.kernel, jentry.grid, jentry.block)]
+        return [jsuite.ChainStep(jentry.kernel, jentry.grid, jentry.block,
+                                 jentry.dyn_shared)]
     return list(jentry.chain.steps)
 
 
@@ -118,7 +141,8 @@ def test_make_args_bit_equal(name):
     ("backprop_layer", {}), ("backprop_layer", {"in_n": 256, "out_n": 4}),
     ("lud_diag", {}), ("lud_diag", {"ntiles": 3, "b": 5}),
     ("lavamd", {}), ("lavamd", {"nboxes": 5, "ppb": 7, "nnei": 4}),
-    ("streamcluster", {}), ("streamcluster", {"n": 512, "k": 20})])
+    ("streamcluster", {}), ("streamcluster", {"n": 512, "k": 20}),
+    *((name, {}) for name in TEXTBOOK)])
 def test_vectorised_oracles_equal_reference_loops(name, kw):
     jentry, tentry = _entries(name, **kw)
     args = jentry.make_args(np.random.default_rng(42))
@@ -137,7 +161,7 @@ def test_run_entry_matches_reference(name, backend, ref):
     _assert_match(name, out, jout, jout.keys())
     # and the oracle, within the entry's tolerance (exact where the
     # reference's results are)
-    _assert_match(name, out, want, want.keys())
+    _assert_match(name, out, want, want.keys(), exact=ORACLE_EXACT)
     for k, v in want.items():
         np.testing.assert_array_equal(twant[k], v, err_msg=k)
 
@@ -198,13 +222,13 @@ def _check_plain_launch(name):
     grid, block = jstep.grid, jstep.block
     jbufs = {k: jnp.asarray(v) for k, v in args.items()}
     want = japi.launch(jstep.kernel, grid=grid, block=block, args=jbufs,
-                       backend="loop")
+                       dyn_shared=jstep.dyn_shared, backend="loop")
     tkernel, tgrid, tblock = tstep.kernel, tstep.grid, tstep.block
     kern = lower_cuda.KERNELS[name]
     bufs = carry.from_reference(args, device="cpu")
     before = kern.launches
     got = kern(bufs, grid=tgrid, block=tblock,
-               **dict(tkernel.native.params))
+               **lower_cuda.launch_params(tkernel, tstep.dyn_shared))
     assert kern.launches == before        # the plain version is no launch
     _assert_match(name, got, want, kern.writes)
     for k, v in args.items():              # functional: inputs untouched
@@ -240,11 +264,13 @@ def test_bfs_launch_settles_contested_claims_like_the_reference():
 @pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_chevron_launch_on_cuda_backend(name):
     _, tstep, args = _step_state(name)
-    kernel, grid, block = tstep.kernel, tstep.grid, tstep.block
+    kernel, config = tstep.kernel, (tstep.grid, tstep.block)
+    if tstep.dyn_shared is not None:
+        config += (tstep.dyn_shared,)
     tentry = _entries(STEPS[name][0])[1]
     bufs = carry.from_reference(args, const=tentry.const, device="cpu")
-    got = kernel[grid, block].on(backend="cuda")(**bufs)
-    want = kernel[grid, block].on(backend="vector")(bufs)
+    got = kernel[config].on(backend="cuda")(**bufs)
+    want = kernel[config].on(backend="vector")(bufs)
     _assert_match(name, got, want, kernel.writes)
 
 
@@ -263,6 +289,7 @@ def test_coverage_cells_match_reference(name, backend):
     try:
         japi.compiled(jkernel, grid=grid, block=block,
                       args={k: jnp.asarray(v) for k, v in args.items()},
+                      dyn_shared=jstep.dyn_shared,
                       backend="pallas" if backend == "cuda" else backend)
         jok = True
     except JUnsupported:
@@ -270,7 +297,7 @@ def test_coverage_cells_match_reference(name, backend):
     try:
         compiled(tkernel, grid=tgrid, block=tblock,
                  args=carry.from_reference(args, device="cpu"),
-                 backend=backend)
+                 dyn_shared=tstep.dyn_shared, backend=backend)
         tok = True
     except UnsupportedKernel:
         tok = False
@@ -294,7 +321,8 @@ def test_kernel_without_native_body_is_unsupported_on_cuda():
     lambda: cuda_suite.make_pathfinder(256, 32),
     lambda: cuda_suite.make_pathfinder(256, 64, dtype=torch.float32),
     lambda: cuda_suite.make_hotspot(32, 64, tile_y=4, tile_x=4),
-    lambda: cuda_suite.make_srad_update(32, 64, tile_y=4, tile_x=4)])
+    lambda: cuda_suite.make_srad_update(32, 64, tile_y=4, tile_x=4),
+    lambda: cuda_suite.make_matmul_tiled(32, 32, 32, tile=4)])
 def test_variants_without_a_kernel_are_unsupported_on_cuda(make):
     k = make()
     assert k.native is None
@@ -362,7 +390,8 @@ def test_cpu_runs_build_and_launch_nothing(monkeypatch):
 @pytest.mark.parametrize("backend", ("vector", "cuda"))
 @pytest.mark.parametrize("name,grid,block", [
     ("lud_diag", 3, None), ("streamcluster", 2, None),
-    ("streamcluster", 8, 32), ("lavamd", 5, None)])
+    ("streamcluster", 8, 32), ("lavamd", 5, None), ("vecadd", 5, None),
+    ("vecadd", 20, 64), ("histogram", 3, None), ("histogram", 8, 64)])
 def test_run_entry_single_launch_honours_geometry_overrides(name, grid,
                                                            block, backend):
     # the override reaches the launch: only the blocks it names run, as
@@ -432,14 +461,23 @@ def test_streamcluster_ndirty_counts_distinct_claimed_centres(backend):
     ("lud_diag", {"grid": 9}),
     ("lavamd", {"block": 16}),
     ("lavamd", {"grid": 9}),
-    ("streamcluster", {"block": 48, "grid": 6})])
+    ("streamcluster", {"block": 48, "grid": 6}),
+    ("vecadd", {"block": (64, 2)}),
+    ("reverse", {"grid": 2}),
+    ("reverse", {"block": 1024}),
+    ("histogram_coalesced", {"grid": (4, 4)}),
+    ("reduce_shared", {"block": 128}),
+    ("reduce_warp", {"block": 48}),
+    ("reduce_warp", {"block": 128}),
+    ("matmul_tiled", {"block": 32}),
+    ("matmul_tiled", {"grid": 17})])
 def test_single_launch_wrappers_reject_geometry_they_cannot_run(name, bad):
-    _, tentry, args = _launch_state(name)
+    _, tstep, args = _step_state(name)
     kern = lower_cuda.KERNELS[name]
-    geom = {"grid": tentry.grid, "block": tentry.block, **bad}
+    geom = {"grid": tstep.grid, "block": tstep.block, **bad}
     with pytest.raises(UnsupportedKernel):
         kern(carry.from_reference(args, device="cpu"), **geom,
-             **dict(tentry.kernel.native.params))
+             **lower_cuda.launch_params(tstep.kernel, tstep.dyn_shared))
 
 
 def test_wrappers_reject_sizes_their_kernels_cannot_hold():
@@ -552,4 +590,131 @@ def test_chain_wrappers_reject_sizes_their_kernels_cannot_hold():
                  lambda: cuda_suite.make_nn_reduce(256, 48),
                  lambda: cuda_suite.make_nn_select(6)):
         with pytest.raises(ValueError, match="power of two"):
+            make()
+
+
+@pytest.mark.parametrize("backend", ("vector", "loop", "cuda"))
+@pytest.mark.parametrize("grid", (None, 5))
+def test_histogram_contiguous_layout_matches_reference(backend, grid):
+    # each thread counts iters neighbouring pixels (Fig. 10c); under a
+    # smaller grid only the pixels of the threads that run are counted
+    n, nbins, g, b = 4096, 64, 16, 128
+    jkernel = jsuite.make_histogram(n, nbins, g * b, layout="contiguous")
+    tentry = cuda_suite.entry_histogram(layout="contiguous")
+    assert tentry.kernel.name == jkernel.name == "histogram_contiguous"
+    args = tentry.make_args(np.random.default_rng(42))
+    want = japi.launch(jkernel, grid=grid or g, block=b,
+                       args={k: jnp.asarray(v) for k, v in args.items()},
+                       backend="loop")
+    out, oracle = cuda_suite.run_entry(tentry, backend, args=args,
+                                       grid=grid, device="cpu")
+    _assert_match("histogram", out, want, ("hist",))
+    if grid is None:
+        np.testing.assert_array_equal(_np(out["hist"]), oracle["hist"])
+    else:
+        assert int(out["hist"].sum()) == grid * b * (n // (g * b))
+
+
+@pytest.mark.parametrize("dyn", (512, 768))
+def test_reverse_extern_shared_follows_the_dyn_shared_slot(dyn):
+    # the shared array has dyn elements: past the block they hold the
+    # reference's zeros, and d[t] reads s[dyn - 1 - t]
+    jentry, tentry = _entries("reverse")
+    args = tentry.make_args(np.random.default_rng(42))
+    want = japi.launch(jentry.kernel, grid=1, block=512, dyn_shared=dyn,
+                       args={"d": jnp.asarray(args["d"])}, backend="loop")
+    for backend in ("vector", "loop", "cuda"):
+        got = tentry.kernel[1, 512, dyn].on(backend=backend)(
+            d=torch.from_numpy(args["d"]))
+        _assert_match("reverse", got, want, ("d",))
+    if dyn > 512:
+        assert (np.asarray(want["d"])[:dyn - 512] == 0).all()
+
+
+def test_reverse_wrapper_refuses_a_shared_array_smaller_than_the_block():
+    _, tentry = _entries("reverse")
+    kern = lower_cuda.KERNELS["reverse"]
+    bufs = carry.from_reference(
+        tentry.make_args(np.random.default_rng(42)), device="cpu")
+    with pytest.raises(UnsupportedKernel, match="smaller than the block"):
+        kern(bufs, grid=1, block=512, n=512, dyn_shared=511)
+    with pytest.raises(UnsupportedKernel, match="smaller than the block"):
+        tentry.kernel[1, 512, 256].on(backend="cuda")(**bufs)
+    with pytest.raises(ValueError, match="dyn_shared"):
+        tentry.kernel[1, 512].on(backend="cuda")(**bufs)
+    with pytest.raises(UnsupportedKernel, match="bytes"):
+        kern.check(Dim3(1), Dim3(512), {"n": 512, "dyn_shared": 12289})
+
+
+def test_dyn_shared_slot_reaches_the_launcher_in_bytes(monkeypatch):
+    # the chevron's third slot goes through api -> backends -> lower_cuda
+    # to the wrapper, whose C arguments carry it in bytes
+    _, tentry = _entries("reverse")
+    kern = lower_cuda.KERNELS["reverse"]
+    seen = {}
+    plain = kern.plain
+
+    def spy(bufs, grid, block, **params):
+        seen.update(params)
+        return plain(bufs, grid, block, **params)
+
+    monkeypatch.setattr(kern, "plain", spy)
+    d = torch.arange(512, dtype=torch.int32)
+    tentry.kernel[1, 256, 640].on(backend="cuda")(d=d)
+    assert seen == {"n": 512, "dyn_shared": 640}
+    cargs = kern.cargs({"d": d}, Dim3(1), Dim3(256), **seen)
+    assert cargs[1:] == [1, 256, 640 * 4]
+    assert kern.argtypes[3] is ctypes.c_size_t
+    assert lower_cuda.launch_params(tentry.kernel, 640) == seen
+    # a kernel without an extern array takes no such parameter
+    assert "dyn_shared" not in lower_cuda.launch_params(
+        _entries("vecadd")[1].kernel, 640)
+
+
+@pytest.mark.parametrize("n,block", [(2048, 256), (1000, 128), (700, 96),
+                                     (3000, 1024)])
+def test_reduce_warp_plain_version_has_the_reference_loop_bits(n, block):
+    # the plain version repeats the butterflies level by level (a sum in
+    # another order would differ in the last bits); ragged n loads zeros
+    grid = -(-n // block)
+    jkernel = jsuite.make_reduce_warp(n, block)
+    args = {"x": np.random.default_rng(42).standard_normal(
+        n, dtype=np.float32), "out": np.zeros(grid, np.float32)}
+    want = japi.launch(jkernel, grid=grid, block=block, backend="loop",
+                       args={k: jnp.asarray(v) for k, v in args.items()})
+    kern = lower_cuda.KERNELS["reduce_warp"]
+    got = kern(carry.from_reference(args, device="cpu"), grid=grid,
+               block=block, n=n, nthreads=block)
+    np.testing.assert_array_equal(_np(got["out"]), np.asarray(want["out"]))
+
+
+def test_matmul_tiled_plain_version_within_tol_of_float64_at_depth_2048():
+    m = n = 64
+    k = 2048
+    entry = cuda_suite.entry_matmul_tiled(m, n, k)
+    assert entry.tol == cuda_suite.matmul_tol(k) > 2e-5
+    assert cuda_suite.matmul_tol(32) == 2e-5 == _entries(
+        "matmul_tiled")[0].tol
+    args = entry.make_args(np.random.default_rng(42))
+    kern = lower_cuda.KERNELS["matmul_tiled"]
+    got = kern(carry.from_reference(args, device="cpu"), grid=entry.grid,
+               block=entry.block, **dict(entry.kernel.native.params))
+    exact = args["a"].astype(np.float64) @ args["b"].astype(np.float64)
+    np.testing.assert_allclose(_np(got["c"]), exact, rtol=entry.tol,
+                               atol=entry.tol)
+
+
+def test_textbook_wrappers_reject_sizes_their_kernels_cannot_hold():
+    kerns = lower_cuda.KERNELS
+    with pytest.raises(UnsupportedKernel, match="bins"):
+        kerns["histogram_coalesced"].check(
+            Dim3(16), Dim3(128), {"n": 4096, "nbins": 20000,
+                                  "total_threads": 2048})
+    with pytest.raises(UnsupportedKernel, match="multiples of 8"):
+        kerns["matmul_tiled"].check(Dim3(1), Dim3(64),
+                                    {"m": 12, "n": 8, "k": 8})
+    for make in (lambda: cuda_suite.make_reduce_shared(256, 96),
+                 lambda: cuda_suite.make_matmul_tiled(12, 8, 8),
+                 lambda: cuda_suite.make_histogram(64, 8, 32, "strided")):
+        with pytest.raises(ValueError):
             make()
