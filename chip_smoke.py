@@ -7,9 +7,9 @@ Phases, each printing its own lines:
 
 1. the card (``nvidia-smi`` name and power limit) and the ``nvcc`` build
    of ``src/repro_torch/csrc/*.cu`` into ``build/repro_torch/``;
-2. per hand-written kernel (20 for 17 entries: srad_step, nn and kmeans
-   run two kernels an iteration): one launch at the main path's shape
-   through the kernel and through its plain PyTorch version on the same
+2. per hand-written kernel (26 for the 23 entries: srad_step, nn and
+   kmeans run two kernels an iteration): one launch at the main path's
+   shape through the kernel and through its plain PyTorch version on the same
    inputs on the card, compared (within the entry's ``tol`` for the
    float32 results of the ``TOLERANT`` kernels, bit for bit for every
    other kernel), then both timed with CUDA events, the median of 25 runs
@@ -24,22 +24,24 @@ Phases, each printing its own lines:
    ``x`` for srad_stats and the two reductions; the per-block
    ``torch.min`` of the distances for nn_reduce, when its indices agree;
    ``torch.add``, ``torch.flip``, ``torch.bincount`` and ``torch.matmul``
-   for vecadd, reverse, histogram and matmul_tiled).  Float32 matrix
+   for vecadd, reverse, histogram and matmul_tiled; ``torch.softmax``,
+   the per-block ``torch.cumsum`` and ``x.t().contiguous()`` for
+   softmax_row, scan_block and transpose_tiled).  Float32 matrix
    products run in full float32: TF32 is switched off explicitly, or
    matmul_tiled's plain version and yardstick would compute something
    else;
 3. the main path: the eleven Rodinia entries at Rodinia 3.1's run-script
-   sizes, and six textbook entries at sizes that load the card (``SIZES``),
-   through ``run_entry(entry, backend="cuda")`` - chevron/api/
-   backends/``lower_cuda`` - with every launch count set to 0 just before
+   sizes, and the twelve textbook entries at sizes that load the card
+   (``SIZES``), through ``run_entry(entry, backend="cuda")`` - chevron/
+   api/backends/``lower_cuda`` - with every launch count set to 0 just before
    and read just after; each kernel of the entry must have launched, and
    their launches must sum to the chain's count.  Each entry is checked
    against the port's NumPy oracle (timed, since lavaMD's runs 27,000
    NumPy steps): integer buffers and all of kmeans's bit for bit, the
-   other float32 ones within the entry's ``tol`` (vecadd bit for bit).
-   Seven entries are launch chains and ten single launches.  Every entry
-   draws its inputs
-   from one generator seeded with ``SEED``, in the order of ``SIZES``.
+   other float32 ones within the entry's ``tol`` (``EXACT_ENTRIES`` bit
+   for bit).  Seven entries are launch chains and sixteen single
+   launches.  Every entry draws its inputs from one generator seeded
+   with ``SEED``, in the order of ``SIZES``.
    Then needle_nw's host time per launch, layer by layer;
 4. the kernels' JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -74,9 +76,10 @@ REPLACES = "src/repro/core/pallas_emit.py:34"
 #: (FMA contraction, exp, a fold in another order); every other kernel is
 #: held bit for bit
 TOLERANT = ("hotspot", "srad_update", "backprop_layer", "lud_diag",
-            "lavamd", "matmul_tiled")
+            "lavamd", "matmul_tiled", "softmax_row", "pixel_pipeline")
 #: entries whose float32 results the oracle fixes bit for bit
-EXACT_ENTRIES = ("kmeans", "vecadd")
+EXACT_ENTRIES = ("kmeans", "vecadd", "stencil1d", "stencil2d",
+                 "transpose_tiled")
 SLEEP_CYCLES = 1_000_000         # keeps the card busy while a run enqueues
 RUNS, WARMUP = 25, 3
 
@@ -112,6 +115,13 @@ SIZES = {
     "reduce_shared": {"n": 1 << 24, "block": 256},       # 65,536 sums
     "reduce_warp": {"n": 1 << 24, "block": 256},
     "matmul_tiled": {"m": 2048, "n": 2048, "k": 2048},   # 65,536 tiles
+    # the last six, each 2^24 float32 in and out (134 MB moved)
+    "stencil1d": {"n": 1 << 24, "block": 128},           # 131,072 blocks
+    "stencil2d": {"h": 4096, "w": 4096},                 # grid (512, 512)
+    "softmax_row": {"rows": 131_072, "block": 128},      # a block a row
+    "scan_block": {"n": 1 << 24, "block": 128},
+    "transpose_tiled": {"h": 4096, "w": 4096},           # 262,144 tiles
+    "pixel_pipeline": {"n": 1 << 24, "block": 128},
 }
 
 
@@ -264,6 +274,23 @@ def bound(name: str, b: dict, p: dict, grid, block) -> tuple[float, str]:
         m, n, k = p["m"], p["n"], p["k"]
         nbytes = i4 * (m * k + k * n + m * n)   # a, b in; c out
         ops_ms = 2.0 * m * n * k / F32_OPS_PER_S * 1e3
+    elif name in ("stencil1d", "stencil2d"):
+        cells = p["n"] if name == "stencil1d" else p["h"] * p["w"]
+        nbytes = i4 * 2 * cells                 # x in; y out
+        ops_ms = 5.0 * cells / F32_OPS_PER_S * 1e3   # the sum and scaling
+    elif name == "softmax_row":
+        cells = p["rows"] * p["nthreads"]
+        nbytes = i4 * 2 * cells                 # x in; y out
+        ops_ms = cells / SFU_OPS_PER_S * 1e3    # one exp a value
+    elif name == "scan_block":
+        nbytes = i4 * 2 * p["n"]                # x in; y out
+        levels = p["nthreads"].bit_length() - 1
+        ops_ms = levels * p["n"] / F32_OPS_PER_S * 1e3
+    elif name == "transpose_tiled":
+        nbytes = i4 * 2 * p["h"] * p["w"]       # x in; y out
+    elif name == "pixel_pipeline":
+        nbytes = i4 * 2 * p["n"]                # img in; out out
+        ops_ms = 2.0 * p["n"] / SFU_OPS_PER_S * 1e3  # a log and an exp
     else:                                       # streamcluster
         m, k = p["n"], p["k"]
         cand = b["cand"].long()
@@ -322,6 +349,15 @@ def library_call(name: str, b: dict, params: dict, grid, block, got):
     if name == "matmul_tiled":
         xa, xb = b["a"], b["b"]
         return lambda: torch.matmul(xa, xb)
+    if name == "softmax_row":
+        x = b["x"]
+        return lambda: torch.softmax(x, 1)
+    if name == "scan_block":
+        xv = b["x"].view(-1, block.x)
+        return lambda: torch.cumsum(xv, 1)
+    if name == "transpose_tiled":
+        x = b["x"]
+        return lambda: x.t().contiguous()
     if name == "lud_diag":
         tile = params["b"]
         a = b["a"][:grid.x * tile].reshape(grid.x, tile, tile)

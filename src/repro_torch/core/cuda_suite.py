@@ -1,5 +1,5 @@
-"""CUDA-style kernel suite of the port: the eleven Rodinia entries and six
-of the reference's textbook entries.
+"""CUDA-style kernel suite of the port: the reference's 23 entries, the
+eleven Rodinia ones and twelve textbook ones.
 
 Each entry is a kernel (two for srad_step, nn and kmeans) written in the
 port's IR (stages over :class:`~repro_torch.core.kernel.Ctx`), a native
@@ -14,6 +14,12 @@ and a NumPy oracle:
 | reduce_shared  | reductions    | barrier tree                                    |
 | reduce_warp    | Crystal q11-q13 | __shfl_xor_sync butterflies                   |
 | matmul_tiled   | lud/gemm      | shared tiles, register accumulator across 2k/8 barriers |
+| stencil1d      | hotspot (1-D) | __shared__ halo loaded by the edge threads      |
+| stencil2d      | hotspot       | 2-D dim3 grid x block, 2-D shared halo          |
+| softmax_row    | attention primitive | one block per row, max and sum over shared |
+| scan_block     | pathfinder/scan | Hillis-Steele scan, a register across 2 log2(block) barriers |
+| transpose_tiled | SVI-C reordering | shared-staged 8x8 tile transpose            |
+| pixel_pipeline | srad extract/compress | per-thread shared cell, two removable barriers |
 | bfs_frontier   | bfs           | atomicCAS, atomicAdd, __syncthreads_count, const, stop-flag chain |
 | pathfinder     | pathfinder    | __shared__ halo, barrier, row chain             |
 | needle_nw      | nw            | anti-diagonal wavefront chain                   |
@@ -26,18 +32,20 @@ and a NumPy oracle:
 | lavamd         | lavaMD        | neighbour-list gather into shared, register accumulator across barriers |
 | streamcluster  | streamcluster | contended atomicAdd, first-wins atomicCAS claims |
 
-bfs_frontier to kmeans are launch chains; the others are single
-launches.  ``make_args`` and ``reference`` are NumPy, with the reference
-package's inputs for the same generator (the builders take size keywords
-whose defaults are the reference's sizes: ``build_suite(1)``'s for the
-six textbook entries, which the reference defines inline there).  The
-BFS and NW oracles are vectorised (by level and by anti-diagonal) so they
-stay fast at Rodinia sizes; they compute the same values as the
-reference's loops.
+:func:`build_suite` returns them in the reference's order at the
+reference's sizes.  bfs_frontier to kmeans are launch chains; the others
+are single launches.  ``make_args`` and ``reference`` are NumPy, with
+the reference package's inputs for the same generator (the builders take
+size keywords whose defaults are the reference's sizes: ``build_suite(1)``'s
+for the twelve textbook entries, which the reference defines inline
+there).  The BFS and NW oracles are vectorised (by level and by
+anti-diagonal) so they stay fast at Rodinia sizes; they compute the same
+values as the reference's loops.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import numpy as np
@@ -267,6 +275,229 @@ def make_matmul_tiled(m: int, n: int, k: int, tile: int = 8,
                 "sb": ((tile, tile), dtype)},
         est_block_work=tile * tile * k * 2.0,
         native=native,
+    )
+
+
+# --------------------------------------------------------------------------
+# stencil1d (hotspot-like 3-point stencil with a shared halo)
+# --------------------------------------------------------------------------
+def make_stencil1d(n: int, block: int, dtype=torch.float32) -> KernelDef:
+    def load(ctx, st):
+        gid = _gid(ctx)
+        x = st.glob["x"]
+        s = index.put(st.shared["s"], ctx.tid + 1,
+                      index.take(x, gid.clamp(0, n - 1)))
+        left = index.take(x, (gid - 1).clamp(0, n - 1))
+        right = index.take(x, (gid + 1).clamp(0, n - 1))
+        s = index.put(s, _where(ctx.tid == 0, 0, OOB), left)
+        s = index.put(s, _where(ctx.tid == block - 1, block + 1, OOB), right)
+        return st.set_shared(s=s)
+
+    def compute(ctx, st):
+        gid = _gid(ctx)
+        s = st.shared["s"]
+        val = (0.25 * index.take(s, ctx.tid) + 0.5 * index.take(s, ctx.tid + 1)
+               + 0.25 * index.take(s, ctx.tid + 2))
+        return st.set_glob(y=index.put(st.glob["y"], _where(gid < n, gid, OOB),
+                                       val))
+
+    return KernelDef(
+        "stencil1d", (load, compute), writes=("y",), reads=("x", "y"),
+        shared={"s": ((block + 2,), dtype)}, est_block_work=block * 6.0,
+        native=Native.of("stencil1d", n=n, nthreads=block),
+    )
+
+
+# --------------------------------------------------------------------------
+# stencil2d (hotspot-style 5-point stencil; 2-D grid x 2-D block via dim3)
+# --------------------------------------------------------------------------
+def make_stencil2d(h: int, w: int, tile_y: int = 8,
+                   tile_x: int = 8) -> KernelDef:
+    """``blockIdx``/``threadIdx`` are genuinely 2-D (read through
+    ``ctx.bid3``/``ctx.tid3``), with a shared halo tile."""
+
+    def load(ctx, st):
+        tx, ty, _ = ctx.tid3
+        bx, by, _ = ctx.bid3
+        row, col = by * tile_y + ty, bx * tile_x + tx
+        x = st.glob["x"]
+
+        def at(r, c):
+            return index.take(x, r.clamp(0, h - 1), c.clamp(0, w - 1))
+
+        s = index.put(st.shared["s"], (ty + 1, tx + 1), at(row, col))
+        # boundary threads fetch the four halo edges
+        s = index.put(s, (_where(ty == 0, 0, OOB), tx + 1), at(row - 1, col))
+        s = index.put(s, (_where(ty == tile_y - 1, tile_y + 1, OOB), tx + 1),
+                      at(row + 1, col))
+        s = index.put(s, (ty + 1, _where(tx == 0, 0, OOB)), at(row, col - 1))
+        s = index.put(s, (ty + 1, _where(tx == tile_x - 1, tile_x + 1, OOB)),
+                      at(row, col + 1))
+        return st.set_shared(s=s)
+
+    def compute(ctx, st):
+        tx, ty, _ = ctx.tid3
+        bx, by, _ = ctx.bid3
+        row, col = by * tile_y + ty, bx * tile_x + tx
+        s = st.shared["s"]
+        val = 0.2 * (index.take(s, ty + 1, tx + 1) + index.take(s, ty, tx + 1)
+                     + index.take(s, ty + 2, tx + 1)
+                     + index.take(s, ty + 1, tx)
+                     + index.take(s, ty + 1, tx + 2))
+        idx = _where((row < h) & (col < w), row, OOB)
+        return st.set_glob(y=index.put(st.glob["y"], (idx, col), val))
+
+    native = (Native.of("stencil2d", h=h, w=w)
+              if (tile_y, tile_x) == (8, 8) else None)
+    return KernelDef(
+        "stencil2d", (load, compute), writes=("y",), reads=("x", "y"),
+        shared={"s": ((tile_y + 2, tile_x + 2), torch.float32)},
+        est_block_work=tile_y * tile_x * 10.0,
+        native=native,
+    )
+
+
+# --------------------------------------------------------------------------
+# softmax_row: one block per row of x[rows, block], two barriers (max, sum)
+# --------------------------------------------------------------------------
+def make_softmax_row(rows: int, block: int,
+                     dtype=torch.float32) -> KernelDef:
+    def load(ctx, st):
+        v = index.take(st.glob["x"], ctx.bid, ctx.tid)
+        return st.set_shared(s=index.put(st.shared["s"], ctx.tid, v))
+
+    def exps(ctx, st):
+        s = st.shared["s"]
+        m = torch.max(s)                     # every thread reads all of shared
+        p = torch.exp(index.take(s, ctx.tid) - m)
+        return st.set_shared(p=index.put(st.shared["p"], ctx.tid, p))
+
+    def normalize(ctx, st):
+        p = st.shared["p"]
+        denom = torch.sum(p)
+        return st.set_glob(y=index.put(st.glob["y"], (ctx.bid, ctx.tid),
+                                       index.take(p, ctx.tid) / denom))
+
+    return KernelDef(
+        "softmax_row", (load, exps, normalize), writes=("y",),
+        reads=("x", "y"),
+        shared={"s": ((block,), dtype), "p": ((block,), dtype)},
+        est_block_work=block * 10.0,
+        native=Native.of("softmax_row", rows=rows, nthreads=block),
+    )
+
+
+# --------------------------------------------------------------------------
+# scan_block: Hillis-Steele inclusive prefix sum (2 stages per level)
+# --------------------------------------------------------------------------
+def make_scan_block(n: int, block: int, dtype=torch.float32) -> KernelDef:
+    if block < 1 or block & (block - 1):
+        raise ValueError(f"scan_block: block must be a power of two, got "
+                         f"{block}")
+
+    def load(ctx, st):
+        return st.set_shared(s=index.put(st.shared["s"], ctx.tid,
+                                         index.take(st.glob["x"], _gid(ctx))))
+
+    def make_read(d):
+        def read(ctx, st):
+            s = st.shared["s"]
+            t = torch.where(ctx.tid >= d,
+                            index.take(s, (ctx.tid - d).clamp(min=0)), 0.0)
+            return st.with_priv({"t": t})
+        return read
+
+    def make_write(d):
+        def write(ctx, st):
+            s = st.shared["s"]
+            return st.with_priv({}).set_shared(
+                s=index.put(s, ctx.tid, index.take(s, ctx.tid) + st.priv["t"]))
+        return write
+
+    def store(ctx, st):
+        return st.set_glob(y=index.put(st.glob["y"], _gid(ctx),
+                                       index.take(st.shared["s"], ctx.tid)))
+
+    stages = [load]
+    d = 1
+    while d < block:
+        stages += [make_read(d), make_write(d)]
+        d *= 2
+    stages.append(store)
+    return KernelDef(
+        "scan_block", tuple(stages), writes=("y",), reads=("x", "y"),
+        shared={"s": ((block,), dtype)},
+        est_block_work=block * math.log2(block) * 4.0,
+        native=Native.of("scan_block", n=n, nthreads=block),
+    )
+
+
+# --------------------------------------------------------------------------
+# transpose_tiled: shared-staged transpose (coalescing demo, SVI-C)
+# --------------------------------------------------------------------------
+def make_transpose_tiled(h: int, w: int, tile: int = 8,
+                         dtype=torch.float32) -> KernelDef:
+    if h % tile or w % tile:
+        raise ValueError(f"transpose_tiled: h, w = {h}, {w} must be "
+                         f"multiples of the tile {tile}")
+    ntx = w // tile
+
+    def coords(ctx):
+        return (ctx.tid // tile, ctx.tid % tile, ctx.bid // ntx,
+                ctx.bid % ntx)
+
+    def load(ctx, st):
+        ty, tx, by, bx = coords(ctx)
+        t = index.put(st.shared["t"], (ty, tx),
+                      index.take(st.glob["x"], by * tile + ty,
+                                 bx * tile + tx))
+        return st.set_shared(t=t)
+
+    def store(ctx, st):
+        ty, tx, by, bx = coords(ctx)
+        y = index.put(st.glob["y"], (bx * tile + ty, by * tile + tx),
+                      index.take(st.shared["t"], tx, ty))
+        return st.set_glob(y=y)
+
+    native = Native.of("transpose_tiled", h=h, w=w) if tile == 8 else None
+    return KernelDef(
+        "transpose_tiled", (load, store), writes=("y",), reads=("x", "y"),
+        shared={"t": ((tile, tile), dtype)},
+        est_block_work=tile * tile * 4.0,
+        native=native,
+    )
+
+
+# --------------------------------------------------------------------------
+# pixel_pipeline: defensive-barrier elementwise pipeline (srad's extract /
+# compress stages folded into one kernel).  Every thread touches only its
+# own shared scratch cell, so both barriers are removable; a naive port
+# keeps them, and so does the hand-written kernel.
+# --------------------------------------------------------------------------
+def make_pixel_pipeline(n: int, block: int, c0: float = 0.85,
+                        c1: float = 0.1, dtype=torch.float32) -> KernelDef:
+    def extract(ctx, st):
+        v = index.take(st.glob["img"], _gid(ctx))
+        return st.set_shared(buf=index.put(st.shared["buf"], ctx.tid,
+                                           torch.log(v)))
+
+    def adjust(ctx, st):
+        b = st.shared["buf"]
+        return st.set_shared(buf=index.put(b, ctx.tid,
+                                           index.take(b, ctx.tid) * c0 + c1))
+
+    def compress(ctx, st):
+        out = index.put(st.glob["out"], _gid(ctx),
+                        torch.exp(index.take(st.shared["buf"], ctx.tid)))
+        return st.set_glob(out=out)
+
+    return KernelDef(
+        "pixel_pipeline", (extract, adjust, compress), writes=("out",),
+        reads=("img", "out"),
+        shared={"buf": ((block,), dtype)},
+        est_block_work=block * 20.0,
+        native=Native.of("pixel_pipeline", n=n, nthreads=block, c0=c0,
+                         c1=c1),
     )
 
 
@@ -928,7 +1159,21 @@ class SuiteEntry:
     :class:`~repro_torch.core.kernel.LaunchChain` (``kernel``/``grid``/
     ``block`` then describe the first step); ``const`` names buffers bound
     in ``__constant__`` space; ``tol`` is the oracle tolerance (used as
-    both ``rtol`` and ``atol``).
+    both ``rtol`` and ``atol``); ``rodinia`` records the benchmark
+    counterpart for the coverage table.  ``dim3_free`` marks kernels that
+    read only linearized ids, so any ``Dim3`` factorization of the same
+    grid size is equivalent; ``nondeterministic_shard`` names scratch
+    buffers whose *bit* pattern legitimately differs between a sharded
+    and a single-device run (a win counter deduplicated per device) -
+    excluded from cross-backend bit comparisons, never from semantic
+    checks; ``iteration_state`` names per-iteration chain scratch (stop
+    counters, frontier ping-pongs) whose final bits depend on the
+    stop-poll cadence - a device-resident replay may overshoot a
+    converged stop flag by up to ``check_every - 1`` no-op iterations, so
+    these are excluded from host-hop-vs-device-resident bit comparisons
+    (the oracle outputs never are).  The three are the reference's
+    declarations; conformance, shard and device-resident chains read
+    them.
     """
 
     name: str
@@ -943,6 +1188,9 @@ class SuiteEntry:
     const: tuple[str, ...] = ()
     tol: float = 2e-5
     rodinia: str = ""
+    dim3_free: bool = True
+    nondeterministic_shard: tuple[str, ...] = ()
+    iteration_state: tuple[str, ...] = ()
 
 
 def entry_steps(entry: SuiteEntry) -> tuple[ChainStep, ...]:
@@ -1075,7 +1323,13 @@ def entry_bfs_frontier(n: int = 64, deg: int = 4) -> SuiteEntry:
     return SuiteEntry(
         "bfs_frontier", ("atomic_cas", "warp", "const", "chain"),
         kernel, grid, block, None, margs, ref,
-        chain=chain, const=("edges",), rodinia="bfs")
+        chain=chain, const=("edges",), rodinia="bfs", dim3_free=False,
+        # the win counter dedups per device: shards that independently
+        # claim the same node both count it
+        nondeterministic_shard=("active",),
+        # overshooting a converged frontier is a no-op for dist/visited,
+        # but leaves the ping-pong scratch at a cadence-dependent state
+        iteration_state=("frontier", "nxt", "active", "level"))
 
 
 def entry_pathfinder(scale: int = 1, dtype=torch.int32, *, rows: int = 6,
@@ -1116,7 +1370,7 @@ def entry_pathfinder(scale: int = 1, dtype=torch.int32, *, rows: int = 6,
     )
     return SuiteEntry(
         "pathfinder", ("barrier", "chain"), kernel, grid, block, None,
-        margs, ref, chain=chain, rodinia="pathfinder")
+        margs, ref, chain=chain, rodinia="pathfinder", dim3_free=False)
 
 
 def nw_scores(score: np.ndarray, sim: np.ndarray, penalty: int) -> np.ndarray:
@@ -1159,7 +1413,7 @@ def entry_needle_nw(n: int = 32, penalty: int = 2,
     )
     return SuiteEntry(
         "needle_nw", ("chain",), kernel, grid, block, None, margs, ref,
-        chain=chain, rodinia="nw")
+        chain=chain, rodinia="nw", dim3_free=False)
 
 
 def entry_hotspot(h: int = 32, w: int = 64, iters: int = 4,
@@ -1201,7 +1455,7 @@ def entry_hotspot(h: int = 32, w: int = 64, iters: int = 4,
     return SuiteEntry(
         "hotspot", ("barrier", "dim3", "chain", "const"), kernel,
         (w // 8, h // 8), (8, 8), None, margs, ref, chain=chain,
-        const=("p",), tol=1e-4, rodinia="hotspot")
+        const=("p",), tol=1e-4, rodinia="hotspot", dim3_free=False)
 
 
 def entry_srad_step(scale: int = 1, iters: int = 2, lam: float = 0.2, *,
@@ -1258,7 +1512,8 @@ def entry_srad_step(scale: int = 1, iters: int = 2, lam: float = 0.2, *,
     )
     return SuiteEntry(
         "srad_step", ("barrier", "dim3", "chain"), stats_k, grid1, block,
-        None, margs, ref, chain=chain, tol=1e-4, rodinia="srad")
+        None, margs, ref, chain=chain, tol=1e-4, rodinia="srad",
+        dim3_free=False)
 
 
 def entry_nn(n: int = 256, block: int = 64, knn: int = 8) -> SuiteEntry:
@@ -1308,7 +1563,7 @@ def entry_nn(n: int = 256, block: int = 64, knn: int = 8) -> SuiteEntry:
     return SuiteEntry(
         "nn", ("barrier", "chain", "const"), reduce_k, grid, block, None,
         margs, ref, chain=chain, const=("lat", "lng", "target"),
-        rodinia="nn")
+        rodinia="nn", dim3_free=False)
 
 
 def entry_kmeans(n: int = 256, k: int = 4, block: int = 64,
@@ -1378,7 +1633,8 @@ def entry_kmeans(n: int = 256, k: int = 4, block: int = 64,
     )
     return SuiteEntry(
         "kmeans", ("atomic", "chain"), assign_k, grid, block, None,
-        margs, ref, chain=chain, const=("px", "py"), rodinia="kmeans")
+        margs, ref, chain=chain, const=("px", "py"), rodinia="kmeans",
+        dim3_free=False)
 
 
 def entry_backprop_layer(in_n: int = 64, out_n: int = 16,
@@ -1512,7 +1768,9 @@ def entry_streamcluster(n: int = 256, k: int = 8,
         "streamcluster", ("atomic", "atomic_cas"), kernel, grid, block,
         None, margs, ref,
         const=("px", "py", "cx", "cy", "cand", "assign"),
-        rodinia="streamcluster")
+        rodinia="streamcluster",
+        # the CAS winner's distinct-dirty counter dedups per device
+        nondeterministic_shard=("ndirty",))
 
 
 # --------------------------------------------------------------------------
@@ -1609,3 +1867,122 @@ def entry_matmul_tiled(m: int = 32, n: int | None = None,
         make_matmul_tiled(m, n, k, tile=8), (m // 8) * (n // 8), 64, None,
         margs, lambda a: {"c": a["a"] @ a["b"]}, tol=matmul_tol(k),
         rodinia="lud/gemm")
+
+
+def entry_stencil1d(n: int = 4096, block: int = 128) -> SuiteEntry:
+    def ref(a):
+        i = np.arange(n)
+        return {"y": (0.25 * a["x"][np.clip(i - 1, 0, None)] + 0.5 * a["x"]
+                      + 0.25 * a["x"][np.clip(i + 1, None, n - 1)])}
+
+    return SuiteEntry(
+        "stencil1d", ("barrier",), make_stencil1d(n, block), -(-n // block),
+        block, None,
+        lambda r: {"x": r.standard_normal(n, dtype=np.float32),
+                   "y": np.zeros(n, np.float32)},
+        ref, rodinia="hotspot (1-D)")
+
+
+def entry_stencil2d(h: int = 32, w: int = 64) -> SuiteEntry:
+    """``y = 0.2 (c + n + s + w + e)`` over ``x[h, w]``, edges clamped, on
+    a 2-D grid of 8 x 8 blocks."""
+    def ref(a):
+        p = np.pad(a["x"], 1, mode="edge")
+        return {"y": 0.2 * (p[1:-1, 1:-1] + p[:-2, 1:-1] + p[2:, 1:-1]
+                            + p[1:-1, :-2] + p[1:-1, 2:])}
+
+    return SuiteEntry(
+        "stencil2d", ("barrier", "dim3"), make_stencil2d(h, w),
+        (w // 8, h // 8), (8, 8), None,
+        lambda r: {"x": r.standard_normal((h, w), dtype=np.float32),
+                   "y": np.zeros((h, w), np.float32)},
+        ref, rodinia="hotspot", dim3_free=False)
+
+
+def entry_softmax_row(rows: int = 32, block: int = 128) -> SuiteEntry:
+    def ref(a):
+        e = np.exp(a["x"] - a["x"].max(1, keepdims=True))
+        return {"y": e / e.sum(1, keepdims=True)}
+
+    return SuiteEntry(
+        "softmax_row", ("barrier",), make_softmax_row(rows, block), rows,
+        block, None,
+        lambda r: {"x": r.standard_normal((rows, block), dtype=np.float32),
+                   "y": np.zeros((rows, block), np.float32)},
+        ref, rodinia="attention primitive")
+
+
+def entry_scan_block(n: int = 1024, block: int = 128) -> SuiteEntry:
+    """An inclusive prefix sum within each ``block`` of ``x[n]``."""
+    if n % block:
+        raise ValueError(f"scan_block: n = {n} is not a multiple of the "
+                         f"block {block}")
+    return SuiteEntry(
+        "scan_block", ("barrier", "demotion"), make_scan_block(n, block),
+        n // block, block, None,
+        lambda r: {"x": r.standard_normal(n, dtype=np.float32),
+                   "y": np.zeros(n, np.float32)},
+        lambda a: {"y": np.cumsum(a["x"].reshape(-1, block), 1)
+                   .reshape(-1)},
+        rodinia="pathfinder/scan")
+
+
+def entry_transpose_tiled(h: int = 64, w: int = 64) -> SuiteEntry:
+    """``y[w, h] = x[h, w]`` through 8 x 8 shared tiles, one 64-thread block
+    per tile on a 1-D grid."""
+    return SuiteEntry(
+        "transpose_tiled", ("barrier",), make_transpose_tiled(h, w),
+        (h // 8) * (w // 8), 64, None,
+        lambda r: {"x": r.standard_normal((h, w), dtype=np.float32),
+                   "y": np.zeros((w, h), np.float32)},
+        lambda a: {"y": a["x"].T.copy()}, rodinia="(SVI-C reordering)")
+
+
+def entry_pixel_pipeline(n: int = 4096, block: int = 128, c0: float = 0.85,
+                         c1: float = 0.1) -> SuiteEntry:
+    """``out = exp(log(img) * c0 + c1)`` for ``img`` in [0.5, 2)."""
+    if n % block:
+        raise ValueError(f"pixel_pipeline: n = {n} is not a multiple of the "
+                         f"block {block}")
+    return SuiteEntry(
+        "pixel_pipeline", ("barrier",), make_pixel_pipeline(n, block, c0, c1),
+        n // block, block, None,
+        lambda r: {"img": r.uniform(0.5, 2.0, n).astype(np.float32),
+                   "out": np.zeros(n, np.float32)},
+        lambda a: {"out": np.exp(np.log(a["img"]) * np.float32(c0)
+                                 + np.float32(c1))},
+        rodinia="srad extract/compress")
+
+
+def build_suite(scale: int = 1) -> list[SuiteEntry]:
+    """The reference's 23 entries in its order, at its sizes for
+    ``scale``: 1 is test-sized, larger scales grow the streaming entries
+    (and pathfinder, srad_step) as the reference's wall-clock benchmarks
+    do."""
+    n = 4096 * scale
+    mm = 32 * max(1, scale // 4)
+    return [
+        entry_vecadd(n),
+        entry_reverse(),
+        entry_histogram(n),
+        entry_reduce_shared(2048 * scale),
+        entry_reduce_warp(2048 * scale),
+        entry_matmul_tiled(mm),
+        entry_stencil1d(n),
+        entry_stencil2d(32, 64 * scale),
+        entry_softmax_row(32 * scale),
+        entry_scan_block(1024 * scale),
+        entry_transpose_tiled(64, 64 * scale),
+        entry_pixel_pipeline(n),
+        entry_bfs_frontier(),
+        entry_pathfinder(scale),
+        entry_needle_nw(),
+        entry_backprop_layer(),
+        entry_lud_diag(),
+        entry_srad_step(scale),
+        entry_lavamd(),
+        entry_nn(),
+        entry_kmeans(),
+        entry_streamcluster(),
+        entry_hotspot(),
+    ]

@@ -332,11 +332,15 @@ def hotspot_plain(b, grid: Dim3, block: Dim3, *, h: int, w: int, cap: float,
     return {"t_out": t_out}
 
 
-def _hotspot_check(grid: Dim3, block: Dim3, params: dict):
-    if block != Dim3(HOTSPOT_TILE, HOTSPOT_TILE) or grid.z != 1:
-        raise UnsupportedKernel(f"hotspot: the kernel's shared tile is "
-                                f"{HOTSPOT_TILE}x{HOTSPOT_TILE} over a 2-D "
-                                f"grid; got {grid} x {block}")
+def _tile_2d(name: str, t: int):
+    """The check of a kernel whose ``t`` x ``t`` blocks stage a haloed
+    ``__shared__`` tile over a 2-D grid."""
+    def check(grid: Dim3, block: Dim3, params: dict):
+        if block != Dim3(t, t) or grid.z != 1:
+            raise UnsupportedKernel(f"{name}: the kernel's shared tile is "
+                                    f"{t}x{t} over a 2-D grid; got {grid} "
+                                    f"x {block}")
+    return check
 
 
 HOTSPOT = CudaKernel(
@@ -345,7 +349,7 @@ HOTSPOT = CudaKernel(
     buffers={"t": _F32, "p": _F32, "t_out": _F32},
     writes=("t_out",),
     shapes=lambda *, h, w, **_: {"t": (h, w), "p": (h, w), "t_out": (h, w)},
-    check=_hotspot_check, plain=hotspot_plain,
+    check=_tile_2d("hotspot", HOTSPOT_TILE), plain=hotspot_plain,
     cargs=lambda b, grid, block, *, h, w, cap, rx, ry, rz, amb: [
         _ptr(b["t"]), _ptr(b["p"]), _ptr(b["t_out"]), h, w, cap, rx, ry, rz,
         amb, grid.x, grid.y],
@@ -637,20 +641,13 @@ def srad_update_plain(b, grid: Dim3, block: Dim3, *, h: int, w: int,
     return {"y": y}
 
 
-def _srad_update_check(grid: Dim3, block: Dim3, params: dict):
-    if block != Dim3(SRAD_TILE, SRAD_TILE) or grid.z != 1:
-        raise UnsupportedKernel(f"srad_update: the kernel's shared tile is "
-                                f"{SRAD_TILE}x{SRAD_TILE} over a 2-D grid; "
-                                f"got {grid} x {block}")
-
-
 SRAD_UPDATE = CudaKernel(
     name="srad_update", symbol="launch_srad_update",
     argtypes=(_P,) * 5 + (_I,) * 4 + (_F,) * 2 + (_I,) * 2 + (_P,),
     buffers={"x": _F32, "psum": _F32, "psq": _F32, "y": _F32},
     writes=("y",),
     shapes=lambda *, h, w, lam: {"x": (h, w), "y": (h, w)},
-    check=_srad_update_check, plain=srad_update_plain,
+    check=_tile_2d("srad_update", SRAD_TILE), plain=srad_update_plain,
     # the launch's two totals: the fold pass writes them, the stencil
     # reads them
     scratch=lambda b, **_: {"tot": torch.empty(2, dtype=_F32,
@@ -1080,13 +1077,246 @@ MATMUL_TILED = CudaKernel(
     source="src/repro_torch/csrc/matmul_tiled.cu")
 
 
+# --------------------------------------------------------------------------
+# stencil1d, stencil2d
+# --------------------------------------------------------------------------
+#: the widest block of the kernels whose __shared__ arrays are sized
+#: statically (stencil1d, scan_block, pixel_pipeline, softmax_row)
+MAX_THREADS = 1024
+STENCIL2D_TILE = 8
+
+
+def _block_of(name: str, block: Dim3, nthreads: int) -> None:
+    """A 1-D block of the ``nthreads`` threads the kernel was made for."""
+    if block.x != nthreads or not 1 <= block.x <= MAX_THREADS:
+        raise UnsupportedKernel(f"{name}: the kernel's shared array is sized "
+                                f"for a block of {nthreads} threads (up to "
+                                f"{MAX_THREADS}); got block {block.x}")
+
+
+def _within(name: str, grid: Dim3, block: Dim3, n: int) -> None:
+    """Every thread's unguarded ``x[gid]`` lies inside ``n`` elements (the
+    reference's gather clamps it; the card would read past the buffer)."""
+    if grid.x * block.x > n:
+        raise UnsupportedKernel(f"{name}: grid*block = {grid.x * block.x} "
+                                f"threads read past the {n} elements")
+
+
+def stencil1d_plain(b, grid: Dim3, block: Dim3, *, n: int, nthreads: int):
+    """``y[i] = 0.25 x[i-1] + 0.5 x[i] + 0.25 x[i+1]``, added left to
+    right with the reads clamped, for the ``i < n`` the grid covers."""
+    x = b["x"]
+    m = min(n, grid.x * block.x)
+    i = torch.arange(m, device=x.device)
+    y = b["y"].clone()
+    y[:m] = (0.25 * x[(i - 1).clamp(min=0)] + 0.5 * x[:m]
+             + 0.25 * x[(i + 1).clamp(max=n - 1)])
+    return {"y": y}
+
+
+def _stencil1d_check(grid: Dim3, block: Dim3, params: dict):
+    _one_dim("stencil1d")(grid, block, params)
+    _block_of("stencil1d", block, params["nthreads"])
+
+
+STENCIL1D = CudaKernel(
+    name="stencil1d", symbol="launch_stencil1d",
+    argtypes=(_P,) * 2 + (_I,) * 3 + (_P,),
+    buffers={"x": _F32, "y": _F32},
+    writes=("y",),
+    shapes=lambda *, n, nthreads: {"x": (n,), "y": (n,)},
+    check=_stencil1d_check, plain=stencil1d_plain,
+    cargs=lambda b, grid, block, *, n, nthreads: [
+        _ptr(b["x"]), _ptr(b["y"]), n, grid.x, block.x],
+    source="src/repro_torch/csrc/stencil1d.cu")
+
+
+def stencil2d_plain(b, grid: Dim3, block: Dim3, *, h: int, w: int):
+    """``y = 0.2 (c + n + s + w + e)``, summed left to right with the reads
+    clamped, over the cells the grid covers."""
+    x = b["x"]
+    nr, nc = min(h, grid.y * block.y), min(w, grid.x * block.x)
+    r = torch.arange(nr, device=x.device)[:, None]
+    c = torch.arange(nc, device=x.device)[None, :]
+
+    def at(rr, cc):
+        return x[rr.clamp(0, h - 1), cc.clamp(0, w - 1)]
+
+    y = b["y"].clone()
+    y[:nr, :nc] = 0.2 * (x[:nr, :nc] + at(r - 1, c) + at(r + 1, c)
+                         + at(r, c - 1) + at(r, c + 1))
+    return {"y": y}
+
+
+STENCIL2D = CudaKernel(
+    name="stencil2d", symbol="launch_stencil2d",
+    argtypes=(_P,) * 2 + (_I,) * 4 + (_P,),
+    buffers={"x": _F32, "y": _F32},
+    writes=("y",),
+    shapes=lambda *, h, w: {"x": (h, w), "y": (h, w)},
+    check=_tile_2d("stencil2d", STENCIL2D_TILE), plain=stencil2d_plain,
+    cargs=lambda b, grid, block, *, h, w: [
+        _ptr(b["x"]), _ptr(b["y"]), h, w, grid.x, grid.y],
+    source="src/repro_torch/csrc/stencil2d.cu")
+
+
+# --------------------------------------------------------------------------
+# softmax_row
+# --------------------------------------------------------------------------
+def softmax_row_plain(b, grid: Dim3, block: Dim3, *, rows: int,
+                      nthreads: int):
+    """``exp(x - max) / sum(exp(x - max))`` of each row the grid covers."""
+    x = b["x"][:grid.x]
+    e = torch.exp(x - x.amax(1, keepdim=True))
+    y = b["y"].clone()
+    y[:grid.x] = e / e.sum(1, keepdim=True)
+    return {"y": y}
+
+
+def _softmax_row_check(grid: Dim3, block: Dim3, params: dict):
+    _one_dim("softmax_row")(grid, block, params)
+    _block_of("softmax_row", block, params["nthreads"])
+    if block.x % 32:
+        raise UnsupportedKernel(f"softmax_row: the max and the sum run per "
+                                f"full warp; block {block.x} is not a "
+                                f"multiple of 32")
+    if grid.x > params["rows"]:
+        raise UnsupportedKernel(f"softmax_row: grid {grid.x} exceeds the "
+                                f"{params['rows']} rows")
+
+
+SOFTMAX_ROW = CudaKernel(
+    name="softmax_row", symbol="launch_softmax_row",
+    argtypes=(_P,) * 2 + (_I,) * 2 + (_P,),
+    buffers={"x": _F32, "y": _F32},
+    writes=("y",),
+    shapes=lambda *, rows, nthreads: {"x": (rows, nthreads),
+                                      "y": (rows, nthreads)},
+    check=_softmax_row_check, plain=softmax_row_plain,
+    cargs=lambda b, grid, block, *, rows, nthreads: [
+        _ptr(b["x"]), _ptr(b["y"]), grid.x, block.x],
+    source="src/repro_torch/csrc/softmax_row.cu")
+
+
+# --------------------------------------------------------------------------
+# scan_block
+# --------------------------------------------------------------------------
+def scan_block_plain(b, grid: Dim3, block: Dim3, *, n: int, nthreads: int):
+    """The inclusive prefix sum of each block's ``x``, level by level as
+    the Hillis-Steele kernel adds (``s[t] += s[t - d]``, or ``+ 0.0`` for
+    ``t < d``, for ``d`` = 1, 2, 4, ...)."""
+    m = grid.x * block.x
+    v = b["x"][:m].view(grid.x, block.x)
+    d = 1
+    while d < block.x:
+        add = torch.zeros_like(v)
+        add[:, d:] = v[:, :-d]
+        v = v + add
+        d *= 2
+    y = b["y"].clone()
+    y[:m] = v.reshape(-1)
+    return {"y": y}
+
+
+def _scan_block_check(grid: Dim3, block: Dim3, params: dict):
+    _one_dim("scan_block")(grid, block, params)
+    _pow2_block("scan_block", block, params["nthreads"])
+    _within("scan_block", grid, block, params["n"])
+
+
+SCAN_BLOCK = CudaKernel(
+    name="scan_block", symbol="launch_scan_block",
+    argtypes=(_P,) * 2 + (_I,) * 2 + (_P,),
+    buffers={"x": _F32, "y": _F32},
+    writes=("y",),
+    shapes=lambda *, n, nthreads: {"x": (n,), "y": (n,)},
+    check=_scan_block_check, plain=scan_block_plain,
+    cargs=lambda b, grid, block, *, n, nthreads: [
+        _ptr(b["x"]), _ptr(b["y"]), grid.x, block.x],
+    source="src/repro_torch/csrc/scan_block.cu")
+
+
+# --------------------------------------------------------------------------
+# transpose_tiled
+# --------------------------------------------------------------------------
+TRANSPOSE_TILE = 8
+
+
+def transpose_tiled_plain(b, grid: Dim3, block: Dim3, *, h: int, w: int):
+    """``y[c, r] = x[r, c]`` for the 8 x 8 tiles the grid covers (tile
+    ``by * w/8 + bx``)."""
+    x, t = b["x"], TRANSPOSE_TILE
+    r = torch.arange(h, device=x.device)[:, None] // t
+    c = torch.arange(w, device=x.device)[None, :] // t
+    covered = r * (w // t) + c < grid.x
+    return {"y": torch.where(covered.t(), x.t(), b["y"])}
+
+
+def _transpose_check(grid: Dim3, block: Dim3, params: dict):
+    _one_dim("transpose_tiled")(grid, block, params)
+    h, w, t = params["h"], params["w"], TRANSPOSE_TILE
+    if block.x != t * t:
+        raise UnsupportedKernel(f"transpose_tiled: one thread per element of "
+                                f"a {t}x{t} tile; got block {block.x}")
+    if h % t or w % t:
+        raise UnsupportedKernel(f"transpose_tiled: h, w = {h}, {w} are not "
+                                f"multiples of {t}")
+    if grid.x > (h // t) * (w // t):
+        raise UnsupportedKernel(f"transpose_tiled: grid {grid.x} exceeds the "
+                                f"{(h // t) * (w // t)} tiles")
+
+
+TRANSPOSE_TILED = CudaKernel(
+    name="transpose_tiled", symbol="launch_transpose_tiled",
+    argtypes=(_P,) * 2 + (_I,) * 3 + (_P,),
+    buffers={"x": _F32, "y": _F32},
+    writes=("y",),
+    shapes=lambda *, h, w: {"x": (h, w), "y": (w, h)},
+    check=_transpose_check, plain=transpose_tiled_plain,
+    cargs=lambda b, grid, block, *, h, w: [
+        _ptr(b["x"]), _ptr(b["y"]), h, w, grid.x],
+    source="src/repro_torch/csrc/transpose_tiled.cu")
+
+
+# --------------------------------------------------------------------------
+# pixel_pipeline
+# --------------------------------------------------------------------------
+def pixel_pipeline_plain(b, grid: Dim3, block: Dim3, *, n: int,
+                         nthreads: int, c0: float, c1: float):
+    """``out = exp(log(img) * c0 + c1)`` for the pixels the grid covers."""
+    m = grid.x * block.x
+    out = b["out"].clone()
+    out[:m] = torch.exp(torch.log(b["img"][:m]) * c0 + c1)
+    return {"out": out}
+
+
+def _pixel_pipeline_check(grid: Dim3, block: Dim3, params: dict):
+    _one_dim("pixel_pipeline")(grid, block, params)
+    _block_of("pixel_pipeline", block, params["nthreads"])
+    _within("pixel_pipeline", grid, block, params["n"])
+
+
+PIXEL_PIPELINE = CudaKernel(
+    name="pixel_pipeline", symbol="launch_pixel_pipeline",
+    argtypes=(_P,) * 2 + (_F,) * 2 + (_I,) * 2 + (_P,),
+    buffers={"img": _F32, "out": _F32},
+    writes=("out",),
+    shapes=lambda *, n, nthreads, c0, c1: {"img": (n,), "out": (n,)},
+    check=_pixel_pipeline_check, plain=pixel_pipeline_plain,
+    cargs=lambda b, grid, block, *, n, nthreads, c0, c1: [
+        _ptr(b["img"]), _ptr(b["out"]), c0, c1, grid.x, block.x],
+    source="src/repro_torch/csrc/pixel_pipeline.cu")
+
+
 KERNELS: dict[str, CudaKernel] = {
     k.name: k for k in (BFS_FRONTIER, PATHFINDER, NEEDLE_NW, HOTSPOT,
                         SRAD_STATS, SRAD_UPDATE, NN_REDUCE, NN_SELECT,
                         KMEANS_ASSIGN, KMEANS_UPDATE, BACKPROP_LAYER,
                         LUD_DIAG, LAVAMD, STREAMCLUSTER, VECADD, REVERSE,
                         HISTOGRAM_COALESCED, HISTOGRAM_CONTIGUOUS,
-                        REDUCE_SHARED, REDUCE_WARP, MATMUL_TILED)}
+                        REDUCE_SHARED, REDUCE_WARP, MATMUL_TILED,
+                        STENCIL1D, STENCIL2D, SOFTMAX_ROW, SCAN_BLOCK,
+                        TRANSPOSE_TILED, PIXEL_PIPELINE)}
 
 
 def kernel_for(kernel: KernelDef) -> CudaKernel:

@@ -52,8 +52,11 @@ def test_kernel_sources_live_in_the_port():
     assert srcs == ["backprop_layer.cu", "bfs_frontier.cu", "histogram.cu",
                     "hotspot.cu", "kmeans.cu", "lavamd.cu", "lud_diag.cu",
                     "matmul_tiled.cu", "needle_nw.cu", "nn.cu",
-                    "pathfinder.cu", "reduce_shared.cu", "reduce_warp.cu",
-                    "reverse.cu", "srad.cu", "streamcluster.cu", "vecadd.cu"]
+                    "pathfinder.cu", "pixel_pipeline.cu", "reduce_shared.cu",
+                    "reduce_warp.cu", "reverse.cu", "scan_block.cu",
+                    "softmax_row.cu", "srad.cu", "stencil1d.cu",
+                    "stencil2d.cu", "streamcluster.cu", "transpose_tiled.cu",
+                    "vecadd.cu"]
     for p in _native.sources():
         assert p.parent == PORT / "csrc"
         text = p.read_text()

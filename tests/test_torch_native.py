@@ -16,14 +16,12 @@ from repro_torch.core import _native, cuda_suite, lower_cuda
 from repro_torch.core.dim3 import Dim3
 from repro_torch.core.kernel import UnsupportedKernel
 
-NAMES = ("bfs_frontier", "pathfinder", "needle_nw", "hotspot", "srad_step",
-         "nn", "kmeans", "backprop_layer", "lud_diag", "lavamd",
-         "streamcluster", "vecadd", "reverse", "histogram", "reduce_shared",
-         "reduce_warp", "matmul_tiled")
+#: the port's registry, in the reference's order
+SUITE = {e.name: e for e in cuda_suite.build_suite(1)}
+NAMES = tuple(SUITE)
 #: each kernel's (entry, step index in the chain's iteration)
 STEPS = {step.kernel.name: (name, i) for name in NAMES
-         for i, step in enumerate(cuda_suite.entry_steps(
-             getattr(cuda_suite, f"entry_{name}")()))}
+         for i, step in enumerate(cuda_suite.entry_steps(SUITE[name]))}
 
 
 def test_build_key_covers_every_source_and_flag(monkeypatch, tmp_path):
@@ -59,8 +57,8 @@ def card():
 
 
 def _state(name):
-    entry = getattr(cuda_suite, f"entry_{name}")(
-        **({"n": 1024, "deg": 6} if name == "bfs_frontier" else {}))
+    entry = (cuda_suite.entry_bfs_frontier(n=1024, deg=6)
+             if name == "bfs_frontier" else SUITE[name])
     args = entry.make_args(np.random.default_rng(42))
     if name == "bfs_frontier":
         dist = cuda_suite.bfs_levels(args["edges"], 1024)
@@ -79,7 +77,8 @@ def _launch(step, bufs):
 
 #: kernels whose float results equal their plain versions bit for bit
 BIT_EXACT = ("srad_stats", "nn_reduce", "nn_select", "kmeans_assign",
-             "kmeans_update", "vecadd", "reduce_shared", "reduce_warp")
+             "kmeans_update", "vecadd", "reduce_shared", "reduce_warp",
+             "stencil1d", "stencil2d", "scan_block", "transpose_tiled")
 
 
 @pytest.mark.gpu
@@ -126,7 +125,7 @@ def test_backprop_maps_a_wide_logical_block_onto_1024_threads(card):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", NAMES)
 def test_run_entry_on_the_default_device(card, name):
-    entry = getattr(cuda_suite, f"entry_{name}")()
+    entry = SUITE[name]
     out, want = cuda_suite.run_entry(entry, "cuda")
     for k, v in want.items():
         assert out[k].device.type == "cuda"
@@ -168,3 +167,25 @@ def test_histogram_contiguous_layout_on_the_card(card, grid):
     if grid == entry.grid:
         np.testing.assert_array_equal(out["hist"].cpu().numpy(),
                                       want["hist"])
+
+
+@pytest.mark.gpu
+def test_stencil1d_at_a_ragged_n_on_the_card(card):
+    # the last block's threads past n clamp their reads and store nothing
+    entry = cuda_suite.entry_stencil1d(4000, 128)
+    out, want = cuda_suite.run_entry(entry, "cuda", device=card)
+    np.testing.assert_array_equal(out["y"].cpu().numpy(), want["y"])
+
+
+@pytest.mark.gpu
+def test_scan_block_keeps_the_sign_of_zero_on_the_card(card):
+    entry = cuda_suite.entry_scan_block()
+    args = entry.make_args(np.random.default_rng(42))
+    args["x"][:256] = -0.0
+    bufs = carry.from_reference(args, device=card)
+    kern = lower_cuda.KERNELS["scan_block"]
+    params = lower_cuda.launch_params(entry.kernel)
+    got = kern(bufs, grid=entry.grid, block=entry.block, **params)
+    want = kern.plain(bufs, Dim3(entry.grid), Dim3(entry.block), **params)
+    assert torch.equal(got["y"], want["y"])
+    assert torch.equal(torch.signbit(got["y"]), torch.signbit(want["y"]))

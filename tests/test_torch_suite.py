@@ -1,17 +1,22 @@
-"""The port's suite entries against the JAX package, on the CPU: the
-eleven Rodinia entries and six textbook ones (vecadd, reverse, histogram,
-reduce_shared, reduce_warp, matmul_tiled).
+"""The port's suite entries against the JAX package, on the CPU: all 23,
+the eleven Rodinia entries and twelve textbook ones (vecadd, reverse,
+histogram, reduce_shared, reduce_warp, matmul_tiled, stencil1d,
+stencil2d, softmax_row, scan_block, transpose_tiled, pixel_pipeline).
 
-Inputs come from ``np.random.default_rng(42)`` and go to both packages.
-The port's ``run_entry`` under ``vector``, ``loop`` and ``cuda`` (the
-kernels' plain versions, since the tensors lie on the CPU) must match the
-reference's ``loop`` and ``pallas`` (interpret mode) runs: bit for bit for
-every integer buffer, for all of kmeans's buffers (its float sums are
-of integer values, exact in any order) and for vecadd's and the two
-reductions' (whose order the reference fixes), and within the entry's own
-tolerance (``SuiteEntry.tol``) for the other float32 buffers (hotspot,
-srad, nn's distances, backprop, lud, lavamd, matmul_tiled) - XLA and
-PyTorch may contract or order float32 sums and updates differently.
+Both packages' entries come from their ``build_suite(1)``, whose
+registries must agree field by field.  Inputs come from
+``np.random.default_rng(42)`` and go to both packages.  The port's
+``run_entry`` under ``vector``, ``loop`` and ``cuda`` (the kernels' plain
+versions, since the tensors lie on the CPU) must match the reference's
+``loop`` and ``pallas`` (interpret mode) runs: bit for bit for every
+integer buffer, for all of kmeans's buffers (its float sums are of
+integer values, exact in any order) and for the float32 entries whose
+order the reference fixes (vecadd, the two reductions, the two stencils,
+scan_block, transpose_tiled), and within the entry's own tolerance
+(``SuiteEntry.tol``) for the other float32 buffers (hotspot, srad, nn's
+distances, backprop, lud, lavamd, matmul_tiled, softmax_row,
+pixel_pipeline) - XLA and PyTorch may contract or order float32 sums and
+updates differently, and compute ``exp`` and ``log`` differently.
 srad_step, nn and kmeans run two different kernels per iteration; the
 per-launch tests take every kernel of every entry.
 """
@@ -36,31 +41,41 @@ CHAINS = ("bfs_frontier", "pathfinder", "needle_nw", "hotspot",
 SINGLE = ("backprop_layer", "lud_diag", "lavamd", "streamcluster")
 #: single launches that the reference's build_suite defines inline
 TEXTBOOK = ("vecadd", "reverse", "histogram", "reduce_shared",
-            "reduce_warp", "matmul_tiled")
+            "reduce_warp", "matmul_tiled", "stencil1d", "stencil2d",
+            "softmax_row", "scan_block", "transpose_tiled", "pixel_pipeline")
 NAMES = CHAINS + SINGLE + TEXTBOOK
 #: float buffers held bit for bit against the reference's launches:
 #: kmeans's sums are of integer-valued floats, and its centroids one IEEE
 #: division of them; vecadd is one add; the reductions' trees and
-#: butterflies fix their order
+#: butterflies, the stencils' sums and the scan's levels fix their order;
+#: a transpose is a copy
 BIT_EXACT = ("kmeans", "kmeans_assign", "kmeans_update", "vecadd",
-             "reduce_shared", "reduce_warp")
+             "reduce_shared", "reduce_warp", "stencil1d", "stencil2d",
+             "scan_block", "transpose_tiled")
 #: ... and against the NumPy oracle (whose sums take another order)
-ORACLE_EXACT = ("kmeans", "vecadd")
+ORACLE_EXACT = ("kmeans", "vecadd", "stencil1d", "stencil2d",
+                "transpose_tiled")
+#: the fields of a SuiteEntry that its registry fixes
+ENTRY_FIELDS = ("name", "grid", "block", "dyn_shared", "features", "const",
+                "tol", "rodinia", "dim3_free", "nondeterministic_shard",
+                "iteration_state")
 
 
 @functools.cache
-def _jax_textbook():
-    return {e.name: e for e in jsuite.build_suite(1)
-            if e.name in TEXTBOOK}
+def _suites():
+    """``build_suite(1)`` of the reference and of the port, by name."""
+    return ({e.name: e for e in jsuite.build_suite(1)},
+            {e.name: e for e in cuda_suite.build_suite(1)})
 
 
 def _entries(name, **kw):
-    if name in TEXTBOOK:       # the reference has no entry_<name> for these
-        assert not kw, "build_suite(1) fixes the textbook entries' sizes"
-        jentry = _jax_textbook()[name]
-    else:
-        jentry = getattr(jsuite, f"entry_{name}")(**kw)
-    return jentry, getattr(cuda_suite, f"entry_{name}")(**kw)
+    """The reference's and the port's entry: ``build_suite(1)``'s, or
+    both packages' ``entry_<name>(**kw)`` at other sizes."""
+    if not kw:
+        jsuite_1, tsuite_1 = _suites()
+        return jsuite_1[name], tsuite_1[name]
+    return (getattr(jsuite, f"entry_{name}")(**kw),
+            getattr(cuda_suite, f"entry_{name}")(**kw))
 
 
 def _kernel_steps() -> dict:
@@ -68,7 +83,7 @@ def _kernel_steps() -> dict:
     launches and bfs, pathfinder, nw, hotspot; two for srad, nn, kmeans."""
     return {step.kernel.name: (name, i) for name in NAMES
             for i, step in enumerate(cuda_suite.entry_steps(
-                getattr(cuda_suite, f"entry_{name}")()))}
+                _entries(name)[1]))}
 
 
 STEPS = _kernel_steps()
@@ -117,6 +132,20 @@ def _port_run(name, backend):
     _, tentry = _entries(name)
     out, want = cuda_suite.run_entry(tentry, backend, device="cpu")
     return {k: _np(v) for k, v in out.items()}, want
+
+
+@pytest.mark.parametrize("scale", (1, 2))
+def test_build_suite_equals_the_reference_registry(scale):
+    jentries = jsuite.build_suite(scale)
+    tentries = cuda_suite.build_suite(scale)
+    assert [e.name for e in tentries] == [e.name for e in jentries]
+    assert sorted(e.name for e in tentries) == sorted(NAMES)
+    for j, t in zip(jentries, tentries, strict=True):
+        for field in ENTRY_FIELDS:
+            assert getattr(t, field) == getattr(j, field), (j.name, field)
+        assert (t.chain is None) == (j.chain is None), j.name
+        assert [s.kernel.name for s in cuda_suite.entry_steps(t)] == \
+            [s.kernel.name for s in _jax_steps(j)], j.name
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -391,7 +420,10 @@ def test_cpu_runs_build_and_launch_nothing(monkeypatch):
 @pytest.mark.parametrize("name,grid,block", [
     ("lud_diag", 3, None), ("streamcluster", 2, None),
     ("streamcluster", 8, 32), ("lavamd", 5, None), ("vecadd", 5, None),
-    ("vecadd", 20, 64), ("histogram", 3, None), ("histogram", 8, 64)])
+    ("vecadd", 20, 64), ("histogram", 3, None), ("histogram", 8, 64),
+    ("stencil1d", 5, None), ("stencil2d", (4, 2), None),
+    ("softmax_row", 7, None), ("scan_block", 3, None),
+    ("transpose_tiled", 10, None), ("pixel_pipeline", 9, None)])
 def test_run_entry_single_launch_honours_geometry_overrides(name, grid,
                                                            block, backend):
     # the override reaches the launch: only the blocks it names run, as
@@ -470,7 +502,20 @@ def test_streamcluster_ndirty_counts_distinct_claimed_centres(backend):
     ("reduce_warp", {"block": 48}),
     ("reduce_warp", {"block": 128}),
     ("matmul_tiled", {"block": 32}),
-    ("matmul_tiled", {"grid": 17})])
+    ("matmul_tiled", {"grid": 17}),
+    ("stencil1d", {"block": 64}),
+    ("stencil1d", {"grid": (16, 2)}),
+    ("stencil2d", {"block": 64}),
+    ("stencil2d", {"block": (16, 4)}),
+    ("stencil2d", {"grid": (8, 4, 2)}),
+    ("softmax_row", {"grid": 33}),
+    ("softmax_row", {"block": 64}),
+    ("scan_block", {"grid": 9}),
+    ("scan_block", {"block": 64}),
+    ("transpose_tiled", {"grid": 65}),
+    ("transpose_tiled", {"block": 32}),
+    ("pixel_pipeline", {"grid": 33}),
+    ("pixel_pipeline", {"block": 256})])
 def test_single_launch_wrappers_reject_geometry_they_cannot_run(name, bad):
     _, tstep, args = _step_state(name)
     kern = lower_cuda.KERNELS[name]
@@ -713,8 +758,55 @@ def test_textbook_wrappers_reject_sizes_their_kernels_cannot_hold():
     with pytest.raises(UnsupportedKernel, match="multiples of 8"):
         kerns["matmul_tiled"].check(Dim3(1), Dim3(64),
                                     {"m": 12, "n": 8, "k": 8})
+    with pytest.raises(UnsupportedKernel, match="multiple of 32"):
+        kerns["softmax_row"].check(Dim3(4), Dim3(48),
+                                   {"rows": 4, "nthreads": 48})
+    with pytest.raises(UnsupportedKernel, match="multiples of 8"):
+        kerns["transpose_tiled"].check(Dim3(1), Dim3(64), {"h": 12, "w": 8})
+    with pytest.raises(UnsupportedKernel, match="up to 1024"):
+        kerns["pixel_pipeline"].check(Dim3(1), Dim3(2048),
+                                      {"n": 4096, "nthreads": 2048})
     for make in (lambda: cuda_suite.make_reduce_shared(256, 96),
                  lambda: cuda_suite.make_matmul_tiled(12, 8, 8),
-                 lambda: cuda_suite.make_histogram(64, 8, 32, "strided")):
+                 lambda: cuda_suite.make_histogram(64, 8, 32, "strided"),
+                 lambda: cuda_suite.make_scan_block(1024, 96),
+                 lambda: cuda_suite.make_transpose_tiled(12, 8),
+                 lambda: cuda_suite.entry_scan_block(1000),
+                 lambda: cuda_suite.entry_pixel_pipeline(1000)):
         with pytest.raises(ValueError):
             make()
+
+
+@pytest.mark.parametrize("backend", ("vector", "loop", "cuda"))
+def test_stencil1d_at_a_ragged_n_matches_the_reference(backend):
+    # 4000 = 31.25 blocks of 128: the last block's reads past n clamp to
+    # x[n-1], its stores past n are dropped
+    n, block = 4000, 128
+    tentry = cuda_suite.entry_stencil1d(n, block)
+    assert tentry.grid * block > n
+    args = tentry.make_args(np.random.default_rng(42))
+    want = japi.launch(jsuite.make_stencil1d(n, block), grid=tentry.grid,
+                       block=block, backend="loop",
+                       args={k: jnp.asarray(v) for k, v in args.items()})
+    out, oracle = cuda_suite.run_entry(tentry, backend, args=args,
+                                       device="cpu")
+    np.testing.assert_array_equal(_np(out["y"]), np.asarray(want["y"]))
+    np.testing.assert_array_equal(_np(out["y"]), oracle["y"])
+
+
+@pytest.mark.parametrize("backend", ("vector", "loop", "cuda"))
+def test_scan_block_adds_the_reference_zero_below_each_offset(backend):
+    # thread t < d adds 0.0 at level d, as the reference does, so where a
+    # -0.0 meets that 0.0 it comes out +0.0; a scan that skipped the add
+    # would keep -0.0 there
+    _, tentry = _entries("scan_block")
+    args = tentry.make_args(np.random.default_rng(42))
+    args["x"][:256] = -0.0
+    want = japi.launch(_entries("scan_block")[0].kernel, grid=tentry.grid,
+                       block=tentry.block, backend="loop",
+                       args={k: jnp.asarray(v) for k, v in args.items()})
+    out, _ = cuda_suite.run_entry(tentry, backend, args=args, device="cpu")
+    got, want = _np(out["y"]), np.asarray(want["y"])
+    assert 0 < np.signbit(want[:256]).sum() < 256
+    np.testing.assert_array_equal(np.signbit(got), np.signbit(want))
+    np.testing.assert_array_equal(got, want)
