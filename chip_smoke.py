@@ -43,7 +43,19 @@ Phases, each printing its own lines:
    launches.  Every entry draws its inputs from one generator seeded
    with ``SEED``, in the order of ``SIZES``.
    Then needle_nw's host time per launch, layer by layer;
-4. the kernels' JSON line, the card line, and last
+4. the hot-path kernels (matmul, rmsnorm, flash attention) at
+   granite-3-2b's widths (``HOT``): each call goes through
+   ``repro_torch.kernels.ops.<fn>`` with tensors on the card and
+   ``mode=None``, in bfloat16 and in float32, with every launch count set
+   to 0 just before and read just after (each call's kernel must launch
+   exactly once, no other); each output is held against the kernel's
+   plain version and the ``ref`` oracle on the card (``hot_tol``), then
+   kernel, plain version and the PyTorch yardstick (``F.rms_norm``,
+   ``torch.matmul``, ``F.scaled_dot_product_attention``, timed only) are
+   timed as in phase 2.  The inputs are drawn from the same generator
+   after every entry's;
+5. the kernels' JSON line (the 26 suite kernels and a row per hot-path
+   call and dtype), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line,
@@ -80,6 +92,7 @@ TOLERANT = ("hotspot", "srad_update", "backprop_layer", "lud_diag",
 #: entries whose float32 results the oracle fixes bit for bit
 EXACT_ENTRIES = ("kmeans", "vecadd", "stencil1d", "stencil2d",
                  "transpose_tiled")
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bfloat16 tensor cores
 SLEEP_CYCLES = 1_000_000         # keeps the card busy while a run enqueues
 RUNS, WARMUP = 25, 3
 
@@ -123,6 +136,25 @@ SIZES = {
     "transpose_tiled": {"h": 4096, "w": 4096},           # 262,144 tiles
     "pixel_pipeline": {"n": 1 << 24, "block": 128},
 }
+
+
+#: the hot-path calls at granite-3-2b's widths
+#: (src/repro/configs/granite_3_2b.py: d_model 2048, 32 heads of 64, 8 kv
+#: heads, d_ff 8192), over two sequences of train_4k's 4096 tokens
+#: (src/repro/configs/registry.py:59); decode as attend_decode, one new
+#: token for each of 32 sequences over a 4096-token cache
+HOT = {
+    "rmsnorm": {"rows": 2 * 4096, "d": 2048},
+    "matmul": {"m": 2 * 4096, "k": 2048, "n": 8192},   # the MLP's up proj
+    "flash_attention_prefill": {"b": 2, "h": 32, "hkv": 8, "sq": 4096,
+                                "skv": 4096, "d": 64, "causal": True},
+    "flash_attention_decode": {"b": 32, "h": 32, "hkv": 8, "sq": 1,
+                               "skv": 4096, "d": 64, "causal": False},
+}
+HOT_REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:17",
+                "matmul": "src/repro/kernels/matmul.py:21",
+                "flash_attention": "src/repro/kernels/flash_attention.py:34"}
+HOT_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def card_line() -> str:
@@ -403,6 +435,158 @@ def check_and_time(name, kern, b, params, grid, block, tol):
             "call_ms": call_ms}, got
 
 
+def hot_inputs(rng) -> dict:
+    """Each hot-path call's float32 inputs, drawn from ``rng``."""
+    def draw(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+
+    p = HOT["rmsnorm"]
+    out = {"rmsnorm": (draw(p["rows"], p["d"]), draw(p["d"]))}
+    p = HOT["matmul"]
+    out["matmul"] = (draw(p["m"], p["k"]), draw(p["k"], p["n"]))
+    for call in ("flash_attention_prefill", "flash_attention_decode"):
+        p = HOT[call]
+        out[call] = (draw(p["b"], p["h"], p["sq"], p["d"]),
+                     draw(p["b"], p["hkv"], p["skv"], p["d"]),
+                     draw(p["b"], p["hkv"], p["skv"], p["d"]))
+    return out
+
+
+def hot_tol(fn: str, dtype, matmul_tol) -> float:
+    """The tolerance of tests/test_kernels.py for ``fn`` in ``dtype``;
+    float32 matmul's grows with depth as ``matmul_tol(k)`` (4.5e-4 at
+    k = 2048)."""
+    if dtype == torch.bfloat16:
+        return {"rmsnorm": 2e-2, "matmul": 5e-2, "flash_attention": 2e-2}[fn]
+    if fn == "matmul":
+        return matmul_tol(HOT["matmul"]["k"])
+    return {"rmsnorm": 1e-5, "flash_attention": 2e-5}[fn]
+
+
+def hot_bound(call: str, dtype) -> tuple[float, str]:
+    """Least time (ms) for one hot-path call: its inputs read once and its
+    output written once over the memory rate, against its flops over the
+    peak rate for their type (bfloat16 tensor cores; float32 CUDA cores)
+    and its ``exp`` over the special-function units."""
+    p, size = HOT[call], torch.empty(0, dtype=dtype).element_size()
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    exps = 0.0
+    if call == "rmsnorm":
+        nbytes = size * 2 * p["rows"] * p["d"] + 4 * p["d"]
+        flops = 4.0 * p["rows"] * p["d"]   # square-add, two products, add
+    elif call == "matmul":
+        m, k, n = p["m"], p["k"], p["n"]
+        nbytes = size * (m * k + k * n + m * n)
+        flops = 2.0 * m * k * n
+    else:
+        b, h, sq, skv, d = p["b"], p["h"], p["sq"], p["skv"], p["d"]
+        # the (query, key) pairs the mask keeps: the top-left triangle
+        pairs = (sum(min(skv, i + 1) for i in range(sq)) if p["causal"]
+                 else sq * skv)
+        nbytes = size * (2 * b * h * sq * d + 2 * b * p["hkv"] * skv * d)
+        flops = 4.0 * d * b * h * pairs    # q.k and p.v
+        exps = float(b * h * pairs)
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": max(flops / peak, exps / SFU_OPS_PER_S) * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def hot_calls(call: str, t: tuple, ops, kernels_of) -> tuple:
+    """``(fn name, ops call, plain call, oracle call, yardstick)`` for one
+    hot-path call on the tensors ``t``."""
+    import torch.nn.functional as F
+
+    if call == "rmsnorm":
+        x, scale = t
+        w = (1.0 + scale).to(x.dtype)
+        mod = kernels_of["rmsnorm"]
+        return ("rmsnorm", lambda: ops.rmsnorm(x, scale),
+                lambda: mod.rmsnorm_plain(x, scale),
+                lambda: ops.rmsnorm(x, scale, mode="ref"),
+                lambda: F.rms_norm(x, (x.shape[1],), weight=w, eps=1e-5))
+    if call == "matmul":
+        a, b = t
+        mod = kernels_of["matmul"]
+        return ("matmul", lambda: ops.matmul(a, b),
+                lambda: mod.matmul_plain(a, b),
+                lambda: ops.matmul(a, b, mode="ref"),
+                lambda: torch.matmul(a, b))
+    q, k, v = t
+    causal = HOT[call]["causal"]
+    mod = kernels_of["flash_attention"]
+    return ("flash_attention",
+            lambda: ops.flash_attention(q, k, v, causal=causal),
+            lambda: mod.flash_attention_plain(q, k, v, causal=causal),
+            lambda: ops.flash_attention(q, k, v, causal=causal, mode="ref"),
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True))
+
+
+def hot_phase(host: dict, dev, matmul_tol) -> dict:
+    """Phase 4: each hot-path call through ``ops`` once per dtype with
+    fresh counts (the main path), held against its plain version and the
+    oracle, then timed.  Returns the kernels' JSON rows by name."""
+    from repro_torch.core import lower_cuda
+    from repro_torch.kernels import flash_attention, matmul, ops, rmsnorm
+
+    kernels_of = {"rmsnorm": rmsnorm, "matmul": matmul,
+                  "flash_attention": flash_attention}
+    rows = {}
+    for dtype in HOT_DTYPES:
+        dname = str(dtype).removeprefix("torch.")
+        for call in HOT:
+            t = tuple(torch.from_numpy(a).to(dev).to(dtype)
+                      for a in host[call])
+            fn, run, plain, oracle, library = hot_calls(call, t, ops,
+                                                        kernels_of)
+            # the main path: this call's kernel, once, and no other
+            for kern in (*ops.KERNELS.values(), *lower_cuda.KERNELS.values()):
+                kern.launches = 0
+            torch.cuda.synchronize()
+            got = run()
+            torch.cuda.synchronize()
+            counts = {n: k.launches for n, k in ops.KERNELS.items()}
+            counts.update((n, k.launches) for n, k in
+                          lower_cuda.KERNELS.items() if k.launches)
+            launches = counts.pop(fn)
+            if launches != 1 or any(counts.values()):
+                raise AssertionError(f"{call}/{dname}: {fn} launched "
+                                     f"{launches} times, others {counts}")
+            tol = hot_tol(fn, dtype, matmul_tol)
+            err = 0.0
+            for what, want in (("plain", plain()), ("oracle", oracle())):
+                if got.shape != want.shape or got.dtype != want.dtype or \
+                        not torch.isfinite(got).all() or \
+                        not torch.allclose(got.float(), want.float(),
+                                           rtol=tol, atol=tol):
+                    raise AssertionError(f"{call}/{dname}: disagrees with "
+                                         f"its {what} version")
+                if what == "plain":
+                    err = float((got.double() - want.double()).abs().max())
+                del want
+            del got
+            ms = time_ms(run)
+            plain_ms = time_ms(plain)
+            library_ms = time_ms(library)
+            bound_ms, bound_by = hot_bound(call, dtype)
+            name = f"{call}/{dname}"
+            rows[name] = {
+                "name": name, "route": "cuda",
+                "source": ops.KERNELS[fn].source,
+                "replaces": HOT_REPLACES[fn], "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
+            print(f"hot {name}: {HOT[call]} kernel_ms={ms} "
+                  f"plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by}) "
+                  f"library_ms={library_ms} max_abs_err={err} tol={tol} "
+                  f"launches={launches} oracle=match")
+            del t
+            torch.cuda.empty_cache()
+    return rows
+
+
 def layer_us(entry, args: dict, dev, api, carry, kern, n=512) -> dict:
     """Per-launch wall time (us) of one chain step through each layer,
     over ``n`` launches of the chain's first step, card synchronised at
@@ -455,16 +639,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(f"card: {card}")
+    print(f"torch: {torch.__version__} (CUDA {torch.version.cuda})")
     lib = _native.library()
     print(f"build: {lib.path.name} in {lib.build_seconds:.2f} s "
           f"(nvcc, sm_90a, {len(_native.sources())} sources)")
     for line in lib.log.splitlines():
-        if "Used" in line or "Compiling entry" in line:
+        if "Used" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
 
     rng = np.random.default_rng(SEED)
     ents = entries(cuda_suite)
     host_args = {n: e.make_args(rng) for n, e in ents.items()}
+    hot_host = hot_inputs(rng)      # after every entry's inputs
 
     # ---- phase 2: each kernel against its plain version, and timed ------
     rows, kernels_of = {}, {}
@@ -550,6 +736,9 @@ def main() -> int:
                       lower_cuda.KERNELS[nw])
     layers["chain_us"] = walls[nw] / launches[nw][nw] * 1e6
     print(f"layers {nw}: " + " ".join(f"{k}={v}" for k, v in layers.items()))
+
+    # ---- phase 4: the hot-path kernels at granite-3-2b's widths ---------
+    rows.update(hot_phase(hot_host, dev, cuda_suite.matmul_tol))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -3,7 +3,9 @@
 This system runs kernels, not a model, so its "weights" are the buffers a
 suite entry's ``make_args`` builds.  :func:`from_reference` hands those
 NumPy arrays to the port as tensors on one device, with the names in
-``const`` wrapped as read-only ``__constant__`` buffers.
+``const`` wrapped as read-only ``__constant__`` buffers.  The hot-path
+kernels' activations may be bfloat16 (``ml_dtypes``' type, which
+``torch.from_numpy`` refuses): they cross as their 16-bit patterns.
 """
 from __future__ import annotations
 
@@ -17,6 +19,20 @@ from repro_torch.core.memory import ConstArray, resolve_device
 _NARROW = {np.dtype(np.int64): np.int32, np.dtype(np.float64): np.float32}
 
 
+def _is_bfloat16(dtype: np.dtype) -> bool:
+    # ml_dtypes' bfloat16, recognised without importing ml_dtypes
+    return dtype.name == "bfloat16" and dtype.itemsize == 2
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A CPU tensor with ``arr``'s values (bfloat16 bit for bit)."""
+    if _is_bfloat16(arr.dtype):
+        bits = np.ascontiguousarray(arr).view(np.uint16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    arr = np.ascontiguousarray(arr.astype(_NARROW.get(arr.dtype, arr.dtype)))
+    return torch.from_numpy(arr)
+
+
 def from_reference(args: dict[str, np.ndarray], *, const=(),
                    device=None) -> dict:
     """Tensors on ``device`` (the card unless ``"cpu"`` is asked for) for
@@ -24,9 +40,6 @@ def from_reference(args: dict[str, np.ndarray], *, const=(),
     dev = resolve_device(device)
     out = {}
     for name, value in args.items():
-        arr = np.asarray(value)
-        arr = np.ascontiguousarray(arr.astype(_NARROW.get(arr.dtype,
-                                                          arr.dtype)))
-        t = torch.from_numpy(arr).to(dev)
+        t = _tensor(np.asarray(value)).to(dev)
         out[name] = ConstArray(t) if name in const else t
     return out

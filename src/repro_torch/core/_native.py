@@ -20,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")   # when not on PATH
@@ -119,3 +121,15 @@ def function(symbol: str, argtypes: tuple):
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch(symbol: str, argtypes: tuple, cargs: list, device) -> None:
+    """Call the C launcher ``symbol`` with ``cargs`` and the current
+    stream of ``device`` (its last argument); raises unless the launch's
+    ``cudaError_t`` is 0."""
+    fn = function(symbol, argtypes)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*cargs, stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol}: launch failed with cudaError_t {rc}")

@@ -116,14 +116,9 @@ class CudaKernel:
         if bad:
             raise ValueError(f"{self.name}: buffers {bad} are not contiguous")
         work = {**bufs, **self.scratch(bufs, **params)}
-        fn = _native.function(self.symbol, self.argtypes)
-        device = next(iter(bufs.values())).device
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = fn(*self.cargs(work, grid, block, **params), stream)
-        if rc != 0:
-            raise RuntimeError(f"{self.symbol}: launch failed with "
-                               f"cudaError_t {rc}")
+        _native.launch(self.symbol, self.argtypes,
+                       self.cargs(work, grid, block, **params),
+                       next(iter(bufs.values())).device)
         self.launches += 1
 
 
@@ -866,12 +861,13 @@ _DEFAULT_DYN_SHARED_BYTES = 48 * 1024
 def reverse_plain(b, grid: Dim3, block: Dim3, *, n: int, dyn_shared: int):
     """``d[t] = s[ns - 1 - t]`` for the block's threads, where ``s`` holds
     ``d``'s first ``block`` values and zeros up to its ``ns =
-    dyn_shared`` elements."""
-    d = b["d"]
-    s = torch.zeros(dyn_shared, dtype=d.dtype, device=d.device)
-    s[:block.x] = d[:block.x]
-    out = d.clone()
-    out[:block.x] = s.flip(0)[:block.x]
+    dyn_shared`` elements; the ``grid`` blocks do so to the same ``d``,
+    one after another, as the reference's do."""
+    out = b["d"].clone()
+    s = torch.zeros(dyn_shared, dtype=out.dtype, device=out.device)
+    for _ in range(grid.x):
+        s[:block.x] = out[:block.x]
+        out[:block.x] = s.flip(0)[:block.x]
     return {"d": out}
 
 
@@ -881,10 +877,6 @@ def _reverse_check(grid: Dim3, block: Dim3, params: dict):
     if ns is None:
         raise ValueError("reverse: its shared array is extern (dynamic); "
                          "pass dyn_shared= at launch")
-    if grid.x != 1:
-        raise UnsupportedKernel(f"reverse: one block; the reference's "
-                                f"blocks reverse the same d in turn, got "
-                                f"grid {grid.x}")
     if block.x > params["n"]:
         raise UnsupportedKernel(f"reverse: block {block.x} exceeds d's "
                                 f"{params['n']} elements")

@@ -1,6 +1,10 @@
 // reverse: the paper's Listing 3 (dynamicReverse).  One block stages d in
 // an extern __shared__ array whose extent the launch gives, barriers, and
 // writes it back reversed: d[t] = s[ns - 1 - t], ns = the array's length.
+// A grid of g blocks, which the reference runs one after another on the
+// same d, runs as g passes of the one physical block, a barrier between
+// each pass's reads of s and the next pass's writes (as backprop maps its
+// wide logical block onto the threads it has).
 //
 // Replaces: the TPU kernel src/repro/core/pallas_emit.py:34 (`run`, one
 // pl.pallas_call per launch) applied to make_reverse
@@ -15,18 +19,22 @@
 // memory starts at zero; the wrapper refuses ns smaller than the block.
 #include <cuda_runtime.h>
 
-__global__ void reverse_kernel(int* d, int ns) {
+__global__ void reverse_kernel(int* d, int ns, int passes) {
   extern __shared__ int s[];
   const int t = threadIdx.x;
-  s[t] = d[t];
   for (int i = blockDim.x + t; i < ns; i += blockDim.x) s[i] = 0;
-  __syncthreads();
-  d[t] = s[ns - 1 - t];
+  for (int pass = 0; pass < passes; ++pass) {
+    if (pass) __syncthreads();   // every thread has read the last pass's s
+    s[t] = d[t];
+    __syncthreads();
+    d[t] = s[ns - 1 - t];
+  }
 }
 
+// grid: the logical blocks, each one pass of the one block launched
 extern "C" int launch_reverse(int* d, int grid, int block, size_t smem_bytes,
                               void* stream) {
-  reverse_kernel<<<grid, block, smem_bytes, (cudaStream_t)stream>>>(
-      d, (int)(smem_bytes / sizeof(int)));
+  reverse_kernel<<<1, block, smem_bytes, (cudaStream_t)stream>>>(
+      d, (int)(smem_bytes / sizeof(int)), grid);
   return (int)cudaGetLastError();
 }

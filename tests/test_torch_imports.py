@@ -46,22 +46,30 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     assert res.stdout.startswith("ok")
 
 
+#: the hot-path kernels' sources, each with the Pallas kernel it replaces
+HOT_PATH = {"flash_attention.cu": "src/repro/kernels/flash_attention.py:34",
+            "matmul.cu": "src/repro/kernels/matmul.py:21",
+            "rmsnorm.cu": "src/repro/kernels/rmsnorm.py:17"}
+
+
 def test_kernel_sources_live_in_the_port():
     from repro_torch.core import _native
     srcs = [p.name for p in _native.sources()]
-    assert srcs == ["backprop_layer.cu", "bfs_frontier.cu", "histogram.cu",
+    assert srcs == ["backprop_layer.cu", "bfs_frontier.cu",
+                    "flash_attention.cu", "histogram.cu",
                     "hotspot.cu", "kmeans.cu", "lavamd.cu", "lud_diag.cu",
-                    "matmul_tiled.cu", "needle_nw.cu", "nn.cu",
+                    "matmul.cu", "matmul_tiled.cu", "needle_nw.cu", "nn.cu",
                     "pathfinder.cu", "pixel_pipeline.cu", "reduce_shared.cu",
-                    "reduce_warp.cu", "reverse.cu", "scan_block.cu",
-                    "softmax_row.cu", "srad.cu", "stencil1d.cu",
-                    "stencil2d.cu", "streamcluster.cu", "transpose_tiled.cu",
-                    "vecadd.cu"]
+                    "reduce_warp.cu", "reverse.cu", "rmsnorm.cu",
+                    "scan_block.cu", "softmax_row.cu", "srad.cu",
+                    "stencil1d.cu", "stencil2d.cu", "streamcluster.cu",
+                    "transpose_tiled.cu", "vecadd.cu"]
     for p in _native.sources():
         assert p.parent == PORT / "csrc"
         text = p.read_text()
         # each says what it replaces, what bounds it, what it does about it
-        assert "Replaces: the TPU kernel src/repro/core/pallas_emit.py:34" \
-            in text, p.name
+        replaces = HOT_PATH.get(p.name, "src/repro/core/pallas_emit.py:34")
+        assert f"Replaces: the TPU kernel {replaces}" in text, p.name
+        assert text.count("Replaces: the TPU kernel") == 1, p.name
         assert "Bound on the H100" in text, p.name
         assert "__constant__ int" not in text and "extern \"C\" int" in text

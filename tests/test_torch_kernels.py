@@ -1,0 +1,349 @@
+"""The port's hot-path kernels (matmul, rmsnorm, flash attention) against
+the JAX package's Pallas kernels.
+
+On the CPU each case runs the reference's ``ops.<fn>(mode="interpret")``
+(the Pallas interpret path, as ``tests/test_kernels.py`` runs it) and the
+port's ``ops.<fn>`` on CPU tensors (the kernels' plain versions), on the
+same NumPy inputs from one seed, at ``tests/test_kernels.py``'s shapes and
+tolerances.  bfloat16 inputs are made in float32 and cast on each side
+(both round to nearest even), never carried through NumPy.
+
+The tests marked ``gpu`` hold each kernel against its plain version on the
+card at the same shapes, in both dtypes, and count its launches; they skip
+elsewhere and run with ``PYTHONPATH=src python -m pytest -q -m gpu
+tests/test_torch_kernels.py``.  JAX is imported by the CPU tests alone,
+since the machine with the card has none.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import carry
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import matmul as tmm
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rmsnorm as trn
+
+DTYPES = ("float32", "bfloat16")
+#: tests/test_kernels.py's sweeps
+FLASH = [(1, 4, 4, 128, 128, 64, True),      # MHA causal
+         (2, 8, 2, 256, 256, 64, True),      # GQA 4:1
+         (1, 4, 1, 64, 256, 128, False),     # MQA cross
+         (2, 2, 2, 1, 128, 64, False),       # decode-shaped
+         (1, 6, 3, 96, 96, 32, True)]        # non-128-aligned
+RMSNORM = [(64, 256, 8), (33, 128, 8), (8, 512, 1)]
+MATMUL = [(128, 128, 128, 1), (256, 128, 64, 2), (64, 256, 128, 1)]
+TOL = {"flash": {"float32": 2e-5, "bfloat16": 2e-2},
+       "rmsnorm": {"float32": 1e-5, "bfloat16": 2e-2},
+       "matmul": {"float32": 5e-5, "bfloat16": 5e-2}}
+
+
+def _jax():
+    """The reference's jnp and kernels (imported here, not at the top)."""
+    import jax.numpy as jnp
+
+    from repro.kernels import ops, ref
+    return jnp, ops, ref
+
+
+def _draw(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _to_jax(arrays, dtype):
+    jnp = _jax()[0]
+    return [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrays]
+
+
+def _to_torch(arrays, dtype, device="cpu"):
+    return [torch.from_numpy(a).to(device).to(getattr(torch, dtype))
+            for a in arrays]
+
+
+def _close(got, want, tol):
+    got = got.float().cpu().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got, np.float32)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+def _flash_inputs(B, H, Hkv, Sq, Skv, d):
+    return _draw(7, (B, H, Sq, d), (B, Hkv, Skv, d), (B, Hkv, Skv, d))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,d,causal", FLASH)
+def test_flash_attention_matches_the_reference(B, H, Hkv, Sq, Skv, d,
+                                               causal, dtype):
+    arrays = _flash_inputs(B, H, Hkv, Sq, Skv, d)
+    jops = _jax()[1]
+    want = jops.flash_attention(*_to_jax(arrays, dtype), causal=causal,
+                                mode="interpret", q_blk=32, kv_blk=32)
+    got = tops.flash_attention(*_to_torch(arrays, dtype), causal=causal,
+                               q_blk=32, kv_blk=32)
+    assert got.dtype == getattr(torch, dtype) and got.shape == want.shape
+    _close(got, want, TOL["flash"][dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,D,grain", RMSNORM)
+def test_rmsnorm_matches_the_reference(rows, D, grain, dtype):
+    x, s = _draw(8, (rows, D), (D,))
+    jnp, jops, _ = _jax()
+    want = jops.rmsnorm(_to_jax([x], dtype)[0], jnp.asarray(s),
+                        mode="interpret", grain=grain)
+    got = tops.rmsnorm(_to_torch([x], dtype)[0], torch.from_numpy(s),
+                       grain=grain)
+    assert got.dtype == getattr(torch, dtype) and got.shape == want.shape
+    _close(got, want, TOL["rmsnorm"][dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,N,K,grain", MATMUL)
+def test_matmul_matches_the_reference(M, N, K, grain, dtype):
+    arrays = _draw(9, (M, K), (K, N))
+    jops = _jax()[1]
+    want = jops.matmul(*_to_jax(arrays, dtype), mode="interpret", bm=64,
+                       bn=64, bk=64, grain=grain)
+    got = tops.matmul(*_to_torch(arrays, dtype), bm=64, bn=64, bk=64,
+                      grain=grain)
+    assert got.dtype == getattr(torch, dtype) and got.shape == want.shape
+    _close(got, want, TOL["matmul"][dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_oracles_match_the_reference_oracles(dtype):
+    jnp, _, jref = _jax()
+    arrays = _flash_inputs(2, 8, 2, 96, 128, 32)
+    for causal in (True, False):
+        _close(tref.flash_attention_ref(*_to_torch(arrays, dtype),
+                                        causal=causal),
+               jref.flash_attention_ref(*_to_jax(arrays, dtype),
+                                        causal=causal),
+               TOL["flash"][dtype])
+    x, s = _draw(8, (33, 128), (128,))
+    _close(tref.rmsnorm_ref(_to_torch([x], dtype)[0], torch.from_numpy(s)),
+           jref.rmsnorm_ref(_to_jax([x], dtype)[0], jnp.asarray(s)),
+           TOL["rmsnorm"][dtype])
+    arrays = _draw(9, (64, 96), (96, 80))
+    _close(tref.matmul_ref(*_to_torch(arrays, dtype)),
+           jref.matmul_ref(*_to_jax(arrays, dtype)), TOL["matmul"][dtype])
+
+
+def test_ref_mode_runs_the_oracle():
+    arrays = _flash_inputs(1, 4, 2, 64, 64, 32)
+    q, k, v = _to_torch(arrays, "float32")
+    assert torch.equal(tops.flash_attention(q, k, v, mode="ref"),
+                       tref.flash_attention_ref(q, k, v))
+    x, s = _to_torch(_draw(8, (8, 64), (64,)), "float32")
+    assert torch.equal(tops.rmsnorm(x, s, mode="ref"),
+                       tref.rmsnorm_ref(x, s))
+    a, b = _to_torch(_draw(9, (32, 16), (16, 8)), "float32")
+    assert torch.equal(tops.matmul(a, b, mode="ref"), tref.matmul_ref(a, b))
+
+
+def test_flash_matches_the_models_flash():
+    """The port's kernel and the reference model's XLA flash path agree,
+    at tests/test_kernels.py's shape."""
+    jnp = _jax()[0]
+    from repro.models.attention import flash_attention as model_flash
+    B, S, Hkv, g, hd = 1, 128, 2, 2, 64
+    q, k, v = _draw(10, (B, S, Hkv, g, hd), (B, S, Hkv, hd), (B, S, Hkv, hd))
+    want = model_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       causal=True, q_chunk=32, kv_chunk=32)
+    qh = torch.from_numpy(q).reshape(B, S, Hkv * g, hd).movedim(1, 2)
+    got = tops.flash_attention(qh.contiguous(),
+                               torch.from_numpy(k).movedim(1, 2).contiguous(),
+                               torch.from_numpy(v).movedim(1, 2).contiguous(),
+                               causal=True, q_blk=32, kv_blk=32)
+    got = got.movedim(2, 1).reshape(B, S, Hkv, g, hd)
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("causal", (True, False))
+def test_plain_flash_walks_the_kernels_tiles_with_a_top_left_mask(causal):
+    # Sq != Skv: the mask is qpos >= kpos from 0 (not FA2's bottom-right),
+    # over three or four of the kernel's kv tiles, the last one ragged
+    arrays = _flash_inputs(1, 2, 1, 150, 200, 16)
+    q, k, v = _to_torch(arrays, "float32")
+    got = tfa.flash_attention_plain(q, k, v, causal=causal, q_blk=150,
+                                    kv_blk=200)
+    want = tref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    if causal:      # row 0 sees key 0 alone
+        torch.testing.assert_close(got[0, :, 0], v[0, :, 0].expand(2, 16))
+
+
+@pytest.mark.parametrize("fn,args,kw", [
+    ("flash_attention", ((1, 2, 96, 32), (1, 2, 96, 32), (1, 2, 96, 32)),
+     {"q_blk": 64}),
+    ("flash_attention", ((1, 2, 64, 32), (1, 2, 96, 32), (1, 2, 96, 32)),
+     {"kv_blk": 64}),
+    ("matmul", ((64, 32), (48, 64)), {}),
+    ("matmul", ((96, 64), (64, 64)), {"bm": 64}),
+    ("matmul", ((64, 64), (64, 96)), {"bn": 64}),
+    ("matmul", ((64, 96), (96, 64)), {"bk": 64}),
+    ("matmul", ((96, 64), (64, 64)), {"bm": 32, "grain": 2})])
+def test_refuses_the_shapes_the_reference_asserts_on(fn, args, kw):
+    arrays = _draw(11, *args)
+    jops = _jax()[1]
+    with pytest.raises(AssertionError):
+        getattr(jops, fn)(*_to_jax(arrays, "float32"), mode="interpret",
+                          **kw)
+    tensors = _to_torch(arrays, "float32")
+    with pytest.raises(ValueError, match="whole|K"):
+        getattr(tops, fn)(*tensors, **kw)
+    plain = {"flash_attention": tfa.flash_attention_plain,
+             "matmul": tmm.matmul_plain}[fn]
+    with pytest.raises(ValueError, match="whole|K"):
+        plain(*tensors, **kw)
+
+
+def test_modes():
+    x, s = _to_torch(_draw(8, (8, 64), (64,)), "float32")
+    assert tops.default_mode(x) == "interpret"
+    with pytest.raises(ValueError, match="mode 'cuda'"):
+        tops.rmsnorm(x, s, mode="cuda")
+    with pytest.raises(ValueError, match="mode 'cuda'"):
+        tops.matmul(x, x.t().contiguous(), mode="cuda")
+    with pytest.raises(ValueError, match="mode 'cuda'"):
+        tops.flash_attention(x[None, None], x[None, None], x[None, None],
+                             mode="cuda")
+    with pytest.raises(ValueError, match="not one of"):
+        tops.rmsnorm(x, s, mode="pallas")
+    # CPU tensors run the plain version, which is no launch
+    before = {n: k.launches for n, k in tops.KERNELS.items()}
+    assert torch.equal(tops.rmsnorm(x, s), trn.rmsnorm_plain(x, s))
+    assert torch.equal(trn.rmsnorm(x, s), trn.rmsnorm_plain(x, s))
+    assert {n: k.launches for n, k in tops.KERNELS.items()} == before
+
+
+def test_wrappers_refuse_what_their_kernels_do_not_take():
+    x, s = _to_torch(_draw(8, (8, 64), (64,)), "float32")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        trn.rmsnorm(x.double(), s)
+    with pytest.raises(ValueError, match="contiguous"):
+        trn.rmsnorm(x.t(), s[:8])
+    with pytest.raises(ValueError, match="scale"):
+        trn.rmsnorm(x, s[:32])
+    with pytest.raises(TypeError, match="b is"):
+        tmm.matmul(x, x.t().contiguous().to(torch.bfloat16))
+    q = x.reshape(1, 2, 4, 64)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        tfa.flash_attention(q, q[:, :1].expand(1, 3, 4, 64).contiguous(),
+                            q[:, :1].expand(1, 3, 4, 64).contiguous())
+
+
+def test_rmsnorm_takes_a_scale_of_another_dtype():
+    # the reference's tests pass float32 scale with bfloat16 x; a bfloat16
+    # scale is widened the same way
+    x, s = _draw(8, (33, 128), (128,))
+    jnp, jops, _ = _jax()
+    xb = _to_torch([x], "bfloat16")[0]
+    for scale_dtype in DTYPES:
+        want = jops.rmsnorm(_to_jax([x], "bfloat16")[0],
+                            _to_jax([s], scale_dtype)[0], mode="interpret")
+        got = tops.rmsnorm(xb, _to_torch([s], scale_dtype)[0])
+        assert got.dtype == torch.bfloat16
+        _close(got, want, TOL["rmsnorm"]["bfloat16"])
+
+
+def test_carry_takes_a_bfloat16_array_bit_for_bit():
+    jnp = _jax()[0]
+    x = _draw(12, (5, 7))[0]
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    t = carry.from_reference({"x": xb, "y": x}, device="cpu")
+    assert t["x"].dtype == torch.bfloat16 and t["x"].shape == (5, 7)
+    np.testing.assert_array_equal(t["x"].view(torch.int16).numpy(),
+                                  np.asarray(xb).view(np.int16))
+    assert torch.equal(t["x"], torch.from_numpy(x).to(torch.bfloat16))
+    assert t["y"].dtype == torch.float32
+
+
+# ---- on the card ------------------------------------------------------
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _launch_once(name, call):
+    """``call()`` through ops with mode=None; its kernel launched once."""
+    kern = tops.KERNELS[name]
+    before = kern.launches
+    out = call()
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,d,causal", FLASH)
+def test_flash_attention_kernel_matches_its_plain_version(
+        card, B, H, Hkv, Sq, Skv, d, causal, dtype):
+    q, k, v = _to_torch(_flash_inputs(B, H, Hkv, Sq, Skv, d), dtype, card)
+    got = _launch_once("flash_attention", lambda: tops.flash_attention(
+        q, k, v, causal=causal, q_blk=32, kv_blk=32))
+    want = tfa.flash_attention_plain(q, k, v, causal=causal, q_blk=32,
+                                     kv_blk=32)
+    assert got.dtype == want.dtype and torch.isfinite(got).all()
+    _close(got, want.float().cpu().numpy(), TOL["flash"][dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,D,grain", RMSNORM + [(40, 100, 8)])
+def test_rmsnorm_kernel_matches_its_plain_version(card, rows, D, grain,
+                                                  dtype):
+    x, s = _draw(8, (rows, D), (D,))
+    x = _to_torch([x], dtype, card)[0]
+    for scale in _to_torch([s], "float32", card) + _to_torch([s], dtype,
+                                                              card):
+        got = _launch_once("rmsnorm",
+                           lambda: tops.rmsnorm(x, scale, grain=grain))
+        want = trn.rmsnorm_plain(x, scale, grain=grain)
+        assert got.dtype == x.dtype
+        _close(got, want.float().cpu().numpy(), TOL["rmsnorm"][dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,N,K,grain", MATMUL + [(72, 200, 40, 1)])
+def test_matmul_kernel_matches_its_plain_version(card, M, N, K, grain,
+                                                 dtype):
+    a, b = _to_torch(_draw(9, (M, K), (K, N)), dtype, card)
+    blk = 8 if M == 72 else 64
+    got = _launch_once("matmul", lambda: tops.matmul(a, b, bm=blk, bn=blk,
+                                                     bk=blk, grain=grain))
+    want = tmm.matmul_plain(a, b, bm=blk, bn=blk, bk=blk, grain=grain)
+    assert got.dtype == a.dtype
+    _close(got, want.float().cpu().numpy(), TOL["matmul"][dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", (32, 64, 80, 128))
+def test_flash_attention_kernel_on_every_head_width(card, d):
+    # d = 128 takes 91 KB of shared memory, past the 48 KB a launch gets
+    # without the opt-in; d = 80 runs padded to 128; a causal Sq > Skv and
+    # a ragged Skv on top
+    q, k, v = _to_torch(_flash_inputs(1, 4, 1, 80, 70, d), "float32", card)
+    for causal in (True, False):
+        got = _launch_once("flash_attention", lambda: tops.flash_attention(
+            q, k, v, causal=causal, q_blk=16, kv_blk=70))
+        want = tref.flash_attention_ref(q, k, v, causal=causal)
+        _close(got, want.cpu().numpy(), 2e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_mode_never_falls_back(card):
+    x = torch.ones(4, 8, dtype=torch.float64, device=card)
+    with pytest.raises(TypeError):
+        tops.rmsnorm(x, x[0], mode="cuda")
+    q = torch.ones(1, 1, 4, 160, device=card)
+    with pytest.raises(ValueError, match="exceeds"):
+        tops.flash_attention(q, q, q)
+    assert tops.default_mode(q) == "cuda"

@@ -154,6 +154,26 @@ def test_reverse_takes_its_shared_extent_from_the_launch(card):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("grid", (2, 3))
+def test_reverse_runs_a_grid_as_passes_of_one_block_on_the_card(card, grid):
+    # the reference's blocks reverse the same d one after another; the
+    # plain version does so (held to the reference's loop backend on the
+    # CPU), and the kernel runs them as passes of one physical block
+    entry = cuda_suite.entry_reverse(n=1024)
+    d = carry.from_reference(entry.make_args(np.random.default_rng(42)),
+                             device=card)["d"]
+    kern = lower_cuda.KERNELS["reverse"]
+    for block, dyn in ((1024, 1024), (512, 1536)):
+        before = kern.launches
+        got = entry.kernel[grid, block, dyn].on(backend="cuda")(d=d)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        want = kern.plain({"d": d.cpu()}, Dim3(grid), Dim3(block), n=1024,
+                          dyn_shared=dyn)
+        assert torch.equal(got["d"].cpu(), want["d"])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("grid", (16, 5))
 def test_histogram_contiguous_layout_on_the_card(card, grid):
     entry = cuda_suite.entry_histogram(layout="contiguous")

@@ -495,7 +495,7 @@ def test_streamcluster_ndirty_counts_distinct_claimed_centres(backend):
     ("lavamd", {"grid": 9}),
     ("streamcluster", {"block": 48, "grid": 6}),
     ("vecadd", {"block": (64, 2)}),
-    ("reverse", {"grid": 2}),
+    ("reverse", {"grid": (2, 2)}),
     ("reverse", {"block": 1024}),
     ("histogram_coalesced", {"grid": (4, 4)}),
     ("reduce_shared", {"block": 128}),
@@ -674,6 +674,23 @@ def test_reverse_extern_shared_follows_the_dyn_shared_slot(dyn):
         _assert_match("reverse", got, want, ("d",))
     if dyn > 512:
         assert (np.asarray(want["d"])[:dyn - 512] == 0).all()
+
+
+@pytest.mark.parametrize("grid", (2, 3))
+@pytest.mark.parametrize("block,dyn", ((512, 512), (256, 640)))
+def test_reverse_blocks_reverse_the_same_d_in_turn(grid, block, dyn):
+    # the reference's g blocks apply the one-block reversal to d one after
+    # another: twice gives d back where ns equals the block
+    jentry, tentry = _entries("reverse")
+    args = tentry.make_args(np.random.default_rng(42))
+    want = japi.launch(jentry.kernel, grid=grid, block=block,
+                       dyn_shared=dyn, args={"d": jnp.asarray(args["d"])},
+                       backend="loop")
+    got = tentry.kernel[grid, block, dyn].on(backend="cuda")(
+        d=torch.from_numpy(args["d"]))
+    _assert_match("reverse", got, want, ("d",))
+    if grid == 2 and block == dyn:
+        np.testing.assert_array_equal(_np(got["d"]), args["d"])
 
 
 def test_reverse_wrapper_refuses_a_shared_array_smaller_than_the_block():
