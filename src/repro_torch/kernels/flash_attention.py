@@ -6,9 +6,23 @@ reading kv head ``h // (H // Hkv)``, with an online softmax whose running
 maximum, denominator and accumulator are float32.  The causal mask is
 top-left (``qpos >= kpos``, both counted from 0).  The wrapper keeps the
 reference's tile arguments, clamps and refusals (``Sq % q_blk`` and
-``Skv % kv_blk`` must be 0 after the clamps); the kernel
-(``csrc/flash_attention.cu``) takes its own tiles of 32 queries and 64
-keys, and any ``d`` up to 128.
+``Skv % kv_blk`` must be 0 after the clamps); the kernels take their own
+tiles, and any ``d`` up to 128.  Three kernels, chosen by :func:`route`:
+
+* ``"decode"`` - a kv group's query rows are few (``(H // Hkv) * Sq <=
+  8``) and its rows 16-byte loads: ``csrc/flash_decode.cu`` splits the
+  kv axis over warps, each reading its keys once for the whole group, and
+  merges the splits in the same launcher call; float32 arithmetic, either
+  dtype.  Its plain version is :func:`flash_decode_plain`;
+* ``"tc"`` - bfloat16 prefill whose rows cp.async can copy:
+  ``csrc/flash_attention_tc.cu``, mma.sync on the tensor cores with p
+  rounded to bfloat16 for the product with v;
+* ``"simt"`` - everything else (float32 prefill in full float32):
+  ``csrc/flash_attention.cu`` on the CUDA cores, 32 queries and 64 keys a
+  block.
+
+The prefill kernels walk the kv axis in tiles of ``KV_TILE`` keys, and
+:func:`flash_attention_plain` is their plain version.
 """
 from __future__ import annotations
 
@@ -23,10 +37,89 @@ from repro_torch.kernels.ref import NEG_INF
 KERNEL = Launcher(symbol="launch_flash_attention",
                   argtypes=(P,) * 4 + (I,) * 7 + (F, I, P),
                   source="src/repro_torch/csrc/flash_attention.cu")
-#: the kernel's kv tile: the plain version walks the same tiles
+KERNEL_TC = Launcher(symbol="launch_flash_attention_tc",
+                     argtypes=(P,) * 4 + (I,) * 7 + (F, P),
+                     source="src/repro_torch/csrc/flash_attention_tc.cu")
+KERNEL_DECODE = Launcher(symbol="launch_flash_decode",
+                         argtypes=(P,) * 7 + (I,) * 7 + (F, I, I, I, I, P),
+                         source="src/repro_torch/csrc/flash_decode.cu")
+#: the prefill kernels' kv tile: the plain version walks the same tiles
 KV_TILE = 64
-#: the widest head the kernel's registers and shared memory are laid out for
+#: the widest head the kernels' registers and shared memory are laid out for
 MAX_D = 128
+#: the most query rows of one kv group (heads times queries) that the
+#: decode kernel holds in registers
+DECODE_ROWS = 8
+#: warps the decode kernel aims to run, one wave of an H100 (132 SMs of 4
+#: blocks of 4 warps): its split of the kv axis is ``B * Hkv * Skv /
+#: DECODE_WARPS`` keys, rounded up to whole 32s
+DECODE_WARPS = 132 * 16
+#: (rtol, atol) within which each route's kernel holds its plain version,
+#: by route and dtype.  Kernel and plain version compute the same float32
+#: values up to the order of their sums and round the output once, so in
+#: bfloat16 they may land on neighbouring values: one ulp, at most 2^-7 of
+#: the value (rtol 1e-2).  atol covers outputs near 0.  On the "tc" route
+#: the kernel's p (exp2 of a pre-scaled score) and the plain version's
+#: (exp) can round to neighbouring bfloat16 values, and such steps add up
+#: where an output cancels to near 0: tools/flash_plain_err.py measured at
+#: worst an atol of 1.1e-3 there (granite-3-2b's prefill, 3 seeds, on an
+#: H100), 1.7e-7 on the "simt" route and 4e-9 on "decode"; the atols
+#: below keep room of 2.7x and more.  float32 keeps tests/test_kernels.py's
+#: 2e-5.
+PLAIN_TOL = {**{(r, torch.float32): (2e-5, 2e-5)
+                for r in ("simt", "tc", "decode")},
+             ("simt", torch.bfloat16): (1e-2, 1e-4),
+             ("tc", torch.bfloat16): (1e-2, 3e-3),
+             ("decode", torch.bfloat16): (1e-2, 1e-4)}
+
+
+def _padded(d: int) -> int:
+    return 32 if d <= 32 else 64 if d <= 64 else 128
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel that takes ``q`` over ``k`` and ``v``:
+
+    * ``"decode"`` when a kv group has at most ``DECODE_ROWS`` query rows
+      (``(H // Hkv) * Sq``), ``Skv > 0``, ``d * element size`` is a
+      multiple of 16 and the tensors start on 16-byte boundaries -
+      whatever the causal flag: under the top-left mask, row ``i`` sees
+      keys ``0 .. i``;
+    * ``"tc"`` for the other bfloat16 calls with ``d % 8 == 0`` and
+      16-byte aligned tensors;
+    * ``"simt"`` otherwise.
+
+    A pure function of dtypes, shapes and alignment."""
+    B, H, Sq, d = q.shape
+    Hkv = k.shape[1]
+    rows = (H // Hkv) * Sq if Hkv and H % Hkv == 0 else DECODE_ROWS + 1
+    aligned = _aligned(q, k, v)
+    if (rows <= DECODE_ROWS and k.shape[2] > 0
+            and (d * q.element_size()) % 16 == 0 and aligned):
+        return "decode"
+    if q.dtype == torch.bfloat16 and d % 8 == 0 and aligned:
+        return "tc"
+    return "simt"
+
+
+def decode_split(B: int, Hkv: int, Skv: int) -> tuple[int, int]:
+    """``(split, nsplit)``: the keys of each of the decode kernel's splits
+    (a multiple of 32) and their number, ``ceil(Skv / split)``."""
+    split = max(32, -(-B * Hkv * Skv // DECODE_WARPS))
+    split = -(-split // 32) * 32
+    return split, -(-Skv // split)
+
+
+def decode_tile(dtype: torch.dtype, d: int) -> int:
+    """Keys a warp of the decode kernel loads a step: 4 loads a lane of
+    16 bytes, ``DP * size / 16`` lanes a key row.  The wrapper passes it
+    to the launcher, which refuses any other tile than its own."""
+    size = torch.empty(0, dtype=dtype).element_size()
+    return 4 * 32 // (_padded(d) * size // 16)
 
 
 def _check(q, k, v, q_blk, kv_blk) -> torch.device:
@@ -52,12 +145,15 @@ def _check(q, k, v, q_blk, kv_blk) -> torch.device:
 
 
 def flash_attention_plain(q, k, v, *, causal=True, q_blk=128, kv_blk=128):
-    """The kernel's arithmetic in PyTorch: float32 throughout, the kv axis
-    walked in the kernel's tiles of ``KV_TILE`` keys with the same online
-    softmax (masked scores ``-1e30``, output ``acc / max(l, 1e-30)``).
-    Tiles above every query's diagonal are skipped, as the kernel skips
-    them tile by tile."""
+    """The prefill kernels' arithmetic in PyTorch: float32 throughout, the
+    kv axis walked in the kernels' tiles of ``KV_TILE`` keys with the same
+    online softmax (masked scores ``-1e30``, output ``acc / max(l,
+    1e-30)``).  When the call's route is ``"tc"``, p is rounded to
+    bfloat16 before the product with v, as the tensor-core kernel rounds
+    it (its sum ``l`` stays float32).  Tiles above every query's diagonal
+    are skipped, as the kernels skip them tile by tile."""
     _check(q, k, v, q_blk, kv_blk)
+    round_p = route(q, k, v) == "tc"
     B, H, Sq, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     g = H // Hkv
@@ -79,6 +175,8 @@ def flash_attention_plain(q, k, v, *, causal=True, q_blk=128, kv_blk=128):
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
+        if round_p:
+            p = p.to(torch.bfloat16).float()
         acc = acc * corr[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p,
                                                    vt)
         m = m_new
@@ -86,22 +184,98 @@ def flash_attention_plain(q, k, v, *, causal=True, q_blk=128, kv_blk=128):
     return out.reshape(B, H, Sq, d).to(q.dtype)
 
 
+def flash_decode_plain(q, k, v, *, causal=True, q_blk=128, kv_blk=128):
+    """The decode kernel's arithmetic in PyTorch, float32 throughout: a kv
+    group's ``(H // Hkv) * Sq`` rows together, the kv axis cut into the
+    kernel's splits (:func:`decode_split`), each walked in its tiles
+    (:func:`decode_tile`) with the online softmax (masked scores
+    ``-1e30``), then the splits merged in order: ``M = max m``, ``l = sum
+    l e^(m - M)``, ``acc = sum acc e^(m - M)``, ``acc / max(l, 1e-30)``."""
+    _check(q, k, v, q_blk, kv_blk)
+    B, H, Sq, d = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    R = (H // Hkv) * Sq
+    scale = 1.0 / math.sqrt(d)
+    # row r of a group is head r // Sq of the group, query r % Sq
+    qf = q.reshape(B, Hkv, R, d).float()
+    kf, vf = k.float(), v.float()
+    qpos = (torch.arange(R, device=q.device) % Sq)[:, None]
+    split, _ = decode_split(B, Hkv, Skv)
+    tile = decode_tile(q.dtype, d)
+    parts = []
+    for s0 in range(0, Skv, split):
+        end = min(s0 + split, Skv)
+        m = torch.full((B, Hkv, R), NEG_INF, device=q.device)
+        l = torch.zeros(B, Hkv, R, device=q.device)
+        acc = torch.zeros(B, Hkv, R, d, device=q.device)
+        for k0 in range(s0, end, tile):
+            keys = slice(k0, min(k0 + tile, end))
+            kt, vt = kf[:, :, keys], vf[:, :, keys]
+            s = torch.einsum("bhrd,bhkd->bhrk", qf, kt) * scale
+            if causal:
+                kpos = k0 + torch.arange(kt.shape[2],
+                                         device=q.device)[None, :]
+                s = torch.where(qpos >= kpos, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bhrk,bhkd->bhrd",
+                                                       p, vt)
+            m = m_new
+        parts.append((m, l, acc))
+    top = torch.stack([m for m, _, _ in parts]).amax(0)
+    l_all = torch.zeros_like(top)
+    acc_all = torch.zeros(B, Hkv, R, d, device=q.device)
+    for m, l, acc in parts:
+        w = torch.exp(m - top)
+        l_all = l_all + l * w
+        acc_all = acc_all + acc * w[..., None]
+    out = acc_all / torch.clamp(l_all, min=1e-30)[..., None]
+    return out.reshape(B, H, Sq, d).to(q.dtype)
+
+
+def plain(q, k, v, *, causal=True, q_blk=128, kv_blk=128):
+    """The plain version of the kernel that :func:`route` picks."""
+    fn = (flash_decode_plain if route(q, k, v) == "decode"
+          else flash_attention_plain)
+    return fn(q, k, v, causal=causal, q_blk=q_blk, kv_blk=kv_blk)
+
+
 def flash_attention(q, k, v, *, causal=True, q_blk=128, kv_blk=128):
     """q: [B, H, Sq, d]; k, v: [B, Hkv, Skv, d] with H % Hkv == 0.
-    Launches the kernel for tensors on the card (``d`` up to 128); runs
-    :func:`flash_attention_plain` for tensors on the CPU."""
+    Launches the kernel that :func:`route` picks for tensors on the card
+    (``d`` up to 128); runs its plain version (:func:`plain`) for tensors
+    on the CPU."""
     dev = _check(q, k, v, q_blk, kv_blk)
     if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, q_blk=q_blk,
-                                     kv_blk=kv_blk)
+        return plain(q, k, v, causal=causal, q_blk=q_blk, kv_blk=kv_blk)
     B, H, Sq, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if d > MAX_D:
         raise ValueError(f"flash_attention: head width {d} exceeds the "
-                         f"kernel's {MAX_D}")
+                         f"kernels' {MAX_D}")
     out = torch.empty_like(q)
-    if out.numel():
-        KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-               B, H, Hkv, Sq, Skv, d, int(causal), 1.0 / math.sqrt(d),
+    if not out.numel():
+        return out
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    scale = 1.0 / math.sqrt(d)
+    which = route(q, k, v)
+    if which == "decode":
+        split, nsplit = decode_split(B, Hkv, Skv)
+        rows = B * Hkv * nsplit * (H // Hkv) * Sq
+        part_m = torch.empty(rows, device=dev)
+        part_l = torch.empty(rows, device=dev)
+        part_acc = torch.empty(rows, d, device=dev)
+        KERNEL_DECODE(*ptrs, part_m.data_ptr(), part_l.data_ptr(),
+                      part_acc.data_ptr(), B, H, Hkv, Sq, Skv, d,
+                      int(causal), scale, split, nsplit,
+                      decode_tile(q.dtype, d),
+                      dtype_code("flash_attention", q), device=dev)
+    elif which == "tc":
+        KERNEL_TC(*ptrs, B, H, Hkv, Sq, Skv, d, int(causal), scale,
+                  device=dev)
+    else:
+        KERNEL(*ptrs, B, H, Hkv, Sq, Skv, d, int(causal), scale,
                dtype_code("flash_attention", q), device=dev)
     return out

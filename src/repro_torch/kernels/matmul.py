@@ -4,8 +4,12 @@ The counterpart of ``repro/kernels/matmul.py``: ``a[M, K] @ b[K, N]``,
 accumulated in float32 over the k axis and cast once to ``a``'s dtype.
 The wrapper keeps the reference's block arguments, clamps and refusals
 (``K`` must match; ``M % bm``, ``N % bn`` and ``K % bk`` must be 0 after
-the clamps, ``bm`` folding ``grain`` m-tiles); the kernel
-(``csrc/matmul.cu``) takes its own 128 x 128 tiles and 16-deep k slices.
+the clamps, ``bm`` folding ``grain`` m-tiles); the kernels take their own
+tiles.  Two kernels, chosen by :func:`route`: bfloat16 operands that TMA
+can address run on the tensor cores (``csrc/matmul_tc.cu``, wgmma and
+TMA, 128 x 256 tiles); every other call runs the CUDA-core kernel
+(``csrc/matmul.cu``, 128 x 128 register tiles, 16-deep k slices), which
+keeps float32 in full float32.
 """
 from __future__ import annotations
 
@@ -16,6 +20,9 @@ from repro_torch.kernels.launcher import (I, P, Launcher, check_tensors,
 
 KERNEL = Launcher(symbol="launch_matmul", argtypes=(P, P, P) + (I,) * 4 + (P,),
                   source="src/repro_torch/csrc/matmul.cu")
+KERNEL_TC = Launcher(symbol="launch_matmul_tc",
+                     argtypes=(P, P, P) + (I,) * 3 + (P,),
+                     source="src/repro_torch/csrc/matmul_tc.cu")
 #: the kernel's k slice: the plain version accumulates slice by slice
 K_SLICE = 16
 
@@ -38,6 +45,19 @@ def _check(a, b, bm, bn, bk, grain) -> torch.device:
     return dev
 
 
+def route(a: torch.Tensor, b: torch.Tensor) -> str:
+    """``"tc"`` when the tensor-core kernel takes ``a @ b``, else
+    ``"simt"``: both bfloat16, non-empty, and addressable by TMA (row
+    strides of 16 bytes, ``K % 8 == 0`` and ``N % 8 == 0``, and data
+    pointers on 16-byte boundaries; a view at an odd storage offset is
+    not).  A pure function of dtypes, shapes and alignment."""
+    (M, K), N = a.shape, b.shape[1]
+    tc = (a.dtype == b.dtype == torch.bfloat16 and M > 0 and N > 0
+          and K > 0 and K % 8 == 0 and N % 8 == 0
+          and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
+    return "tc" if tc else "simt"
+
+
 def matmul_plain(a, b, *, bm=128, bn=128, bk=128, grain=1):
     """The kernel's arithmetic in PyTorch: float32 products added into a
     float32 accumulator slice by slice of the k axis, then one cast."""
@@ -52,14 +72,19 @@ def matmul_plain(a, b, *, bm=128, bn=128, bk=128, grain=1):
 
 def matmul(a, b, *, bm=128, bn=128, bk=128, grain=1):
     """a: [M, K] @ b: [K, N] -> [M, N] in ``a``'s dtype.  Launches the
-    kernel for tensors on the card; runs :func:`matmul_plain` for tensors
-    on the CPU."""
+    kernel that :func:`route` picks for tensors on the card; runs
+    :func:`matmul_plain` for tensors on the CPU."""
     dev = _check(a, b, bm, bn, bk, grain)
     if dev.type == "cpu":
         return matmul_plain(a, b, bm=bm, bn=bn, bk=bk, grain=grain)
     (M, K), N = a.shape, b.shape[1]
     out = torch.empty(M, N, dtype=a.dtype, device=dev)
-    if M and N:
+    if not (M and N):
+        return out
+    if route(a, b) == "tc":
+        KERNEL_TC(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
+                  device=dev)
+    else:
         KERNEL(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
                dtype_code("matmul", a), device=dev)
     return out

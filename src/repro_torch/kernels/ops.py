@@ -6,7 +6,8 @@
   * "interpret"  - the kernel's plain PyTorch version, on any device
   * "ref"        - the torch oracle of ``ref``
 ``mode=None`` is "cuda" for tensors on the card and "interpret" for
-tensors on the CPU.
+tensors on the CPU.  Where a function has several kernels, its module's
+``route`` picks one, and "interpret" runs that kernel's plain version.
 """
 from __future__ import annotations
 
@@ -18,9 +19,17 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rn
 
 MODES = ("cuda", "interpret", "ref")
-#: each kernel's launcher, with its count of launches
-KERNELS = {"flash_attention": _fa.KERNEL, "rmsnorm": _rn.KERNEL,
-           "matmul": _mm.KERNEL}
+#: each kernel's launcher, with its count of launches; matmul and flash
+#: attention pick one of theirs by ``route``
+KERNELS = {"flash_attention": _fa.KERNEL,
+           "flash_attention_tc": _fa.KERNEL_TC,
+           "flash_decode": _fa.KERNEL_DECODE, "rmsnorm": _rn.KERNEL,
+           "matmul": _mm.KERNEL, "matmul_tc": _mm.KERNEL_TC}
+#: the ``KERNELS`` entry of each route
+ROUTES = {"matmul": {"tc": "matmul_tc", "simt": "matmul"},
+          "flash_attention": {"decode": "flash_decode",
+                              "tc": "flash_attention_tc",
+                              "simt": "flash_attention"}}
 
 
 def default_mode(t: torch.Tensor) -> str:
@@ -41,7 +50,7 @@ def flash_attention(q, k, v, *, causal=True, mode=None, **kw):
     mode = _mode(mode, q, "flash_attention")
     if mode == "ref":
         return _ref.flash_attention_ref(q, k, v, causal=causal)
-    fn = _fa.flash_attention if mode == "cuda" else _fa.flash_attention_plain
+    fn = _fa.flash_attention if mode == "cuda" else _fa.plain
     return fn(q, k, v, causal=causal, **kw)
 
 

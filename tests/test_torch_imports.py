@@ -48,7 +48,11 @@ def test_every_module_imports_with_jax_and_reference_blocked():
 
 #: the hot-path kernels' sources, each with the Pallas kernel it replaces
 HOT_PATH = {"flash_attention.cu": "src/repro/kernels/flash_attention.py:34",
+            "flash_attention_tc.cu":
+                "src/repro/kernels/flash_attention.py:34",
+            "flash_decode.cu": "src/repro/kernels/flash_attention.py:34",
             "matmul.cu": "src/repro/kernels/matmul.py:21",
+            "matmul_tc.cu": "src/repro/kernels/matmul.py:21",
             "rmsnorm.cu": "src/repro/kernels/rmsnorm.py:17"}
 
 
@@ -56,9 +60,11 @@ def test_kernel_sources_live_in_the_port():
     from repro_torch.core import _native
     srcs = [p.name for p in _native.sources()]
     assert srcs == ["backprop_layer.cu", "bfs_frontier.cu",
-                    "flash_attention.cu", "histogram.cu",
+                    "flash_attention.cu", "flash_attention_tc.cu",
+                    "flash_decode.cu", "histogram.cu",
                     "hotspot.cu", "kmeans.cu", "lavamd.cu", "lud_diag.cu",
-                    "matmul.cu", "matmul_tiled.cu", "needle_nw.cu", "nn.cu",
+                    "matmul.cu", "matmul_tc.cu", "matmul_tiled.cu",
+                    "needle_nw.cu", "nn.cu",
                     "pathfinder.cu", "pixel_pipeline.cu", "reduce_shared.cu",
                     "reduce_warp.cu", "reverse.cu", "rmsnorm.cu",
                     "scan_block.cu", "softmax_row.cu", "srad.cu",

@@ -69,6 +69,15 @@ def _close(got, want, tol):
                                atol=tol)
 
 
+def _close_to_plain(got, want, which):
+    """``got`` from the kernel of route ``which`` within its plain
+    version's ``want`` at ``flash_attention.PLAIN_TOL``."""
+    rtol, atol = tfa.PLAIN_TOL[which, want.dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
 def _flash_inputs(B, H, Hkv, Sq, Skv, d):
     return _draw(7, (B, H, Sq, d), (B, Hkv, Skv, d), (B, Hkv, Skv, d))
 
@@ -271,12 +280,13 @@ def card():
 
 
 def _launch_once(name, call):
-    """``call()`` through ops with mode=None; its kernel launched once."""
-    kern = tops.KERNELS[name]
-    before = kern.launches
+    """``call()`` through ops with mode=None; its kernel (``tops.KERNELS``
+    name) launched once, and no other."""
+    before = {n: k.launches for n, k in tops.KERNELS.items()}
     out = call()
     torch.cuda.synchronize()
-    assert kern.launches == before + 1
+    before[name] += 1
+    assert {n: k.launches for n, k in tops.KERNELS.items()} == before
     return out
 
 
@@ -286,12 +296,38 @@ def _launch_once(name, call):
 def test_flash_attention_kernel_matches_its_plain_version(
         card, B, H, Hkv, Sq, Skv, d, causal, dtype):
     q, k, v = _to_torch(_flash_inputs(B, H, Hkv, Sq, Skv, d), dtype, card)
-    got = _launch_once("flash_attention", lambda: tops.flash_attention(
+    name = tops.ROUTES["flash_attention"][tfa.route(q, k, v)]
+    got = _launch_once(name, lambda: tops.flash_attention(
         q, k, v, causal=causal, q_blk=32, kv_blk=32))
-    want = tfa.flash_attention_plain(q, k, v, causal=causal, q_blk=32,
-                                     kv_blk=32)
+    want = tfa.plain(q, k, v, causal=causal, q_blk=32, kv_blk=32)
     assert got.dtype == want.dtype and torch.isfinite(got).all()
-    _close(got, want.float().cpu().numpy(), TOL["flash"][dtype])
+    _close_to_plain(got, want, tfa.route(q, k, v))
+
+
+def _offset_copy(t):
+    """``t`` copied into a view one element past a 16-byte boundary."""
+    base = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    return base[1:1 + t.numel()].view(t.shape).copy_(t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,d,causal", FLASH + [
+    (1, 4, 1, 80, 70, 20, True), (1, 4, 1, 80, 70, 20, False)])
+def test_flash_attention_simt_kernel_takes_bfloat16(card, B, H, Hkv, Sq,
+                                                    Skv, d, causal):
+    # bfloat16 calls that cp.async cannot copy run csrc/flash_attention.cu:
+    # FLASH's shapes with q 2 bytes past a 16-byte boundary, and d % 8 != 0
+    q, k, v = _to_torch(_flash_inputs(B, H, Hkv, Sq, Skv, d), "bfloat16",
+                        card)
+    if d % 8 == 0:
+        q = _offset_copy(q)
+    assert tfa.route(q, k, v) == "simt"
+    got = _launch_once("flash_attention", lambda: tops.flash_attention(
+        q, k, v, causal=causal, q_blk=Sq, kv_blk=Skv))
+    want = tfa.flash_attention_plain(q, k, v, causal=causal, q_blk=Sq,
+                                     kv_blk=Skv)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    _close_to_plain(got, want, "simt")
 
 
 @pytest.mark.gpu
@@ -317,8 +353,9 @@ def test_matmul_kernel_matches_its_plain_version(card, M, N, K, grain,
                                                  dtype):
     a, b = _to_torch(_draw(9, (M, K), (K, N)), dtype, card)
     blk = 8 if M == 72 else 64
-    got = _launch_once("matmul", lambda: tops.matmul(a, b, bm=blk, bn=blk,
-                                                     bk=blk, grain=grain))
+    name = tops.ROUTES["matmul"][tmm.route(a, b)]
+    got = _launch_once(name, lambda: tops.matmul(a, b, bm=blk, bn=blk,
+                                                 bk=blk, grain=grain))
     want = tmm.matmul_plain(a, b, bm=blk, bn=blk, bk=blk, grain=grain)
     assert got.dtype == a.dtype
     _close(got, want.float().cpu().numpy(), TOL["matmul"][dtype])
@@ -331,6 +368,7 @@ def test_flash_attention_kernel_on_every_head_width(card, d):
     # without the opt-in; d = 80 runs padded to 128; a causal Sq > Skv and
     # a ragged Skv on top
     q, k, v = _to_torch(_flash_inputs(1, 4, 1, 80, 70, d), "float32", card)
+    assert tfa.route(q, k, v) == "simt"
     for causal in (True, False):
         got = _launch_once("flash_attention", lambda: tops.flash_attention(
             q, k, v, causal=causal, q_blk=16, kv_blk=70))
@@ -347,3 +385,35 @@ def test_cuda_mode_never_falls_back(card):
     with pytest.raises(ValueError, match="exceeds"):
         tops.flash_attention(q, q, q)
     assert tops.default_mode(q) == "cuda"
+    # each route's launcher refuses what its kernel does not take, rather
+    # than compute it another way: TMA's N % 8, cp.async's d % 8, the
+    # decode kernel's rows of a kv group
+    bf = torch.ones(16, 16, dtype=torch.bfloat16, device=card)
+    with pytest.raises(RuntimeError, match="launch_matmul_tc"):
+        tmm.KERNEL_TC(bf.data_ptr(), bf.data_ptr(), bf.data_ptr(), 16, 12,
+                      16, device=card)
+    qb = torch.ones(1, 1, 8, 12, dtype=torch.bfloat16, device=card)
+    with pytest.raises(RuntimeError, match="launch_flash_attention_tc"):
+        tfa.KERNEL_TC(*(qb.data_ptr(),) * 4, 1, 1, 1, 8, 8, 12, 1, 0.3,
+                      device=card)
+    with pytest.raises(RuntimeError, match="launch_flash_decode"):
+        tfa.KERNEL_DECODE(*(qb.data_ptr(),) * 7, 1, 16, 1, 1, 8, 8, 0, 0.3,
+                          32, 1, 32, 1, device=card)
+    # nor a key tile other than its own, which the plain version walks
+    assert tfa.decode_tile(torch.bfloat16, 8) == 32
+    with pytest.raises(RuntimeError, match="launch_flash_decode"):
+        tfa.KERNEL_DECODE(*(qb.data_ptr(),) * 7, 1, 8, 1, 1, 8, 8, 0, 0.3,
+                          32, 1, 16, 1, device=card)
+    # and each route's call launches its kernel, never the plain version
+    a = torch.ones(64, 64, dtype=torch.bfloat16, device=card)
+    for fn, call, name in (
+            ("matmul", lambda: tops.matmul(a, a, mode="cuda"), "matmul_tc"),
+            ("matmul", lambda: tops.matmul(a.float(), a.float(),
+                                           mode="cuda"), "matmul"),
+            ("flash_attention", lambda: tops.flash_attention(
+                a[None, None], a[None, None], a[None, None], mode="cuda"),
+             "flash_attention_tc"),
+            ("flash_attention", lambda: tops.flash_attention(
+                a[None, None, :1], a[None, None], a[None, None],
+                mode="cuda"), "flash_decode")):
+        _launch_once(name, call)
