@@ -29,7 +29,7 @@ Phases, each printing its own lines:
    softmax_row, scan_block and transpose_tiled).  Float32 matrix
    products run in full float32: TF32 is switched off explicitly, or
    matmul_tiled's plain version and yardstick would compute something
-   else;
+   else.  matmul_tiled's line also gives its physical CTA count;
 3. the main path: the eleven Rodinia entries at Rodinia 3.1's run-script
    sizes, and the twelve textbook entries at sizes that load the card
    (``SIZES``), through ``run_entry(entry, backend="cuda")`` - chevron/
@@ -693,11 +693,15 @@ def main() -> int:
             rows[kname], got = check_and_time(kname, kern, b, params, grid,
                                               block, entry.tol)
             r = rows[kname]
+            ctas = ""
+            if kname == "matmul_tiled":
+                cx, cy = lower_cuda.matmul_tiled_ctas(params["n"], grid.x)
+                ctas = f" ctas={cx * cy} ({cx} x {cy})"
             print(f"kernel {kname}: kernel_ms={r['ms']} "
                   f"call_ms={r['call_ms']} plain_ms={r['plain_ms']} "
                   f"bound_ms={r['bound_ms']} ({r['bound_by']}) "
                   f"library_ms={r['library_ms']} "
-                  f"max_abs_err={r['max_abs_err']}")
+                  f"max_abs_err={r['max_abs_err']}{ctas}")
             b = {**b, **got}        # the state the next step starts from
         del b
     torch.cuda.synchronize()

@@ -1057,15 +1057,29 @@ def _matmul_check(grid: Dim3, block: Dim3, params: dict):
                                 f"{(m // t) * (n // t)} output tiles")
 
 
+#: the 128 x 128 outputs of one physical CTA of ``csrc/matmul_tiled.cu``
+MATMUL_CTA = 128
+
+
+def matmul_tiled_ctas(n: int, grid: int) -> tuple[int, int]:
+    """The physical grid ``(x, y)`` that covers a logical grid of ``grid``
+    8 x 8 tiles over ``n`` columns: every CTA column, and the CTA rows
+    down to the last tile row the grid reaches."""
+    tile_rows = -(-grid // (n // MATMUL_TILE))
+    per_cta = MATMUL_CTA // MATMUL_TILE
+    return -(-n // MATMUL_CTA), -(-tile_rows // per_cta)
+
+
 MATMUL_TILED = CudaKernel(
     name="matmul_tiled", symbol="launch_matmul_tiled",
-    argtypes=(_P,) * 3 + (_I,) * 3 + (_P,),
+    argtypes=(_P,) * 3 + (_I,) * 6 + (_P,),
     buffers={"a": _F32, "b": _F32, "c": _F32},
     writes=("c",),
     shapes=lambda *, m, n, k: {"a": (m, k), "b": (k, n), "c": (m, n)},
     check=_matmul_check, plain=matmul_tiled_plain,
     cargs=lambda b, grid, block, *, m, n, k: [
-        _ptr(b["a"]), _ptr(b["b"]), _ptr(b["c"]), n, k, grid.x],
+        _ptr(b["a"]), _ptr(b["b"]), _ptr(b["c"]), m, n, k, grid.x,
+        *matmul_tiled_ctas(n, grid.x)],
     source="src/repro_torch/csrc/matmul_tiled.cu")
 
 

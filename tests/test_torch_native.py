@@ -209,3 +209,106 @@ def test_scan_block_keeps_the_sign_of_zero_on_the_card(card):
     want = kern.plain(bufs, Dim3(entry.grid), Dim3(entry.block), **params)
     assert torch.equal(got["y"], want["y"])
     assert torch.equal(torch.signbit(got["y"]), torch.signbit(want["y"]))
+
+
+def _matmul_bufs(m, n, k):
+    # c starts nonzero, so the outputs a partial grid leaves are seen kept
+    r = np.random.default_rng(42)
+    return {"a": torch.from_numpy(r.standard_normal((m, k), np.float32)),
+            "b": torch.from_numpy(r.standard_normal((k, n), np.float32)),
+            "c": torch.from_numpy(r.standard_normal((m, n), np.float32))}
+
+
+def _matmul_on_the_card(bufs, grid):
+    m, k = bufs["a"].shape
+    n = bufs["b"].shape[1]
+    kern = lower_cuda.KERNELS["matmul_tiled"]
+    before = kern.launches
+    got = kern(bufs, grid=grid, block=64, m=m, n=n, k=k)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = kern.plain({name: t.cpu() for name, t in bufs.items()},
+                      Dim3(grid), Dim3(64), m=m, n=n, k=k)
+    tol = cuda_suite.matmul_tol(k)
+    torch.testing.assert_close(got["c"].cpu(), want["c"], rtol=tol,
+                               atol=tol)
+    return got["c"].cpu()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", ((136, 200, 48), (8, 8, 8),
+                                   (72, 24, 40), (256, 256, 2048)))
+def test_matmul_tiled_at_shapes_off_its_128_wide_ctas(card, m, n, k):
+    # m and n need not be multiples of the physical CTA's 128: rows and
+    # columns past them load zeros and store nothing; an odd count of
+    # 8-deep k-tiles (k = 8, 40) ends in a slice of one k-tile
+    bufs = {name: t.to(card) for name, t in
+            _matmul_bufs(m, n, k).items()}
+    c = _matmul_on_the_card(bufs, (m // 8) * (n // 8))
+    assert torch.isfinite(c).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,grid", ((32, 32, 5), (136, 200, 82)))
+def test_matmul_tiled_partial_grid_keeps_c_past_it(card, m, n, grid):
+    # 5 of 16 tiles; 82 of 425 tiles, ending 7 tiles into tile row 3:
+    # outputs of tiles at or past the grid keep c's input bits
+    bufs = {name: t.to(card) for name, t in
+            _matmul_bufs(m, n, 16).items()}
+    c = _matmul_on_the_card(bufs, grid)
+    tile = (torch.arange(m)[:, None] // 8) * (n // 8) \
+        + torch.arange(n)[None, :] // 8
+    kept = tile >= grid
+    assert torch.equal(c[kept], bufs["c"].cpu()[kept])
+    assert not torch.equal(c[~kept], bufs["c"].cpu()[~kept])
+
+
+@pytest.mark.gpu
+def test_matmul_tiled_takes_views_off_a_16_byte_boundary(card):
+    # a and b 4 bytes past a 16-byte boundary: the launcher starts the
+    # instantiation of scalar loads (the source note's path)
+    m, n, k = 136, 200, 48
+    host = _matmul_bufs(m, n, k)
+    bufs = {"c": host["c"].to(card)}
+    for name in ("a", "b"):
+        flat = torch.zeros(host[name].numel() + 1, device=card)
+        flat[1:] = host[name].reshape(-1).to(card)
+        bufs[name] = flat[1:].view(host[name].shape)
+        assert bufs[name].is_contiguous() and bufs[name].data_ptr() % 16
+    _matmul_on_the_card(bufs, (m // 8) * (n // 8))
+
+
+def _reduce_on_the_card(card, n, block, grid, n_out):
+    r = np.random.default_rng(42)
+    bufs = {"x": torch.from_numpy(r.standard_normal(n, np.float32)),
+            "out": torch.from_numpy(r.standard_normal(n_out, np.float32))}
+    kern = lower_cuda.KERNELS["reduce_shared"]
+    before = kern.launches
+    got = kern({name: t.to(card) for name, t in bufs.items()}, grid=grid,
+               block=block, n=n, nthreads=block)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = kern.plain(bufs, Dim3(grid), Dim3(block), n=n, nthreads=block)
+    assert torch.equal(got["out"].cpu(), want["out"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,block", ((1000, 1), (999, 2), (1000, 16),
+                                     (1000, 32), (3000, 64), (70000, 256),
+                                     (1000, 1024), (5000, 1024)))
+def test_reduce_shared_has_the_plain_version_bits(card, n, block):
+    # the register and shuffle levels pair as the barrier tree does;
+    # blocks below a warp are segments of the warp's lanes
+    grid = -(-n // block)
+    _reduce_on_the_card(card, n, block, grid, grid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block,grid,n_out", ((256, 10, 10), (16, 100, 90),
+                                              (1024, 3, 5)))
+def test_reduce_shared_grid_past_the_data(card, block, grid, n_out):
+    # blocks past n sum zeros; sums past out are dropped, and out past
+    # the grid keeps its input
+    n = 1000
+    assert grid > -(-n // block)
+    _reduce_on_the_card(card, n, block, grid, n_out)

@@ -750,6 +750,49 @@ def test_reduce_warp_plain_version_has_the_reference_loop_bits(n, block):
     np.testing.assert_array_equal(_np(got["out"]), np.asarray(want["out"]))
 
 
+@pytest.mark.parametrize("n,block", [(2048, 256), (1000, 128), (100, 1),
+                                     (999, 2), (1000, 16), (700, 32),
+                                     (3000, 64), (3000, 1024)])
+def test_reduce_shared_plain_version_has_the_reference_loop_bits(n, block):
+    # the plain version repeats the barrier tree level by level, the order
+    # the kernel's register and shuffle levels keep; ragged n loads zeros
+    grid = -(-n // block)
+    jkernel = jsuite.make_reduce_shared(n, block)
+    args = {"x": np.random.default_rng(42).standard_normal(
+        n, dtype=np.float32), "out": np.zeros(grid, np.float32)}
+    want = japi.launch(jkernel, grid=grid, block=block, backend="loop",
+                       args={k: jnp.asarray(v) for k, v in args.items()})
+    kern = lower_cuda.KERNELS["reduce_shared"]
+    got = kern(carry.from_reference(args, device="cpu"), grid=grid,
+               block=block, n=n, nthreads=block)
+    np.testing.assert_array_equal(_np(got["out"]), np.asarray(want["out"]))
+
+
+@pytest.mark.parametrize("m,n,grid", [(16, 24, 5), (24, 40, 7)])
+def test_matmul_tiled_plain_version_at_a_partial_grid(m, n, grid):
+    # m != n and a grid that ends inside a tile row: the covered tiles
+    # agree with the reference's loop launch within the entry's tol, the
+    # rest keep c's input bits in both
+    k = 16
+    entry = cuda_suite.entry_matmul_tiled(m, n, k)
+    assert grid % (n // 8) and grid < entry.grid
+    args = entry.make_args(np.random.default_rng(42))
+    args["c"] = np.random.default_rng(7).standard_normal((m, n),
+                                                         dtype=np.float32)
+    want = japi.launch(jsuite.make_matmul_tiled(m, n, k), grid=grid,
+                       block=64, backend="loop",
+                       args={name: jnp.asarray(v) for name, v in args.items()})
+    kern = lower_cuda.KERNELS["matmul_tiled"]
+    got = kern(carry.from_reference(args, device="cpu"), grid=grid,
+               block=64, m=m, n=n, k=k)
+    got, want = _np(got["c"]), np.asarray(want["c"])
+    tile = (np.arange(m)[:, None] // 8) * (n // 8) + np.arange(n) // 8
+    np.testing.assert_array_equal(got[tile >= grid], args["c"][tile >= grid])
+    np.testing.assert_array_equal(want[tile >= grid],
+                                  args["c"][tile >= grid])
+    np.testing.assert_allclose(got, want, rtol=entry.tol, atol=entry.tol)
+
+
 def test_matmul_tiled_plain_version_within_tol_of_float64_at_depth_2048():
     m = n = 64
     k = 2048
