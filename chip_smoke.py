@@ -21,7 +21,8 @@ Phases, each printing its own lines:
    could take for the launch's bytes and operations; ``library_ms`` times
    the one PyTorch call that computes the same function, where there is
    one (lud's unpivoted ``torch.linalg.lu_factor``; the per-block sums of
-   ``x`` for srad_stats and the two reductions; the per-block
+   ``x`` for the two reductions, and for srad_stats, where the call gives
+   ``psum`` alone but reads the same bytes as the kernel; the per-block
    ``torch.min`` of the distances for nn_reduce, when its indices agree;
    ``torch.add``, ``torch.flip``, ``torch.bincount`` and ``torch.matmul``
    for vecadd, reverse, histogram and matmul_tiled; ``torch.softmax``,
@@ -29,7 +30,9 @@ Phases, each printing its own lines:
    softmax_row, scan_block and transpose_tiled).  Float32 matrix
    products run in full float32: TF32 is switched off explicitly, or
    matmul_tiled's plain version and yardstick would compute something
-   else.  matmul_tiled's line also gives its physical CTA count;
+   else.  The lines of matmul_tiled and of the kernels that run a
+   logical block a warp (reduce_shared, reduce_warp, srad_stats) also
+   give their physical CTA counts;
 3. the main path: the eleven Rodinia entries at Rodinia 3.1's run-script
    sizes, and the twelve textbook entries at sizes that load the card
    (``SIZES``), through ``run_entry(entry, backend="cuda")`` - chevron/
@@ -375,6 +378,18 @@ def compare(name: str, got: dict, want: dict, writes, tol: float) -> float:
     return err
 
 
+#: kernels whose launcher runs a logical block a warp, in CTAs of 256
+WARP_BLOCK_KERNELS = ("reduce_shared", "reduce_warp", "srad_stats")
+
+
+def warp_block_ctas(grid: int, block: int) -> int:
+    """The physical CTAs of 256 threads that a ``WARP_BLOCK_KERNELS``
+    launcher starts for ``grid`` logical blocks of ``block`` threads: a
+    warp a block, or 32/block blocks a warp below 32 threads."""
+    warps = -(-grid * min(block, 32) // 32)
+    return -(-warps // 8)
+
+
 def library_call(name: str, b: dict, params: dict, grid, block, got):
     """The one PyTorch call that computes the kernel's function, or None.
 
@@ -697,6 +712,8 @@ def main() -> int:
             if kname == "matmul_tiled":
                 cx, cy = lower_cuda.matmul_tiled_ctas(params["n"], grid.x)
                 ctas = f" ctas={cx * cy} ({cx} x {cy})"
+            elif kname in WARP_BLOCK_KERNELS:
+                ctas = f" ctas={warp_block_ctas(grid.x, block.x)}"
             print(f"kernel {kname}: kernel_ms={r['ms']} "
                   f"call_ms={r['call_ms']} plain_ms={r['plain_ms']} "
                   f"bound_ms={r['bound_ms']} ({r['bound_by']}) "

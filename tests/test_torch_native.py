@@ -278,37 +278,89 @@ def test_matmul_tiled_takes_views_off_a_16_byte_boundary(card):
     _matmul_on_the_card(bufs, (m // 8) * (n // 8))
 
 
-def _reduce_on_the_card(card, n, block, grid, n_out):
+def _reduce_on_the_card(card, kname, n, block, grid, outs):
+    """One launch of ``kname`` (reduce_shared, reduce_warp or srad_stats)
+    over ``n`` floats (srad_stats: one row of ``n`` pixels) into outputs
+    of the lengths ``outs`` gives, random bits in both; held to the plain
+    version bit for bit."""
     r = np.random.default_rng(42)
-    bufs = {"x": torch.from_numpy(r.standard_normal(n, np.float32)),
-            "out": torch.from_numpy(r.standard_normal(n_out, np.float32))}
-    kern = lower_cuda.KERNELS["reduce_shared"]
+    x = torch.from_numpy(r.standard_normal(n, np.float32))
+    if kname == "srad_stats":
+        bufs, params = {"x": x.view(1, n)}, {"h": 1, "w": n}
+    else:
+        bufs, params = {"x": x}, {"n": n}
+    params["nthreads"] = block
+    for name, m in outs.items():
+        bufs[name] = torch.from_numpy(r.standard_normal(m, np.float32))
+    kern = lower_cuda.KERNELS[kname]
     before = kern.launches
     got = kern({name: t.to(card) for name, t in bufs.items()}, grid=grid,
-               block=block, n=n, nthreads=block)
+               block=block, **params)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
-    want = kern.plain(bufs, Dim3(grid), Dim3(block), n=n, nthreads=block)
-    assert torch.equal(got["out"].cpu(), want["out"])
+    want = kern.plain(bufs, Dim3(grid), Dim3(block), **params)
+    for name in outs:
+        assert torch.equal(got[name].cpu(), want[name])
+
+
+def _outs(kname, n_out):
+    return ({"psum": n_out, "psq": n_out} if kname == "srad_stats"
+            else {"out": n_out})
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,block", ((1000, 1), (999, 2), (1000, 16),
-                                     (1000, 32), (3000, 64), (70000, 256),
-                                     (1000, 1024), (5000, 1024)))
-def test_reduce_shared_has_the_plain_version_bits(card, n, block):
-    # the register and shuffle levels pair as the barrier tree does;
-    # blocks below a warp are segments of the warp's lanes
+@pytest.mark.parametrize("kname,n,block", (
+    ("reduce_shared", 1000, 1), ("reduce_shared", 999, 2),
+    ("reduce_shared", 1000, 16), ("reduce_shared", 1000, 32),
+    ("reduce_shared", 3000, 64), ("reduce_shared", 70000, 256),
+    ("reduce_shared", 1000, 1024), ("reduce_shared", 5000, 1024),
+    ("reduce_warp", 1000, 32), ("reduce_warp", 3000, 64),
+    ("reduce_warp", 1000, 96), ("reduce_warp", 70000, 256),
+    ("reduce_warp", 5000, 480), ("reduce_warp", 5000, 1024),
+    ("srad_stats", 1000, 1), ("srad_stats", 999, 2),
+    ("srad_stats", 1000, 4), ("srad_stats", 1000, 8),
+    ("srad_stats", 1000, 16), ("srad_stats", 1000, 32),
+    ("srad_stats", 3000, 64), ("srad_stats", 5000, 128),
+    ("srad_stats", 70000, 256), ("srad_stats", 5000, 512),
+    ("srad_stats", 5000, 1024)))
+def test_reduce_shared_has_the_plain_version_bits(card, kname, n, block):
+    # the register and shuffle levels pair as the reference's barrier tree
+    # or butterflies do; blocks below a warp are segments of its lanes;
+    # srad_stats's partials are npix // block long, so a ragged last
+    # block falls past them
     grid = -(-n // block)
-    _reduce_on_the_card(card, n, block, grid, grid)
+    _reduce_on_the_card(card, kname, n, block, grid,
+                        _outs(kname, n // block if kname == "srad_stats"
+                              else grid))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("block,grid,n_out", ((256, 10, 10), (16, 100, 90),
-                                              (1024, 3, 5)))
-def test_reduce_shared_grid_past_the_data(card, block, grid, n_out):
+@pytest.mark.parametrize("kname,block,grid,n_out", (
+    ("reduce_shared", 256, 10, 10), ("reduce_shared", 16, 100, 90),
+    ("reduce_shared", 1024, 3, 5),
+    ("reduce_warp", 256, 10, 10), ("reduce_warp", 32, 100, 90),
+    ("reduce_warp", 96, 20, 25), ("reduce_warp", 1024, 3, 5),
+    ("srad_stats", 256, 10, 3), ("srad_stats", 16, 100, 62),
+    ("srad_stats", 1, 1100, 1000)))
+def test_reduce_shared_grid_past_the_data(card, kname, block, grid, n_out):
     # blocks past n sum zeros; sums past out are dropped, and out past
-    # the grid keeps its input
+    # the grid keeps its input (srad_stats's partials are npix // block
+    # long, which a grid past the data always passes)
     n = 1000
     assert grid > -(-n // block)
-    _reduce_on_the_card(card, n, block, grid, n_out)
+    _reduce_on_the_card(card, kname, n, block, grid, _outs(kname, n_out))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kname,block,grid", (
+    ("reduce_shared", 16, 41), ("reduce_shared", 256, 2),
+    ("reduce_warp", 32, 21), ("reduce_warp", 96, 7),
+    ("srad_stats", 2, 301), ("srad_stats", 16, 41),
+    ("srad_stats", 128, 5)))
+def test_reduce_grid_short_of_the_data(card, kname, block, grid):
+    # the outputs past the grid keep their input bits; an odd grid of
+    # blocks below a warp ends in the middle of the last warp's lanes
+    n = 1000
+    assert grid < n // block
+    _reduce_on_the_card(card, kname, n, block, grid,
+                        _outs(kname, n // block))

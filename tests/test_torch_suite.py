@@ -734,7 +734,8 @@ def test_dyn_shared_slot_reaches_the_launcher_in_bytes(monkeypatch):
 
 
 @pytest.mark.parametrize("n,block", [(2048, 256), (1000, 128), (700, 96),
-                                     (3000, 1024)])
+                                     (3000, 1024), (1000, 32), (2000, 480),
+                                     (5000, 1024)])
 def test_reduce_warp_plain_version_has_the_reference_loop_bits(n, block):
     # the plain version repeats the butterflies level by level (a sum in
     # another order would differ in the last bits); ragged n loads zeros
@@ -766,6 +767,30 @@ def test_reduce_shared_plain_version_has_the_reference_loop_bits(n, block):
     got = kern(carry.from_reference(args, device="cpu"), grid=grid,
                block=block, n=n, nthreads=block)
     np.testing.assert_array_equal(_np(got["out"]), np.asarray(want["out"]))
+
+
+@pytest.mark.parametrize("h,w,block", [(4, 25, 1), (5, 21, 2), (6, 30, 16),
+                                       (8, 40, 32), (7, 50, 64),
+                                       (16, 64, 128), (40, 70, 1024)])
+def test_srad_stats_plain_version_has_the_reference_loop_bits(h, w, block):
+    # both partials in the barrier tree's order, level by level, the order
+    # the kernel's register and shuffle levels keep; a pixel count that is
+    # not a multiple of the block loads zeros in the last block, whose
+    # partials fall past psum and psq (npix // block long) in both
+    npix = h * w
+    grid = -(-npix // block)
+    jkernel = jsuite.make_srad_stats(h, w, block)
+    r = np.random.default_rng(42)
+    args = {"x": r.standard_normal((h, w), dtype=np.float32),
+            "psum": r.standard_normal(npix // block, dtype=np.float32),
+            "psq": r.standard_normal(npix // block, dtype=np.float32)}
+    want = japi.launch(jkernel, grid=grid, block=block, backend="loop",
+                       args={k: jnp.asarray(v) for k, v in args.items()})
+    kern = lower_cuda.KERNELS["srad_stats"]
+    got = kern(carry.from_reference(args, device="cpu"), grid=grid,
+               block=block, h=h, w=w, nthreads=block)
+    for name in ("psum", "psq"):
+        np.testing.assert_array_equal(_np(got[name]), np.asarray(want[name]))
 
 
 @pytest.mark.parametrize("m,n,grid", [(16, 24, 5), (24, 40, 7)])
