@@ -31,8 +31,9 @@ Phases, each printing its own lines:
    products run in full float32: TF32 is switched off explicitly, or
    matmul_tiled's plain version and yardstick would compute something
    else.  The lines of matmul_tiled and of the kernels that run a
-   logical block a warp (reduce_shared, reduce_warp, srad_stats) also
-   give their physical CTA counts;
+   logical block a warp in CTAs of 256 (reduce_shared, reduce_warp,
+   srad_stats, softmax_row: one row a warp, its values in registers,
+   no barrier) also give their physical CTA counts;
 3. the main path: the eleven Rodinia entries at Rodinia 3.1's run-script
    sizes, and the twelve textbook entries at sizes that load the card
    (``SIZES``), through ``run_entry(entry, backend="cuda")`` - chevron/
@@ -55,7 +56,9 @@ Phases, each printing its own lines:
    kernel each call and dtype must take (bfloat16 matmul and prefill the
    tensor-core kernels, decode the split-kv kernel in both dtypes,
    float32 matmul and prefill the CUDA-core kernels), and that kernel must
-   launch exactly once, no other.  Each output is held against that
+   launch exactly once, no other.  The CUDA-core matmul's line gives its
+   CTA count (one a 128 x 128 tile of c, fed by 16-byte loads issued a
+   slice ahead into two shared buffers).  Each output is held against that
    kernel's plain version (flash attention at
    ``flash_attention.PLAIN_TOL``, the others at ``hot_tol``) and the
    ``ref`` oracle (``hot_tol``) on the card, then kernel, plain version
@@ -379,7 +382,8 @@ def compare(name: str, got: dict, want: dict, writes, tol: float) -> float:
 
 
 #: kernels whose launcher runs a logical block a warp, in CTAs of 256
-WARP_BLOCK_KERNELS = ("reduce_shared", "reduce_warp", "srad_stats")
+WARP_BLOCK_KERNELS = ("reduce_shared", "reduce_warp", "srad_stats",
+                      "softmax_row")
 
 
 def warp_block_ctas(grid: int, block: int) -> int:
@@ -610,6 +614,10 @@ def hot_phase(host: dict, dev, matmul_tol) -> dict:
             library_ms = time_ms(library)
             bound_ms, bound_by = hot_bound(call, dtype)
             name = f"{kname}/{call}/{dname}"
+            ctas = ""
+            if kname == "matmul":
+                m, n = HOT[call]["m"], HOT[call]["n"]
+                ctas = f" ctas={matmul.simt_ctas(m, n)}"
             rows[name] = {
                 "name": name, "route": "cuda",
                 "source": ops.KERNELS[kname].source,
@@ -621,7 +629,7 @@ def hot_phase(host: dict, dev, matmul_tol) -> dict:
                   f"plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by}) "
                   f"library_ms={library_ms} max_abs_err={err} "
                   f"plain_tol={plain_tol} tol={tol} "
-                  f"launches={launches} oracle=match")
+                  f"launches={launches} oracle=match{ctas}")
             del t
             torch.cuda.empty_cache()
     return rows

@@ -1087,7 +1087,8 @@ MATMUL_TILED = CudaKernel(
 # stencil1d, stencil2d
 # --------------------------------------------------------------------------
 #: the widest block of the kernels whose __shared__ arrays are sized
-#: statically (stencil1d, scan_block, pixel_pipeline, softmax_row)
+#: statically (stencil1d, scan_block, pixel_pipeline) and of softmax_row
+#: (its launcher's switch covers 32 ... 1024 values a row)
 MAX_THREADS = 1024
 STENCIL2D_TILE = 8
 

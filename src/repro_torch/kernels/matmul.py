@@ -8,13 +8,15 @@ the clamps, ``bm`` folding ``grain`` m-tiles); the kernels take their own
 tiles.  Two kernels, chosen by :func:`route`: bfloat16 operands that TMA
 can address run on the tensor cores (``csrc/matmul_tc.cu``, wgmma and
 TMA, 128 x 256 tiles); every other call runs the CUDA-core kernel
-(``csrc/matmul.cu``, 128 x 128 register tiles, 16-deep k slices), which
-keeps float32 in full float32.
+(``csrc/matmul.cu``, 128 x 128 register tiles, 16-deep k slices loaded a
+slice ahead into two shared buffers), which keeps float32 in full
+float32.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import _native
 from repro_torch.kernels.launcher import (I, P, Launcher, check_tensors,
                                           dtype_code)
 
@@ -56,6 +58,13 @@ def route(a: torch.Tensor, b: torch.Tensor) -> str:
           and K > 0 and K % 8 == 0 and N % 8 == 0
           and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
     return "tc" if tc else "simt"
+
+
+def simt_ctas(M: int, N: int) -> int:
+    """The CTAs that the CUDA-core kernel's launcher starts for ``c[M,
+    N]``, as its ``matmul_ctas`` gives them (builds the kernels' library
+    at first use)."""
+    return _native.function("matmul_ctas", (I, I))(M, N)
 
 
 def matmul_plain(a, b, *, bm=128, bn=128, bk=128, grain=1):

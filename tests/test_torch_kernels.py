@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from repro_torch import carry
+from repro_torch.core import cuda_suite
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import matmul as tmm
 from repro_torch.kernels import ops as tops
@@ -34,6 +35,12 @@ FLASH = [(1, 4, 4, 128, 128, 64, True),      # MHA causal
          (1, 6, 3, 96, 96, 32, True)]        # non-128-aligned
 RMSNORM = [(64, 256, 8), (33, 128, 8), (8, 512, 1)]
 MATMUL = [(128, 128, 128, 1), (256, 128, 64, 2), (64, 256, 128, 1)]
+#: (M, N, K, bm, bn, bk) off the CUDA-core kernel's 128 x 128 tiles and
+#: 16-deep slices: M, N, K of whole groups of four (its 16-byte
+#: instantiation in float32), then N % 4 and K % 4, and K % 4 alone, != 0
+#: (the instantiation of one element an access)
+MATMUL_EDGES = [(72, 200, 40, 8, 8, 8), (72, 198, 42, 8, 18, 6),
+                (130, 36, 30, 10, 36, 10)]
 TOL = {"flash": {"float32": 2e-5, "bfloat16": 2e-2},
        "rmsnorm": {"float32": 1e-5, "bfloat16": 2e-2},
        "matmul": {"float32": 5e-5, "bfloat16": 5e-2}}
@@ -118,6 +125,21 @@ def test_matmul_matches_the_reference(M, N, K, grain, dtype):
                        bn=64, bk=64, grain=grain)
     got = tops.matmul(*_to_torch(arrays, dtype), bm=64, bn=64, bk=64,
                       grain=grain)
+    assert got.dtype == getattr(torch, dtype) and got.shape == want.shape
+    _close(got, want, TOL["matmul"][dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,N,K,bm,bn,bk", MATMUL_EDGES)
+def test_matmul_matches_the_reference_off_the_kernels_tiles(M, N, K, bm, bn,
+                                                            bk, dtype):
+    # shapes the reference's blocks take whole, which the CUDA-core
+    # kernel covers with ragged tiles, slices and groups of four
+    arrays = _draw(9, (M, K), (K, N))
+    jops = _jax()[1]
+    kw = dict(bm=bm, bn=bn, bk=bk)
+    want = jops.matmul(*_to_jax(arrays, dtype), mode="interpret", **kw)
+    got = tops.matmul(*_to_torch(arrays, dtype), **kw)
     assert got.dtype == getattr(torch, dtype) and got.shape == want.shape
     _close(got, want, TOL["matmul"][dtype])
 
@@ -359,6 +381,51 @@ def test_matmul_kernel_matches_its_plain_version(card, M, N, K, grain,
     want = tmm.matmul_plain(a, b, bm=blk, bn=blk, bk=blk, grain=grain)
     assert got.dtype == a.dtype
     _close(got, want.float().cpu().numpy(), TOL["matmul"][dtype])
+
+
+def _matmul_tol(dtype, K):
+    """``TOL``'s, the float32 one grown with depth as ``matmul_tol``
+    (4.5e-4 at K = 2048, ``chip_smoke.hot_tol``'s)."""
+    if dtype == "bfloat16":
+        return TOL["matmul"][dtype]
+    return max(TOL["matmul"][dtype], cuda_suite.matmul_tol(K))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,N,K,bm,bn,bk,offset", [
+    *(edge + (0,) for edge in MATMUL_EDGES),
+    (72, 200, 40, 8, 8, 8, 1), (130, 36, 30, 10, 36, 10, 1),
+    (8192, 8192, 2048, 128, 128, 128, 0)])
+def test_simt_matmul_off_its_tiles_and_groups_of_four(card, M, N, K, bm, bn,
+                                                     bk, offset, dtype):
+    # the CUDA-core kernel's 16-byte instantiation (float32, whole groups
+    # of four, aligned) and its instantiation of one element an access
+    # (bfloat16, N % 4 or K % 4 != 0, views one element off a 16-byte
+    # boundary), at ragged tiles and slices and at the main path's shape;
+    # bfloat16 that TMA could take is moved off its boundary
+    a, b = _to_torch(_draw(9, (M, K), (K, N)), dtype, card)
+    if offset or tmm.route(a, b) != "simt":
+        a, b = _offset_copy(a), _offset_copy(b)
+    assert tmm.route(a, b) == "simt"
+    if offset:
+        assert a.data_ptr() % 16 and b.data_ptr() % 16
+    kw = dict(bm=bm, bn=bn, bk=bk)
+    got = _launch_once("matmul", lambda: tops.matmul(a, b, **kw))
+    assert got.dtype == a.dtype and got.shape == (M, N)
+    assert torch.isfinite(got).all()
+    tol = _matmul_tol(dtype, K)
+    _close(got, tmm.matmul_plain(a, b, **kw).float().cpu().numpy(), tol)
+    _close(got, tref.matmul_ref(a, b).float().cpu().numpy(), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,want", [
+    (8192, 8192, 4096),       # granite's MLP: 64 x 64 tiles, 31.03 waves
+    (72, 200, 2), (128, 128, 1), (129, 1, 2), (1, 257, 3)])
+def test_simt_matmul_ctas_cover_c_in_128_by_128_tiles(card, M, N, want):
+    # the launcher's own count of the CTAs it starts
+    assert tmm.simt_ctas(M, N) == want
 
 
 @pytest.mark.gpu

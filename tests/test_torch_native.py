@@ -364,3 +364,56 @@ def test_reduce_grid_short_of_the_data(card, kname, block, grid):
     assert grid < n // block
     _reduce_on_the_card(card, kname, n, block, grid,
                         _outs(kname, n // block))
+
+
+def _softmax_on_the_card(card, rows, block, grid, offset=0):
+    """One launch of softmax_row over x[rows, block] into y, random bits
+    in both, with x and y ``offset`` floats past a 16-byte boundary; held
+    to the plain version within the entry's tol, the rows past the grid
+    to y's input bits."""
+    r = np.random.default_rng(42)
+    host = {"x": torch.from_numpy(3 * r.standard_normal((rows, block),
+                                                        np.float32)),
+            "y": torch.from_numpy(r.standard_normal((rows, block),
+                                                    np.float32))}
+    bufs = {}
+    for name, t in host.items():
+        flat = torch.zeros(t.numel() + 4, device=card)
+        bufs[name] = flat[offset:offset + t.numel()].view(rows, block)
+        bufs[name].copy_(t.to(card))
+    kern = lower_cuda.KERNELS["softmax_row"]
+    params = {"rows": rows, "nthreads": block}
+    before = kern.launches
+    kern.launch_into(bufs, Dim3(grid), Dim3(block), **params)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    got = bufs["y"].cpu()
+    want = kern.plain(host, Dim3(grid), Dim3(block), **params)["y"]
+    tol = cuda_suite.entry_softmax_row(rows, block).tol
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert torch.equal(got[grid:], host["y"][grid:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", tuple(range(32, 1025, 32)))
+def test_softmax_row_at_every_block_it_admits(card, block):
+    # B / 32 values a lane, in float4s, float2s or floats by B; 33 rows,
+    # so the last of five CTAs holds one live warp
+    _softmax_on_the_card(card, 33, block, 33)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,block,grid", (
+    (7, 128, 7), (40, 128, 7), (40, 96, 33), (9, 1024, 2), (16, 64, 9)))
+def test_softmax_row_grid_short_of_the_rows(card, rows, block, grid):
+    # a grid that is not a multiple of a CTA's 8 warps, at or below the
+    # rows: the rows past it keep y
+    _softmax_on_the_card(card, rows, block, grid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", (32, 64, 96, 128, 512, 1024))
+def test_softmax_row_takes_views_off_a_16_byte_boundary(card, block):
+    # x and y 4 bytes past a 16-byte boundary: the launcher starts the
+    # instantiation of one float an access
+    _softmax_on_the_card(card, 33, block, 30, offset=1)

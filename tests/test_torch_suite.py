@@ -793,6 +793,32 @@ def test_srad_stats_plain_version_has_the_reference_loop_bits(h, w, block):
         np.testing.assert_array_equal(_np(got[name]), np.asarray(want[name]))
 
 
+@pytest.mark.parametrize("rows,block,grid", [(9, 32, 9), (9, 96, 9),
+                                             (5, 1024, 5), (12, 32, 7),
+                                             (10, 96, 3), (4, 1024, 1)])
+def test_softmax_row_plain_version_at_the_widths_the_kernel_dispatches(
+        rows, block, grid):
+    # B = 32 (one value a lane), 96 (three, one float an access) and 1024
+    # (32 a lane, float4s): the plain version agrees with the reference's
+    # loop launch within the entry's tol, and the rows past the grid keep
+    # y's input bits in both
+    entry = cuda_suite.entry_softmax_row(rows, block)
+    r = np.random.default_rng(42)
+    args = {"x": 3 * r.standard_normal((rows, block), dtype=np.float32),
+            "y": r.standard_normal((rows, block), dtype=np.float32)}
+    want = japi.launch(jsuite.make_softmax_row(block), grid=grid,
+                       block=block, backend="loop",
+                       args={k: jnp.asarray(v) for k, v in args.items()})
+    kern = lower_cuda.KERNELS["softmax_row"]
+    got = kern(carry.from_reference(args, device="cpu"), grid=grid,
+               block=block, **dict(entry.kernel.native.params))
+    got, want = _np(got["y"]), np.asarray(want["y"])
+    np.testing.assert_array_equal(got[grid:], args["y"][grid:])
+    np.testing.assert_array_equal(want[grid:], args["y"][grid:])
+    np.testing.assert_allclose(got, want, rtol=entry.tol, atol=entry.tol)
+    np.testing.assert_allclose(got[:grid].sum(1), 1.0, rtol=entry.tol)
+
+
 @pytest.mark.parametrize("m,n,grid", [(16, 24, 5), (24, 40, 7)])
 def test_matmul_tiled_plain_version_at_a_partial_grid(m, n, grid):
     # m != n and a grid that ends inside a tile row: the covered tiles
