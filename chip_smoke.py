@@ -30,10 +30,11 @@ Phases, each printing its own lines:
    softmax_row, scan_block and transpose_tiled).  Float32 matrix
    products run in full float32: TF32 is switched off explicitly, or
    matmul_tiled's plain version and yardstick would compute something
-   else.  The lines of matmul_tiled and of the kernels that run a
-   logical block a warp in CTAs of 256 (reduce_shared, reduce_warp,
-   srad_stats, softmax_row: one row a warp, its values in registers,
-   no barrier) also give their physical CTA counts;
+   else.  The lines of matmul_tiled, of vecadd (CTAs of 256 threads that
+   move two float4s each) and of the kernels that run a logical block a
+   warp in CTAs of 256 (reduce_shared, reduce_warp, srad_stats,
+   softmax_row: one row a warp, its values in registers, no barrier)
+   also give their physical CTA counts;
 3. the main path: the eleven Rodinia entries at Rodinia 3.1's run-script
    sizes, and the twelve textbook entries at sizes that load the card
    (``SIZES``), through ``run_entry(entry, backend="cuda")`` - chevron/
@@ -58,7 +59,8 @@ Phases, each printing its own lines:
    float32 matmul and prefill the CUDA-core kernels), and that kernel must
    launch exactly once, no other.  The CUDA-core matmul's line gives its
    CTA count (one a 128 x 128 tile of c, fed by 16-byte loads issued a
-   slice ahead into two shared buffers).  Each output is held against that
+   slice ahead into two shared buffers), and rmsnorm's its (8 rows a CTA,
+   a row in a warp's registers).  Each output is held against that
    kernel's plain version (flash attention at
    ``flash_attention.PLAIN_TOL``, the others at ``hot_tol``) and the
    ``ref`` oracle (``hot_tol``) on the card, then kernel, plain version
@@ -618,6 +620,8 @@ def hot_phase(host: dict, dev, matmul_tol) -> dict:
             if kname == "matmul":
                 m, n = HOT[call]["m"], HOT[call]["n"]
                 ctas = f" ctas={matmul.simt_ctas(m, n)}"
+            elif kname == "rmsnorm":
+                ctas = f" ctas={rmsnorm.ctas(t[0].shape[0])}"
             rows[name] = {
                 "name": name, "route": "cuda",
                 "source": ops.KERNELS[kname].source,
@@ -722,6 +726,14 @@ def main() -> int:
                 ctas = f" ctas={cx * cy} ({cx} x {cy})"
             elif kname in WARP_BLOCK_KERNELS:
                 ctas = f" ctas={warp_block_ctas(grid.x, block.x)}"
+            elif kname == "vecadd":
+                # vecadd_ctas counts the launcher's 16-byte path; buffers
+                # off 16 bytes would take its one-element path instead
+                if any(b[k].data_ptr() % 16 for k in ("a", "b", "c")):
+                    raise AssertionError("vecadd: a buffer lies off a "
+                                         "16-byte boundary")
+                n_ctas = lower_cuda.vecadd_ctas(params["n"], grid.x, block.x)
+                ctas = f" ctas={n_ctas}"
             print(f"kernel {kname}: kernel_ms={r['ms']} "
                   f"call_ms={r['call_ms']} plain_ms={r['plain_ms']} "
                   f"bound_ms={r['bound_ms']} ({r['bound_by']}) "

@@ -839,6 +839,13 @@ def vecadd_plain(b, grid: Dim3, block: Dim3, *, n: int):
     return {"c": c}
 
 
+def vecadd_ctas(n: int, grid: int, block: int) -> int:
+    """The CTAs of 256 threads that the kernel's launcher starts for
+    16-byte aligned buffers, as its ``vecadd_ctas`` gives them (builds the
+    kernels' library at first use)."""
+    return _native.function("vecadd_ctas", (_I,) * 3)(n, grid, block)
+
+
 VECADD = CudaKernel(
     name="vecadd", symbol="launch_vecadd",
     argtypes=(_P,) * 3 + (_I,) * 3 + (_P,),

@@ -1,24 +1,46 @@
 // rmsnorm: out[r, :] = x[r, :] * (1 / sqrt(mean(x[r, :]^2) + eps))
 // * (1 + scale), in float32, written once in x's dtype (float32 or
-// bfloat16, rounded to nearest even); scale's dtype is its own.  A block
-// takes `grain` consecutive rows, as one program of the reference does;
-// it has min(grain, 8) warps, and each warp normalises one row at a time:
-// its lanes sum their squares across the row in registers, a
-// __shfl_xor_sync butterfly adds the 32 partial sums, and a second pass
-// over the row (now in L1) scales and writes it.  Rows whose width is a
-// multiple of 16 bytes' worth of elements move 16 bytes a lane a load.
+// bfloat16, rounded to nearest even); scale's dtype is its own.  Each warp
+// normalises one row: its lanes sum their squares across the row, a
+// __shfl_xor_sync butterfly adds the 32 partial sums, then the row is
+// scaled and written.
 //
 // Replaces: the TPU kernel src/repro/kernels/rmsnorm.py:17 (`_kernel`,
 // called through `rmsnorm`, src/repro/kernels/rmsnorm.py:26).
 //
 // Bound on the H100: bytes.  x read once and out written once (2 x 2
-// bytes an element in bfloat16: 67 MB for x[8192, 2048]) over 3.35 TB/s
-// is 0.020 ms; the 4 flops an element take 0.0010 ms at 67 TFLOP/s.  The
-// design reads x from device memory once: the second pass finds the row
-// (4 KB in bfloat16) in L1, so the kernel streams, with 16-byte loads and
-// one warp a row and no shared memory or barrier.  1 / sqrtf is the
-// correctly rounded reciprocal square root's two IEEE steps, not the
-// approximate rsqrtf.
+// bytes an element in bfloat16: 67 MB for x[8192, 2048]; 134 MB in
+// float32) over 3.35 TB/s is 0.020 ms (0.040); the 4 flops an element
+// take 0.0010 ms at 67 TFLOP/s.  The design reads x from device memory
+// once and keeps many loads in flight:
+// - the row lives in the lane's registers: K = ceil(d / (32 VEC)) 16-byte
+//   chunks a lane (VEC = 4 floats or 8 bfloat16s), chunk j of lane l at
+//   column c = VEC l + 32 VEC j, K a template argument (1 ... 18, a
+//   switch in the launcher: rows up to 2304 wide in float32, 4608 in
+//   bfloat16; d = 2048 is K = 16 in float32, 8 in bfloat16).  A lane
+//   issues all K loads before the first fmaf, sums its squares over its
+//   registers in column order, and scales and stores from the registers:
+//   there is no second read of x;
+// - 1 + scale is read with 16-byte loads (8 for a bfloat16 scale beside
+//   float32 x) as each chunk is scaled: the 4 or 8 KB row of scale stays
+//   in L1 for every warp of the SM, so there is no shared memory and no
+//   barrier, and a warp starts its sum as soon as its own row is in;
+// - CTAs of 8 warps, a warp a row: ceil(rows / 8) CTAs (1,024 at the main
+//   path's 8192 rows), whatever `grain`; a row's result never depended on
+//   it.  Only a lane's last chunk is predicated on d.
+// tools/rmsnorm_variants.cu times this beside 1 + scale staged in shared
+// memory, two rows a warp, a register cap for two CTAs an SM, a warp that
+// walks rows with the next row's loads in flight, and 1 + scale held in
+// registers (PERF.md).
+// Rows wider than 18 chunks a lane, rows whose width is not a multiple of
+// VEC, x or out off a 16-byte boundary and scale off one take two passes
+// over the row (16-byte loads of x where aligned, one element a load
+// otherwise): the second pass finds the row in L1 or L2, and 1 + scale is
+// read a value at a time.
+// The 16-byte instantiations give a lane the same columns in the same
+// order, so they give the same bits; one element a load sums a lane's
+// squares in another order.  1 / sqrtf is the correctly rounded
+// reciprocal square root's two IEEE steps, not the approximate rsqrtf.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,7 +56,7 @@ __device__ __forceinline__ void from_f32(float v, __nv_bfloat16* out) {
   *out = __float2bfloat16_rn(v);
 }
 
-constexpr int kMaxWarps = 8;
+constexpr int kWarps = 8, kThreads = 32 * kWarps;
 
 // one lane's VEC elements: a 16-byte access when VEC > 1
 template <typename T, int VEC>
@@ -54,84 +76,168 @@ __device__ __forceinline__ void store(const T (&e)[VEC], T* dst) {
   }
 }
 
-// VEC: elements a lane moves in one 16-byte access (1 when the rows are
-// not 16-byte aligned)
-template <typename TX, typename TS, int VEC>
-__global__ void rmsnorm_kernel(const TX* __restrict__ x,
-                               const TS* __restrict__ scale,
-                               TX* __restrict__ out, int d, int grain,
-                               float eps) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nwarps = blockDim.x / 32;
-  const int first = blockIdx.x * grain;
-  for (int r = first + warp; r < first + grain; r += nwarps) {
-    const TX* xr = x + (size_t)r * d;
-    TX* orow = out + (size_t)r * d;
-    float ss = 0.0f;
-    for (int c = lane * VEC; c < d; c += 32 * VEC) {
-      alignas(16) TX e[VEC];
-      load(xr + c, e);
+__device__ __forceinline__ float warp_sum(float ss) {
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const float v = to_f32(e[i]);
-        ss = fmaf(v, v, ss);
-      }
+  for (int off = 16; off > 0; off >>= 1)
+    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  return ss;
+}
+
+// 1 + scale at a lane's VEC columns from p, in 8- or 16-byte loads
+template <typename TS, int VEC>
+__device__ __forceinline__ void one_plus(const TS* p, float (&g)[VEC]) {
+  constexpr int kBytes = sizeof(TS) * VEC;
+  alignas(16) TS t[VEC];
+  if constexpr (kBytes >= 16) {
+#pragma unroll
+    for (int q = 0; q < kBytes / 16; ++q)
+      reinterpret_cast<uint4*>(t)[q] =
+          __ldg(reinterpret_cast<const uint4*>(p) + q);
+  } else {
+    *reinterpret_cast<uint2*>(t) = __ldg(reinterpret_cast<const uint2*>(p));
+  }
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) g[i] = __fadd_rn(1.0f, to_f32(t[i]));
+}
+
+// K chunks of VEC elements a lane, the row in registers
+template <typename TX, typename TS, int K>
+__global__ void __launch_bounds__(kThreads)
+    rmsnorm_kernel(const TX* __restrict__ x, const TS* __restrict__ scale,
+                   TX* __restrict__ out, int rows, int d, float eps) {
+  constexpr int VEC = 16 / sizeof(TX);
+  const int lane = threadIdx.x % 32;
+  const int r = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (r >= rows) return;
+  const TX* xr = x + (size_t)r * d + VEC * lane;
+  TX* orow = out + (size_t)r * d + VEC * lane;
+  // only the last chunk can pass d
+  const bool last = VEC * lane + 32 * VEC * (K - 1) < d;
+  alignas(16) TX e[K][VEC];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    if (j < K - 1 || last) {
+      load(xr + 32 * VEC * j, e[j]);
+    } else {
+      *reinterpret_cast<uint4*>(e[j]) = make_uint4(0, 0, 0, 0);
     }
+  }
+  float ss = 0.0f;       // a zero chunk adds exactly 0
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      ss += __shfl_xor_sync(0xffffffffu, ss, off);
-    const float inv = 1.0f / sqrtf(ss / (float)d + eps);
-    for (int c = lane * VEC; c < d; c += 32 * VEC) {
-      alignas(16) TX e[VEC];
-      load(xr + c, e);
+  for (int j = 0; j < K; ++j)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float v = to_f32(e[j][i]);
+      ss = fmaf(v, v, ss);
+    }
+  ss = warp_sum(ss);
+  const float inv = 1.0f / sqrtf(ss / (float)d + eps);
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    if (j < K - 1 || last) {
+      float g[VEC];
+      one_plus(scale + VEC * lane + 32 * VEC * j, g);
 #pragma unroll
       for (int i = 0; i < VEC; ++i)
-        from_f32(__fmul_rn(__fmul_rn(to_f32(e[i]), inv),
-                           __fadd_rn(1.0f, to_f32(scale[c + i]))),
-                 &e[i]);
-      store(e, orow + c);
+        from_f32(__fmul_rn(__fmul_rn(to_f32(e[j][i]), inv), g[i]),
+                 &e[j][i]);
+      store(e[j], orow + 32 * VEC * j);
     }
   }
 }
 
+// two passes over the row; VEC: elements a lane moves in one 16-byte
+// access (1 when the rows are not 16-byte aligned)
+template <typename TX, typename TS, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    rmsnorm_two_pass(const TX* __restrict__ x, const TS* __restrict__ scale,
+                     TX* __restrict__ out, int rows, int d, float eps) {
+  const int lane = threadIdx.x % 32;
+  const int r = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (r >= rows) return;
+  const TX* xr = x + (size_t)r * d;
+  TX* orow = out + (size_t)r * d;
+  float ss = 0.0f;
+  for (int c = lane * VEC; c < d; c += 32 * VEC) {
+    alignas(16) TX e[VEC];
+    load(xr + c, e);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float v = to_f32(e[i]);
+      ss = fmaf(v, v, ss);
+    }
+  }
+  ss = warp_sum(ss);
+  const float inv = 1.0f / sqrtf(ss / (float)d + eps);
+  for (int c = lane * VEC; c < d; c += 32 * VEC) {
+    alignas(16) TX e[VEC];
+    load(xr + c, e);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      from_f32(__fmul_rn(__fmul_rn(to_f32(e[i]), inv),
+                         __fadd_rn(1.0f, to_f32(scale[c + i]))),
+               &e[i]);
+    store(e, orow + c);
+  }
+}
+
+int ctas_of(int rows) { return (rows + kWarps - 1) / kWarps; }
+
 template <typename TX, typename TS>
 cudaError_t launch(const void* x, const void* scale, void* out, int rows,
-                   int d, int grain, float eps, cudaStream_t stream) {
+                   int d, float eps, cudaStream_t s) {
   constexpr int kVec = 16 / sizeof(TX);
-  const int warps = grain < kMaxWarps ? grain : kMaxWarps;
-  const int blocks = rows / grain;
-  const bool aligned = d % kVec == 0 &&
-                       ((uintptr_t)x | (uintptr_t)out) % 16 == 0;
-  if (aligned) {
-    rmsnorm_kernel<TX, TS, kVec><<<blocks, 32 * warps, 0, stream>>>(
-        (const TX*)x, (const TS*)scale, (TX*)out, d, grain, eps);
-  } else {
-    rmsnorm_kernel<TX, TS, 1><<<blocks, 32 * warps, 0, stream>>>(
-        (const TX*)x, (const TS*)scale, (TX*)out, d, grain, eps);
+  const unsigned ctas = ctas_of(rows);
+  const TX* xp = (const TX*)x;
+  const TS* sp = (const TS*)scale;
+  TX* op = (TX*)out;
+  if (d % kVec || ((uintptr_t)x | (uintptr_t)out) % 16) {
+    rmsnorm_two_pass<TX, TS, 1><<<ctas, kThreads, 0, s>>>(xp, sp, op, rows,
+                                                          d, eps);
+    return cudaGetLastError();
   }
+  if ((uintptr_t)scale % 16 == 0) {
+    switch ((d + 32 * kVec - 1) / (32 * kVec)) {
+#define CASE(K)                                                        \
+  case K:                                                              \
+    rmsnorm_kernel<TX, TS, K><<<ctas, kThreads, 0, s>>>(xp, sp, op,    \
+                                                        rows, d, eps); \
+    return cudaGetLastError();
+      CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+      CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15)
+      CASE(16) CASE(17) CASE(18)
+#undef CASE
+    }
+  }
+  rmsnorm_two_pass<TX, TS, kVec><<<ctas, kThreads, 0, s>>>(xp, sp, op, rows,
+                                                           d, eps);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// The CTAs of 256 threads that launch_rmsnorm starts: a warp a row, for
+// every width, dtype and grain.
+extern "C" int rmsnorm_ctas(int rows) { return ctas_of(rows); }
+
 // x_bf16 / scale_bf16: 0 for float32, 1 for bfloat16.  grain divides rows
-// (the wrapper shrinks it so).
+// (the wrapper shrinks it so); it is the reference's rows a program and
+// does not change the launch.
 extern "C" int launch_rmsnorm(const void* x, const void* scale, void* out,
                               int rows, int d, int grain, float eps,
                               int x_bf16, int scale_bf16, void* stream) {
+  (void)grain;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (x_bf16) {
     err = scale_bf16
               ? launch<__nv_bfloat16, __nv_bfloat16>(x, scale, out, rows, d,
-                                                     grain, eps, s)
-              : launch<__nv_bfloat16, float>(x, scale, out, rows, d, grain,
-                                             eps, s);
+                                                     eps, s)
+              : launch<__nv_bfloat16, float>(x, scale, out, rows, d, eps, s);
   } else {
     err = scale_bf16
-              ? launch<float, __nv_bfloat16>(x, scale, out, rows, d, grain,
-                                             eps, s)
-              : launch<float, float>(x, scale, out, rows, d, grain, eps, s);
+              ? launch<float, __nv_bfloat16>(x, scale, out, rows, d, eps, s)
+              : launch<float, float>(x, scale, out, rows, d, eps, s);
   }
   return (int)err;
 }

@@ -3,14 +3,15 @@
 The counterpart of ``repro/kernels/rmsnorm.py``: in float32,
 ``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` over each row of
 ``x[rows, D]``, written once in ``x``'s dtype.  ``scale`` may have another
-float dtype than ``x``.  ``grain`` rows go to one block, as they go to
-one program of the reference, and shrink to a divisor of ``rows``; each
-row is one warp's (``csrc/rmsnorm.cu``).
+float dtype than ``x``.  ``grain`` is the reference's rows a program: it
+shrinks to a divisor of ``rows`` as there, and does not change the
+kernel's launch, which gives each row one warp (``csrc/rmsnorm.cu``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import _native
 from repro_torch.kernels.launcher import (F, I, P, Launcher, check_tensors,
                                           dtype_code)
 
@@ -23,6 +24,13 @@ def _grain(rows: int, grain: int) -> int:
     while rows % grain:
         grain -= 1
     return grain
+
+
+def ctas(rows: int) -> int:
+    """The CTAs that the kernel's launcher starts for ``rows`` rows of any
+    width, dtype and grain, as its ``rmsnorm_ctas`` gives them (builds the
+    kernels' library at first use)."""
+    return _native.function("rmsnorm_ctas", (I,))(rows)
 
 
 def _check(x, scale) -> torch.device:

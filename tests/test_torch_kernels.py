@@ -34,6 +34,13 @@ FLASH = [(1, 4, 4, 128, 128, 64, True),      # MHA causal
          (2, 2, 2, 1, 128, 64, False),       # decode-shaped
          (1, 6, 3, 96, 96, 32, True)]        # non-128-aligned
 RMSNORM = [(64, 256, 8), (33, 128, 8), (8, 512, 1)]
+#: rows at the CUDA kernel's widths: granite-3-2b's d_model 2048 (16 and
+#: 8 chunks of 16 bytes a lane in float32 and bfloat16), minicpm-2b's 2304
+#: (the widest float32 row its switch holds in registers), a ragged last
+#: chunk, and a row past the switch (two passes)
+RMSNORM_WIDE = [(16, 2048, 8), (4, 2304, 2), (5, 2056, 8), (3, 8192, 1)]
+#: elements in one 16-byte chunk of x, by dtype
+VEC = {"float32": 4, "bfloat16": 8}
 MATMUL = [(128, 128, 128, 1), (256, 128, 64, 2), (64, 256, 128, 1)]
 #: (M, N, K, bm, bn, bk) off the CUDA-core kernel's 128 x 128 tiles and
 #: 16-deep slices: M, N, K of whole groups of four (its 16-byte
@@ -104,7 +111,7 @@ def test_flash_attention_matches_the_reference(B, H, Hkv, Sq, Skv, d,
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("rows,D,grain", RMSNORM)
+@pytest.mark.parametrize("rows,D,grain", RMSNORM + RMSNORM_WIDE)
 def test_rmsnorm_matches_the_reference(rows, D, grain, dtype):
     x, s = _draw(8, (rows, D), (D,))
     jnp, jops, _ = _jax()
@@ -366,6 +373,63 @@ def test_rmsnorm_kernel_matches_its_plain_version(card, rows, D, grain,
         want = trn.rmsnorm_plain(x, scale, grain=grain)
         assert got.dtype == x.dtype
         _close(got, want.float().cpu().numpy(), TOL["rmsnorm"][dtype])
+
+
+def _rmsnorm_on_the_card(card, rows, d, grain, dtype, off=""):
+    """One launch a call of each scale dtype over x[rows, d], the tensor
+    named ``off`` (x or scale) one element past a 16-byte boundary; held
+    to the plain version and the oracle at ``TOL``."""
+    x, s = _draw(8, (rows, d), (d,))
+    x = _to_torch([x], dtype, card)[0]
+    if off == "x":
+        x = _offset_copy(x)
+        assert x.data_ptr() % 16
+    tol = TOL["rmsnorm"][dtype]
+    for scale in _to_torch([s], "float32", card) + _to_torch([s], "bfloat16",
+                                                              card):
+        if off == "scale":
+            scale = _offset_copy(scale)
+            assert scale.data_ptr() % 16
+        got = _launch_once("rmsnorm",
+                           lambda: tops.rmsnorm(x, scale, grain=grain))
+        assert got.dtype == x.dtype and got.shape == x.shape
+        for want in (trn.rmsnorm_plain(x, scale, grain=grain),
+                     tref.rmsnorm_ref(x, scale)):
+            _close(got, want.float().cpu().numpy(), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", range(1, 19))
+def test_rmsnorm_kernel_at_every_chunk_count(card, k, dtype):
+    # d = 32 VEC k: each width the launcher's switch holds in registers,
+    # over 33 rows, so that the last of five CTAs has one live warp
+    _rmsnorm_on_the_card(card, 33, 32 * VEC[dtype] * k, 8, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d,grain,off", [
+    (5, 2056, 8, ""),       # a ragged last chunk
+    (4, 4104, 2, ""),       # a ragged 17th chunk in bfloat16
+    (3, 8192, 1, ""),       # past the switch: two passes, 16-byte loads
+    (40, 100, 8, ""),       # d % 8 != 0: bfloat16 one element a load
+    (40, 102, 3, ""),       # d % 4 != 0 as well
+    (33, 2048, 8, "x"),     # x off a 16-byte boundary: one element a load
+    (33, 2048, 8, "scale"),  # scale off one: two passes, 16-byte loads
+    (1, 2048, 1, ""), (7, 2048, 3, ""), (33, 2048, 3, ""),
+    (8192, 2048, 8, "")])   # the main path's shape
+def test_rmsnorm_kernel_off_its_chunks(card, rows, d, grain, off, dtype):
+    _rmsnorm_on_the_card(card, rows, d, grain, dtype, off)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,want", [
+    (8192, 1024), (1, 1), (7, 1), (8, 1), (33, 5), (8200, 1025)])
+def test_rmsnorm_ctas_are_a_warp_a_row(card, rows, want):
+    # the launcher's own count of the CTAs of 8 warps it starts, the same
+    # for every width, dtype and grain
+    assert trn.ctas(rows) == want
 
 
 @pytest.mark.gpu

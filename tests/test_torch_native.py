@@ -417,3 +417,78 @@ def test_softmax_row_takes_views_off_a_16_byte_boundary(card, block):
     # x and y 4 bytes past a 16-byte boundary: the launcher starts the
     # instantiation of one float an access
     _softmax_on_the_card(card, 33, block, 30, offset=1)
+
+
+def _vecadd_on_the_card(card, n, grid, block, off=""):
+    """One launch of vecadd over a, b, c of n floats, random bits in all
+    three, the buffer named ``off`` one float past a 16-byte boundary; c
+    equals the plain version, and a + b from NumPy below the grid's
+    threads, bit for bit, and keeps its input bits past them."""
+    r = np.random.default_rng(42)
+    host = {k: torch.from_numpy(r.standard_normal(n, np.float32))
+            for k in "abc"}
+    bufs = {}
+    for k, t in host.items():
+        o = int(k == off)
+        bufs[k] = torch.zeros(n + 4, device=card)[o:o + n]
+        bufs[k].copy_(t.to(card))
+        assert bool(bufs[k].data_ptr() % 16) == bool(o)
+    kern = lower_cuda.KERNELS["vecadd"]
+    before = kern.launches
+    kern.launch_into(bufs, Dim3(grid), Dim3(block), n=n)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    got = bufs["c"].cpu()
+    want = kern.plain(host, Dim3(grid), Dim3(block), n=n)["c"]
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    m = min(n, grid * block)
+    added = host["a"].numpy()[:m] + host["b"].numpy()[:m]
+    np.testing.assert_array_equal(got.numpy()[:m].view(np.int32),
+                                  added.view(np.int32))
+    assert torch.equal(got[m:].view(torch.int32),
+                       host["c"][m:].view(torch.int32))
+
+
+#: (n, grid, block): the main path; n % 4 of 1, 2, 3 under a grid past
+#: n; fewer elements than a float4; grids short of n (m = 5120, and 1287
+#: with m % 4 = 3); a grid far past n
+VECADD = ((1 << 24, 1 << 17, 128), (4097, 33, 128), (4098, 33, 128),
+          (4099, 33, 128), (1, 1, 128), (3, 1, 32), (10_000, 40, 128),
+          (10_000, 13, 99), (1000, 100, 128))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,grid,block", VECADD)
+def test_vecadd_writes_the_grids_elements_bit_for_bit(card, n, grid, block):
+    # 16-byte aligned: two float4s a thread, the last CTA adding the
+    # elements past the last whole float4 one a thread
+    _vecadd_on_the_card(card, n, grid, block)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("off", ("a", "b", "c"))
+@pytest.mark.parametrize("n,grid,block", ((4099, 33, 128),
+                                          (10_000, 13, 99)))
+def test_vecadd_takes_views_off_a_16_byte_boundary(card, off, n, grid,
+                                                   block):
+    # one buffer 4 bytes off: the launcher starts one element a thread
+    _vecadd_on_the_card(card, n, grid, block, off)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,want", zip(VECADD, (8192, 2, 2, 2, 1, 1, 3,
+                                                    1, 1)))
+def test_vecadd_ctas_cover_the_grids_float4s(card, shape, want):
+    # the launcher's own count: 512 float4s a CTA of 256, one CTA at
+    # least for fewer than four elements
+    assert lower_cuda.vecadd_ctas(*shape) == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", (1025, 2048))
+def test_vecadd_refuses_a_block_the_chevron_refuses(card, block):
+    # the launcher starts CTAs of its own, so it refuses for CUDA a block
+    # past 1024 threads
+    bufs = {k: torch.zeros(4096, device=card) for k in "abc"}
+    with pytest.raises(RuntimeError, match="launch_vecadd"):
+        lower_cuda.KERNELS["vecadd"](bufs, grid=1, block=block, n=4096)
