@@ -34,7 +34,9 @@ Phases, each printing its own lines:
    move two float4s each) and of the kernels that run a logical block a
    warp in CTAs of 256 (reduce_shared, reduce_warp, srad_stats,
    softmax_row: one row a warp, its values in registers, no barrier)
-   also give their physical CTA counts;
+   also give their physical CTA counts, as does transpose_tiled's (64 x
+   64 squares of x, one barrier each, from
+   ``lower_cuda.transpose_tiled_ctas``);
 3. the main path: the eleven Rodinia entries at Rodinia 3.1's run-script
    sizes, and the twelve textbook entries at sizes that load the card
    (``SIZES``), through ``run_entry(entry, backend="cuda")`` - chevron/
@@ -59,9 +61,11 @@ Phases, each printing its own lines:
    float32 matmul and prefill the CUDA-core kernels), and that kernel must
    launch exactly once, no other.  The CUDA-core matmul's line gives its
    CTA count (one a 128 x 128 tile of c, fed by 16-byte loads issued a
-   slice ahead into two shared buffers), and rmsnorm's its (8 rows a CTA,
-   a row in a warp's registers).  Each output is held against that
-   kernel's plain version (flash attention at
+   slice ahead into two shared buffers), rmsnorm's its (8 rows a CTA,
+   a row in a warp's registers), and the CUDA-core prefill's its CTA
+   count and query tile (256 queries a CTA at d = 64, register outer
+   products, the next K/V tile in flight by cp.async).  Each output is
+   held against that kernel's plain version (flash attention at
    ``flash_attention.PLAIN_TOL``, the others at ``hot_tol``) and the
    ``ref`` oracle (``hot_tol``) on the card, then kernel, plain version
    and the PyTorch yardstick
@@ -622,6 +626,10 @@ def hot_phase(host: dict, dev, matmul_tol) -> dict:
                 ctas = f" ctas={matmul.simt_ctas(m, n)}"
             elif kname == "rmsnorm":
                 ctas = f" ctas={rmsnorm.ctas(t[0].shape[0])}"
+            elif kname == "flash_attention":
+                B, H, Sq, d = t[0].shape
+                ctas = (f" ctas={flash_attention.simt_ctas(B, H, Sq, d)} "
+                        f"q_tile={flash_attention.simt_q_tile(d)}")
             rows[name] = {
                 "name": name, "route": "cuda",
                 "source": ops.KERNELS[kname].source,
@@ -726,6 +734,11 @@ def main() -> int:
                 ctas = f" ctas={cx * cy} ({cx} x {cy})"
             elif kname in WARP_BLOCK_KERNELS:
                 ctas = f" ctas={warp_block_ctas(grid.x, block.x)}"
+            elif kname == "transpose_tiled":
+                cx, cy = lower_cuda.transpose_tiled_ctas(
+                    params["h"], params["w"], grid.x)
+                side = lower_cuda.TRANSPOSE_CTA
+                ctas = f" ctas={cx * cy} ({cx} x {cy} of {side} x {side})"
             elif kname == "vecadd":
                 # vecadd_ctas counts the launcher's 16-byte path; buffers
                 # off 16 bytes would take its one-element path instead

@@ -1280,15 +1280,32 @@ def _transpose_check(grid: Dim3, block: Dim3, params: dict):
                                 f"{(h // t) * (w // t)} tiles")
 
 
+#: the side of the square of x one physical CTA of
+#: ``csrc/transpose_tiled.cu`` moves (8 x 8 logical tiles)
+TRANSPOSE_CTA = 64
+
+
+def transpose_tiled_ctas(h: int, w: int, grid: int) -> tuple[int, int]:
+    """The physical grid ``(x, y)`` of ``TRANSPOSE_CTA``-square CTAs that
+    covers a logical grid of ``grid`` 8 x 8 tiles of an ``[h, w]`` x (tile
+    ``by * w/8 + bx``): the CTA columns down to the last column the grid
+    reaches, and the CTA rows down to its last tile row."""
+    t, per_row = TRANSPOSE_TILE, w // TRANSPOSE_TILE
+    cols = min(grid, per_row) * t
+    rows = -(-grid // per_row) * t
+    return -(-cols // TRANSPOSE_CTA), -(-rows // TRANSPOSE_CTA)
+
+
 TRANSPOSE_TILED = CudaKernel(
     name="transpose_tiled", symbol="launch_transpose_tiled",
-    argtypes=(_P,) * 2 + (_I,) * 3 + (_P,),
+    argtypes=(_P,) * 2 + (_I,) * 5 + (_P,),
     buffers={"x": _F32, "y": _F32},
     writes=("y",),
     shapes=lambda *, h, w: {"x": (h, w), "y": (w, h)},
     check=_transpose_check, plain=transpose_tiled_plain,
     cargs=lambda b, grid, block, *, h, w: [
-        _ptr(b["x"]), _ptr(b["y"]), h, w, grid.x],
+        _ptr(b["x"]), _ptr(b["y"]), h, w, grid.x,
+        *transpose_tiled_ctas(h, w, grid.x)],
     source="src/repro_torch/csrc/transpose_tiled.cu")
 
 

@@ -18,8 +18,8 @@ tiles, and any ``d`` up to 128.  Three kernels, chosen by :func:`route`:
   ``csrc/flash_attention_tc.cu``, mma.sync on the tensor cores with p
   rounded to bfloat16 for the product with v;
 * ``"simt"`` - everything else (float32 prefill in full float32):
-  ``csrc/flash_attention.cu`` on the CUDA cores, 32 queries and 64 keys a
-  block.
+  ``csrc/flash_attention.cu`` on the CUDA cores, register outer products
+  over :func:`simt_q_tile` queries (256 at d = 64) and 64 keys a CTA.
 
 The prefill kernels walk the kv axis in tiles of ``KV_TILE`` keys, and
 :func:`flash_attention_plain` is their plain version.
@@ -30,6 +30,7 @@ import math
 
 import torch
 
+from repro_torch.core import _native
 from repro_torch.kernels.launcher import (F, I, P, Launcher, check_tensors,
                                           dtype_code)
 from repro_torch.kernels.ref import NEG_INF
@@ -71,6 +72,19 @@ PLAIN_TOL = {**{(r, torch.float32): (2e-5, 2e-5)
              ("simt", torch.bfloat16): (1e-2, 1e-4),
              ("tc", torch.bfloat16): (1e-2, 3e-3),
              ("decode", torch.bfloat16): (1e-2, 1e-4)}
+
+
+def simt_q_tile(d: int) -> int:
+    """The query rows a CTA of the ``"simt"`` kernel owns at head width
+    ``d``, as its launcher's ``flash_attention_q_tile`` gives them (builds
+    the kernels' library at first use)."""
+    return _native.function("flash_attention_q_tile", (I,))(d)
+
+
+def simt_ctas(B: int, H: int, Sq: int, d: int) -> int:
+    """The CTAs that the ``"simt"`` kernel's launcher starts for ``B * H``
+    heads of ``Sq`` queries, as its ``flash_attention_ctas`` gives them."""
+    return _native.function("flash_attention_ctas", (I,) * 4)(B, H, Sq, d)
 
 
 def _padded(d: int) -> int:

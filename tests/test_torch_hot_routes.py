@@ -40,6 +40,12 @@ DECODE = [(2, 8, 2, 1, 1, 64, False),
           (1, 8, 2, 1, 4096, 64, False),
           (2, 4, 1, 1, 300, 128, False),
           (2, 8, 2, 2, 777, 64, True)]
+#: the "simt" kernel's ragged cases: Sq and Skv off its query tile (256
+#: at d = 48 and 64, 128 at d = 16, 64 at d = 128) and off the 64-key
+#: tile, head widths 16, 48 and 128, causal and not, GQA
+SIMT_RAGGED = [(1, 4, 1, 300, 300, 64, True), (1, 4, 2, 130, 77, 64, False),
+               (1, 2, 2, 129, 260, 16, True), (1, 4, 2, 100, 333, 48, True),
+               (1, 2, 1, 70, 150, 128, True), (2, 2, 1, 65, 65, 128, False)]
 #: tests/test_kernels.py's matmul sweep (M, N, K, grain) and wider ones
 MATMUL = [(128, 128, 128, 1), (256, 128, 64, 2), (64, 256, 128, 1),
           (72, 200, 40, 1), (1024, 1024, 4096, 1), (8192, 2048, 8192, 1)]
@@ -209,6 +215,19 @@ def test_flash_plain_rounds_p_to_bfloat16(B, H, Hkv, Sq, Skv, d, causal):
            TOL["bfloat16"])
 
 
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,d,causal", SIMT_RAGGED)
+def test_flash_plain_matches_the_reference_off_the_simt_tiles(
+        B, H, Hkv, Sq, Skv, d, causal):
+    # the plain version the "simt" kernel is held to, at its ragged cases
+    arrays = _flash_inputs(B, H, Hkv, Sq, Skv, d)
+    q, k, v = _to_torch(arrays, "float32")
+    assert tfa.route(q, k, v) == "simt"
+    got = tfa.flash_attention_plain(q, k, v, causal=causal, q_blk=Sq,
+                                    kv_blk=Skv)
+    _close(got, _reference_flash(arrays, "float32", causal, Sq, Skv),
+           TOL["float32"])
+
+
 # ---- on the card ------------------------------------------------------
 @pytest.fixture
 def card():
@@ -294,3 +313,45 @@ def test_decode_matches_its_plain_version(card, B, H, Hkv, Sq, Skv, d,
     _close_to_plain(got, want, "decode")
     _close(got, tref.flash_attention_ref(q, k, v, causal=causal).float()
            .cpu().numpy(), TOL[dtype])
+
+
+def _off_16_bytes(t):
+    """``t`` copied into a view one element past a 16-byte boundary."""
+    base = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    return base[1:1 + t.numel()].view(t.shape).copy_(t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,offset", (("float32", False),
+                                          ("float32", True),
+                                          ("bfloat16", True)))
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,d,causal", PREFILL + SIMT_RAGGED)
+def test_simt_prefill_matches_its_plain_version_and_the_oracle(
+        card, B, H, Hkv, Sq, Skv, d, causal, dtype, offset):
+    # float32 on 16-byte boundaries stages K and V by cp.async; a q one
+    # element off (the bfloat16 calls the tensor-core route refuses, and
+    # float32 views) stages them through registers
+    q, k, v = _to_torch(_flash_inputs(B, H, Hkv, Sq, Skv, d), dtype, card)
+    if offset:
+        q = _off_16_bytes(q)
+    assert tfa.route(q, k, v) == "simt"
+    kw = dict(causal=causal, q_blk=Sq, kv_blk=Skv)
+    got = _launch_once("flash_attention",
+                       lambda: tops.flash_attention(q, k, v, **kw))
+    want = tfa.flash_attention_plain(q, k, v, **kw)
+    assert got.dtype == q.dtype and torch.isfinite(got).all()
+    _close_to_plain(got, want, "simt")
+    _close(got, tref.flash_attention_ref(q, k, v, causal=causal).float()
+           .cpu().numpy(), TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,want", ((1, 128), (16, 128), (32, 128),
+                                    (33, 256), (48, 256), (64, 256),
+                                    (65, 64), (128, 64)))
+def test_simt_ctas_own_the_query_tile(card, d, want):
+    # the launcher's own counts: 256 queries a CTA at 33 <= d <= 64, 128
+    # below, 64 above
+    assert tfa.simt_q_tile(d) == want
+    assert tfa.simt_ctas(2, 4, 300, d) == 2 * 4 * -(-300 // want)
+    assert tfa.simt_ctas(2, 32, 4096, 64) == 2 * 32 * 16

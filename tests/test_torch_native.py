@@ -492,3 +492,56 @@ def test_vecadd_refuses_a_block_the_chevron_refuses(card, block):
     bufs = {k: torch.zeros(4096, device=card) for k in "abc"}
     with pytest.raises(RuntimeError, match="launch_vecadd"):
         lower_cuda.KERNELS["vecadd"](bufs, grid=1, block=block, n=4096)
+
+
+#: (h, w, grid) of transpose_tiled: the main path; partial grids of 5 and
+#: 65 tiles and one ending mid-row of a physical CTA (3 tile rows and 5
+#: tiles, of 8 x 8 a CTA); h != w, sides off the CTA's 64, a grid of
+#: one tile, one tile column, one tile row
+TRANSPOSE = ((4096, 4096, 262_144), (256, 256, 5), (256, 256, 65),
+             (256, 256, 101), (128, 384, 768), (384, 136, 816),
+             (72, 200, 50), (8, 8, 1), (64, 8, 8), (8, 1024, 100))
+
+
+@pytest.mark.parametrize("h,w,grid", TRANSPOSE)
+def test_transpose_tiled_ctas_cover_the_grids_tiles(h, w, grid):
+    # the least physical grid that holds every logical tile below the
+    # grid: the largest CTA column and row any of them falls in
+    side, per_row = lower_cuda.TRANSPOSE_CTA, w // 8
+    cx = cy = 0
+    for tile in range(grid):
+        by, bx = divmod(tile, per_row)
+        cx, cy = max(cx, bx * 8 // side + 1), max(cy, by * 8 // side + 1)
+    assert lower_cuda.transpose_tiled_ctas(h, w, grid) == (cx, cy)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("h,w,grid", TRANSPOSE)
+def test_transpose_tiled_bit_for_bit_on_the_card(card, h, w, grid, offset):
+    # y equals the plain version's bits: x's where the grid covers the
+    # tile, its own input past the grid; x 4 bytes past a 16-byte
+    # boundary takes the launcher's one-float path
+    r = np.random.default_rng(42)
+    host = {"x": torch.from_numpy(r.standard_normal((h, w), np.float32)),
+            "y": torch.from_numpy(r.standard_normal((w, h), np.float32))}
+    bufs = {}
+    for name, t in host.items():
+        flat = torch.zeros(t.numel() + 4, device=card)
+        bufs[name] = flat[offset:offset + t.numel()].view(t.shape)
+        bufs[name].copy_(t.to(card))
+        assert bool(bufs[name].data_ptr() % 16) == bool(offset)
+    kern = lower_cuda.KERNELS["transpose_tiled"]
+    before = kern.launches
+    got = kern(bufs, grid=grid, block=64, h=h, w=w)["y"].cpu()
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = kern.plain(host, Dim3(grid), Dim3(64), h=h, w=w)["y"]
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    tile = (torch.arange(h)[:, None] // 8) * (w // 8) \
+        + torch.arange(w)[None, :] // 8
+    covered = (tile < grid).t()
+    assert torch.equal(got[covered].view(torch.int32),
+                       host["x"].t()[covered].view(torch.int32))
+    assert torch.equal(got[~covered].view(torch.int32),
+                       host["y"][~covered].view(torch.int32))
