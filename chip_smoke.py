@@ -737,7 +737,7 @@ def main() -> int:
             elif kname == "transpose_tiled":
                 cx, cy = lower_cuda.transpose_tiled_ctas(
                     params["h"], params["w"], grid.x)
-                side = lower_cuda.TRANSPOSE_CTA
+                side = lower_cuda.transpose_tiled_side()
                 ctas = f" ctas={cx * cy} ({cx} x {cy} of {side} x {side})"
             elif kname == "vecadd":
                 # vecadd_ctas counts the launcher's 16-byte path; buffers

@@ -1280,20 +1280,23 @@ def _transpose_check(grid: Dim3, block: Dim3, params: dict):
                                 f"{(h // t) * (w // t)} tiles")
 
 
-#: the side of the square of x one physical CTA of
-#: ``csrc/transpose_tiled.cu`` moves (8 x 8 logical tiles)
-TRANSPOSE_CTA = 64
+def transpose_tiled_side() -> int:
+    """The side of the square of x that one physical CTA of
+    ``csrc/transpose_tiled.cu`` moves, as its ``transpose_tiled_side``
+    gives it (builds the kernels' library at first use)."""
+    return _native.function("transpose_tiled_side", ())()
 
 
 def transpose_tiled_ctas(h: int, w: int, grid: int) -> tuple[int, int]:
-    """The physical grid ``(x, y)`` of ``TRANSPOSE_CTA``-square CTAs that
-    covers a logical grid of ``grid`` 8 x 8 tiles of an ``[h, w]`` x (tile
-    ``by * w/8 + bx``): the CTA columns down to the last column the grid
-    reaches, and the CTA rows down to its last tile row."""
+    """The physical grid ``(x, y)`` of :func:`transpose_tiled_side`-square
+    CTAs that covers a logical grid of ``grid`` 8 x 8 tiles of an ``[h,
+    w]`` x (tile ``by * w/8 + bx``): the CTA columns down to the last
+    column the grid reaches, and the CTA rows down to its last tile row."""
     t, per_row = TRANSPOSE_TILE, w // TRANSPOSE_TILE
     cols = min(grid, per_row) * t
     rows = -(-grid // per_row) * t
-    return -(-cols // TRANSPOSE_CTA), -(-rows // TRANSPOSE_CTA)
+    side = transpose_tiled_side()
+    return -(-cols // side), -(-rows // side)
 
 
 TRANSPOSE_TILED = CudaKernel(

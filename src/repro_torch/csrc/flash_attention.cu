@@ -17,10 +17,10 @@
 // take 0.128 ms on the special-function units.  So the design is about
 // keeping the FMA pipes fed, FlashAttention's online softmax on the CUDA
 // cores with both products as register outer products:
-// - a CTA of 256 threads owns (b, h, BQ queries), so each K and V tile
-//   read from L2 serves BQ rows: 256 at d = 64, 128 up to d = 32, 64 at
-//   d = 128 (where two float32 K/V buffers and a bigger q tile do not fit
-//   227 KB);
+// - a CTA of 256 threads (128 up to d = 32) owns (b, h, BQ queries), so
+//   each K and V tile read from L2 serves BQ rows: 256 at d = 64, 128 up
+//   to d = 32, 64 at d = 128 (where two float32 K/V buffers and a bigger
+//   q tile do not fit 227 KB);
 // - the thread grid is TY x TX: thread (ty, tx) owns the TM rows ty + TY i,
 //   of each 64-key tile the keys tx + TX j, and of the output the columns
 //   tx 4 + 4 TX c + (0..3).  At d = 64 TM = 8 and TX = 8: S = q k^T is
@@ -53,8 +53,9 @@
 // Skv not a multiple of the tiles, d below its padded width of 32, 64 or
 // 128) are zero-filled on load and masked on store.
 // tools/flash_attention_variants.cu times this kernel beside the one it
-// replaced (32 queries a CTA, a warp's 4 rows, synchronous staging) and
-// beside other query tiles, micro-tiles, unrolls, staging and CTA orders.
+// replaced (32 queries a CTA, a warp's 4 rows, synchronous staging), in
+// float32 and bfloat16 at d = 32, 64 and 128, and beside other query
+// tiles, micro-tiles, unrolls, staging and CTA orders.
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -97,11 +98,9 @@ __device__ __forceinline__ float exp2_approx(float x) {
 
 // A CTA's shape for the padded head width DP: BQ query rows, TM of them a
 // thread; TX threads share a row.  UNROLL_D: d's float4 steps of S that
-// one turn of its loop unrolls; HEAVY_FIRST orders causal CTAs by their
-// work.  The launcher's shapes are ShapeOf<DP> below; the variant tool
-// instantiates others.
-template <int DP_, int BQ_, int TM_, int TX_, int UNROLL_D = DP_ / 4,
-          bool HEAVY_FIRST = true>
+// one turn of its loop unrolls.  The launcher's shapes are ShapeOf<DP>
+// below; the variant tool instantiates others.
+template <int DP_, int BQ_, int TM_, int TX_, int UNROLL_D = DP_ / 4>
 struct Shape {
   static constexpr int DP = DP_, BQ = BQ_, TM = TM_, TX = TX_;
   static constexpr int TY = BQ / TM;          // row groups
@@ -112,7 +111,6 @@ struct Shape {
   static constexpr int LD = DP + 4;           // padded row of q, K, V
   static constexpr int PS = G * TM + 4;       // a key's row of a warp's p
   static constexpr int kUnrollD = UNROLL_D;
-  static constexpr bool kHeavyFirst = HEAVY_FIRST;
   static_assert(NT % 32 == 0 && 32 % TX == 0 && TM % 4 == 0 && CN % 4 == 0,
                 "a warp holds whole rows; rows and columns in float4s");
   // q, two buffers of K and V, p of each warp
@@ -120,14 +118,16 @@ struct Shape {
       sizeof(float) * ((size_t)BQ * LD + 4 * kKT * LD + NT / 32 * kKT * PS);
 };
 
-// The launcher's shape for the padded head width DP
-// (tools/flash_attention_variants.cu): d = 64 takes 256 queries a CTA and
-// 8 x 8 micro-tiles (4 FMAs a float read from shared memory) with S's
-// loop over d not unrolled, which keeps it under 255 registers.
+// The launcher's shape for the padded head width DP, the fastest of those
+// tools/flash_attention_variants.cu times at each width on an H100: d = 64
+// takes 256 queries a CTA and 8 x 8 micro-tiles (4 FMAs a float read from
+// shared memory) with S's loop over d not unrolled, which keeps it under
+// 255 registers; d = 32 the same micro-tiles over 128 queries a CTA of
+// 128 threads, two CTAs an SM; d = 128 4 x 4 over 64 queries.
 template <int DP>
 struct ShapeOf;
 template <>
-struct ShapeOf<32> { using type = Shape<32, 128, 4, 8>; };
+struct ShapeOf<32> { using type = Shape<32, 128, 8, 8>; };
 template <>
 struct ShapeOf<64> { using type = Shape<64, 256, 8, 8, 1>; };
 template <>
@@ -205,8 +205,7 @@ __global__ void __launch_bounds__(S::NT, 1)
   const int nq = (Sq + BQ - 1) / BQ;
   // heaviest (last) query tiles first: under the causal mask they walk
   // the most kv tiles
-  const int qt = S::kHeavyFirst ? nq - 1 - (int)(blockIdx.x / BH)
-                                : (int)(blockIdx.x / BH);
+  const int qt = nq - 1 - (int)(blockIdx.x / BH);
   const int bh = blockIdx.x % BH;
   const int h = bh % H, b = bh / H, hk = h / (H / Hkv);
   const int q0 = qt * BQ;

@@ -33,11 +33,12 @@
 // Physical to logical: the chevron's grid and block stay the entry's
 // (262,144 blocks of 64 at 4096 x 4096).  The wrapper gives the launcher
 // a physical grid of ceil(covered columns / kT) x ceil(covered rows / kT)
-// squares (lower_cuda.transpose_tiled_ctas; 4,096 at 4096 x 4096); a
-// square may reach past h or w (both are multiples of 8, not of kT) and
-// past the logical grid, so each float4 is loaded only inside x and
-// stored only where its logical tile (row/8) * (w/8) + col/8 is below the
-// grid.  A float4 never straddles two tiles.  A copy: y equals x's bits.
+// squares (lower_cuda.transpose_tiled_ctas, which reads kT from
+// transpose_tiled_side below; 4,096 at 4096 x 4096); a square may reach
+// past h or w (both are multiples of 8, not of kT) and past the logical
+// grid, so each float4 is loaded only inside x and stored only where its
+// logical tile (row/8) * (w/8) + col/8 is below the grid.  A float4 never
+// straddles two tiles.  A copy: y equals x's bits.
 // stencil2d has the same 8 x 8 geometry and can take the same mapping.
 //
 // Alignment: the float4 accesses need x and y on 16-byte boundaries (their
@@ -77,28 +78,27 @@ struct Vec<1> {
   }
 };
 
-// T: the square's side; VEC: floats an access; PAD: floats a row of the
-// __shared__ square is padded by; NT: threads a CTA.  Item u of a thread
-// is, in sub-square u / kPasses, the row (u % kPasses) * kRows + tid /
-// kLanes and the VEC columns from (tid % kLanes) * VEC; the stores take
-// the same item as (row of y, VEC columns of y).
-template <int T, int VEC, int PAD, int NT>
-__global__ void __launch_bounds__(NT)
+// VEC: floats an access.  Item u of a thread is, in sub-square u /
+// kPasses, the row (u % kPasses) * kRows + tid / kLanes and the VEC
+// columns from (tid % kLanes) * VEC; the stores take the same item as
+// (row of y, VEC columns of y).
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
     transpose_square_kernel(const float* __restrict__ x,
                             float* __restrict__ y, int h, int w,
                             int grid) {
   using V = typename Vec<VEC>::type;
   constexpr int kLanes = kSub / VEC;        // threads across a sub-row
-  constexpr int kRows = NT / kLanes;        // sub-rows a pass
-  static_assert(T % kSub == 0 && kSub % kRows == 0 && kLogical % VEC == 0,
+  constexpr int kRows = kThreads / kLanes;  // sub-rows a pass
+  static_assert(kT % kSub == 0 && kSub % kRows == 0 && kLogical % VEC == 0,
                 "the passes must tile the square");
   constexpr int kPasses = kSub / kRows;
-  constexpr int kSubs = T / kSub;
+  constexpr int kSubs = kT / kSub;
   constexpr int kItems = kSubs * kSubs * kPasses;
-  __shared__ float t[T][T + PAD];
+  __shared__ float t[kT][kT + 1];   // padded by one float: no conflicts
 
   const int tid = threadIdx.x;
-  const int r0 = blockIdx.y * T, c0 = blockIdx.x * T;
+  const int r0 = blockIdx.y * kT, c0 = blockIdx.x * kT;
   const int lr = tid / kLanes, lc = (tid % kLanes) * VEC;
   V v[kItems];
 #pragma unroll
@@ -141,7 +141,7 @@ __global__ void __launch_bounds__(NT)
 template <int VEC>
 cudaError_t launch_square(const float* x, float* y, int h, int w, int grid,
                           int ctas_x, int ctas_y, cudaStream_t stream) {
-  transpose_square_kernel<kT, VEC, 1, kThreads>
+  transpose_square_kernel<VEC>
       <<<dim3(ctas_x, ctas_y), kThreads, 0, stream>>>(x, y, h, w, grid);
   return cudaGetLastError();
 }
@@ -162,3 +162,7 @@ extern "C" int launch_transpose_tiled(const float* x, float* y, int h,
                         : launch_square<4>(x, y, h, w, grid, ctas_x, ctas_y,
                                            s));
 }
+
+// The side of the square of x that one physical CTA moves (kT), from
+// which lower_cuda.transpose_tiled_ctas computes the physical grid.
+extern "C" int transpose_tiled_side() { return kT; }

@@ -19,7 +19,8 @@ tiles, and any ``d`` up to 128.  Three kernels, chosen by :func:`route`:
   rounded to bfloat16 for the product with v;
 * ``"simt"`` - everything else (float32 prefill in full float32):
   ``csrc/flash_attention.cu`` on the CUDA cores, register outer products
-  over :func:`simt_q_tile` queries (256 at d = 64) and 64 keys a CTA.
+  over :func:`simt_q_tile` queries (256 at d = 64, 128 at d <= 32, 64 at
+  d = 128) and 64 keys a CTA.
 
 The prefill kernels walk the kv axis in tiles of ``KV_TILE`` keys, and
 :func:`flash_attention_plain` is their plain version.

@@ -503,11 +503,16 @@ TRANSPOSE = ((4096, 4096, 262_144), (256, 256, 5), (256, 256, 65),
              (72, 200, 50), (8, 8, 1), (64, 8, 8), (8, 1024, 100))
 
 
+@pytest.mark.parametrize("side", (32, 64))
 @pytest.mark.parametrize("h,w,grid", TRANSPOSE)
-def test_transpose_tiled_ctas_cover_the_grids_tiles(h, w, grid):
+def test_transpose_tiled_ctas_cover_the_grids_tiles(monkeypatch, h, w,
+                                                     grid, side):
     # the least physical grid that holds every logical tile below the
-    # grid: the largest CTA column and row any of them falls in
-    side, per_row = lower_cuda.TRANSPOSE_CTA, w // 8
+    # grid: the largest CTA column and row any of them falls in.  The
+    # CTA's side comes from the kernel's source on the card; here it is
+    # each of the squares the design was timed at
+    monkeypatch.setattr(lower_cuda, "transpose_tiled_side", lambda: side)
+    per_row = w // 8
     cx = cy = 0
     for tile in range(grid):
         by, bx = divmod(tile, per_row)

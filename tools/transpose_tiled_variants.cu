@@ -9,9 +9,11 @@
 //                 padded by one float), 16-byte aligned, and with x and y
 //                 4 bytes off (one float an access, sixteen a thread);
 //   T<t> v<n> p<p> t<k>
-//                 the kernel's template at other squares t (32, 64), n
-//                 floats an access (1, 4), padding p (0, 1) and k threads
-//                 a CTA (128, 256): t^2 / k floats a thread in flight;
+//                 the kernel's design written again (square_kernel
+//                 below) at squares t (32, 64), n floats an access (1,
+//                 4), padding p (0, 1) and k threads a CTA (128, 256):
+//                 t^2 / k floats a thread in flight; T64 v4 p1 t256 is
+//                 the shipped kernel's shape;
 //   memcpy        cudaMemcpyAsync of the same 67 MB device to device, the
 //                 card's own copy, as a yardstick for reads and writes.
 // Each turn times every variant as the median of 25 CUDA-event runs after
@@ -50,9 +52,66 @@ __global__ void block_8x8(const float* __restrict__ x, float* y, int h,
   y[(size_t)(bx * 8 + ty) * h + by * 8 + tx] = t[tx][ty];
 }
 
+// the shipped kernel's design written again with its square T, floats an
+// access VEC, padding PAD and threads NT as parameters (the shipped
+// kernel fixes T = 64, PAD = 1 and NT = 256)
+template <int T, int VEC, int PAD, int NT>
+__global__ void __launch_bounds__(NT)
+    square_kernel(const float* __restrict__ x, float* __restrict__ y, int h,
+                  int w, int grid) {
+  using V = typename Vec<VEC>::type;
+  constexpr int kLanes = kSub / VEC;
+  constexpr int kRows = NT / kLanes;
+  static_assert(T % kSub == 0 && kSub % kRows == 0 && kLogical % VEC == 0,
+                "the passes must tile the square");
+  constexpr int kPasses = kSub / kRows;
+  constexpr int kSubs = T / kSub;
+  constexpr int kItems = kSubs * kSubs * kPasses;
+  __shared__ float t[T][T + PAD];
+
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.y * T, c0 = blockIdx.x * T;
+  const int lr = tid / kLanes, lc = (tid % kLanes) * VEC;
+  V v[kItems];
+#pragma unroll
+  for (int u = 0; u < kItems; ++u) {
+    const int s = u / kPasses;
+    const int r = (s / kSubs) * kSub + (u % kPasses) * kRows + lr;
+    const int c = (s % kSubs) * kSub + lc;
+    if (r0 + r < h && c0 + c < w)
+      v[u] = *reinterpret_cast<const V*>(x + (size_t)(r0 + r) * w + c0 + c);
+    else
+      v[u] = V{};
+  }
+#pragma unroll
+  for (int u = 0; u < kItems; ++u) {
+    const int s = u / kPasses;
+    const int r = (s / kSubs) * kSub + (u % kPasses) * kRows + lr;
+    const int c = (s % kSubs) * kSub + lc;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) t[r][c + e] = Vec<VEC>::get(v[u], e);
+  }
+  __syncthreads();
+  const long long tiles_w = w / kLogical;
+#pragma unroll
+  for (int u = 0; u < kItems; ++u) {
+    const int s = u / kPasses;
+    const int a = (s / kSubs) * kSub + (u % kPasses) * kRows + lr;
+    const int b = (s % kSubs) * kSub + lc;
+    const int xr = r0 + b, xc = c0 + a;
+    if (xr < h && xc < w &&
+        (xr / kLogical) * tiles_w + xc / kLogical < grid) {
+      float f[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) f[e] = t[b + e][a];
+      *reinterpret_cast<V*>(y + (size_t)xc * h + xr) = Vec<VEC>::make(f);
+    }
+  }
+}
+
 template <int T, int VEC, int PAD, int NT>
 void square(const float* x, float* y) {
-  transpose_square_kernel<T, VEC, PAD, NT>
+  square_kernel<T, VEC, PAD, NT>
       <<<dim3(kW / T, kH / T), NT>>>(x, y, kH, kW, (kH / 8) * (kW / 8));
 }
 
@@ -102,17 +161,17 @@ int main() {
   cudaMemcpy(want_off.data(), ref, bytes, cudaMemcpyDeviceToHost);
 
   using Launch = std::function<void(const float*, float*)>;
-  const int grid = (kH / 8) * (kW / 8);
+  const int grid = (kH / 8) * (kW / 8), side = transpose_tiled_side();
   const std::vector<std::pair<std::string, std::pair<int, Launch>>> runs = {
       {"8x8 block", {0, [&](const float* xp, float* yp) {
          block_8x8<<<grid, 64>>>(xp, yp, kH, kW);
        }}},
       {"kernel", {0, [&](const float* xp, float* yp) {
-         launch_transpose_tiled(xp, yp, kH, kW, grid, kW / kT, kH / kT,
+         launch_transpose_tiled(xp, yp, kH, kW, grid, kW / side, kH / side,
                                 nullptr);
        }}},
       {"kernel, 4 bytes off", {1, [&](const float* xp, float* yp) {
-         launch_transpose_tiled(xp, yp, kH, kW, grid, kW / kT, kH / kT,
+         launch_transpose_tiled(xp, yp, kH, kW, grid, kW / side, kH / side,
                                 nullptr);
        }}},
       {"T64 v4 p1 t256", {0, Launch(square<64, 4, 1, 256>)}},
