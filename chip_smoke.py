@@ -34,9 +34,16 @@ Phases, each printing its own lines:
    move two float4s each) and of the kernels that run a logical block a
    warp in CTAs of 256 (reduce_shared, reduce_warp, srad_stats,
    softmax_row: one row a warp, its values in registers, no barrier)
-   also give their physical CTA counts, as does transpose_tiled's (64 x
+   also give their physical CTA counts, as do transpose_tiled's (64 x
    64 squares of x, one barrier each, from
-   ``lower_cuda.transpose_tiled_ctas``);
+   ``lower_cuda.transpose_tiled_ctas``), hotspot's (8 warps a CTA over
+   8 x 128 cells, ``lower_cuda.hotspot_ctas``) and bfs_frontier's (1024
+   nodes a CTA of 256 in each of its two passes,
+   ``lower_cuda.bfs_frontier_ctas``).  bfs_frontier's line also gives
+   ``levels_ms``, its kernel time summed over the chain's launches, each
+   timed at the state its level sees, and ``levels_bound_ms``, their
+   bounds summed; the ``levels bfs_frontier`` line before it has each
+   level's time, bound and frontier;
 3. the main path: the eleven Rodinia entries at Rodinia 3.1's run-script
    sizes, and the twelve textbook entries at sizes that load the card
    (``SIZES``), through ``run_entry(entry, backend="cuda")`` - chevron/
@@ -106,8 +113,8 @@ REPLACES = "src/repro/core/pallas_emit.py:34"
 #: float32 kernels held to the entry's tol against their plain versions
 #: (FMA contraction, exp, a fold in another order); every other kernel is
 #: held bit for bit
-TOLERANT = ("hotspot", "srad_update", "backprop_layer", "lud_diag",
-            "lavamd", "matmul_tiled", "softmax_row", "pixel_pipeline")
+TOLERANT = ("srad_update", "backprop_layer", "lud_diag", "lavamd",
+            "matmul_tiled", "softmax_row", "pixel_pipeline")
 #: entries whose float32 results the oracle fixes bit for bit
 EXACT_ENTRIES = ("kmeans", "vecadd", "stencil1d", "stencil2d",
                  "transpose_tiled")
@@ -219,25 +226,28 @@ def entries(cuda_suite):
             for name, size in SIZES.items()}
 
 
+def bfs_state(args: dict, dist: np.ndarray, level: int) -> dict:
+    """bfs's buffers before the chain's launch at ``level``: the state
+    before a level's expansion is fixed by the distances alone."""
+    return {**args, "frontier": (dist == level).astype(np.int32),
+            "visited": ((dist >= 0) & (dist <= level)).astype(np.int32),
+            "dist": np.where(dist <= level, dist, -1).astype(np.int32),
+            "level": np.full(1, level, np.int32)}
+
+
 def launch_inputs(name: str, args: dict, cuda_suite, dev) -> dict:
     """The buffers of an entry's first launch on the card, at a state the
     main path reaches.
 
-    BFS takes the level with the widest frontier (the state before its
-    expansion is fixed by the distances alone); nw its longest diagonal;
-    the other chains their first launch; the single-launch entries their
-    one launch.
+    BFS takes the level with the widest frontier; nw its longest
+    diagonal; the other chains their first launch; the single-launch
+    entries their one launch.
     """
     args = dict(args)
     if name == "bfs_frontier":
-        n = SIZES[name]["n"]
-        dist = cuda_suite.bfs_levels(args["edges"], n)
-        level = int(np.bincount(dist[dist >= 0]).argmax())
-        args.update(
-            frontier=(dist == level).astype(np.int32),
-            visited=((dist >= 0) & (dist <= level)).astype(np.int32),
-            dist=np.where(dist <= level, dist, -1).astype(np.int32),
-            level=np.full(1, level, np.int32))
+        dist = cuda_suite.bfs_levels(args["edges"], SIZES[name]["n"])
+        args = bfs_state(args, dist, int(np.bincount(dist[dist >= 0])
+                                         .argmax()))
     elif name == "needle_nw":
         args["diag"] = np.full(1, SIZES[name]["n"] + 1, np.int32)
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
@@ -449,12 +459,9 @@ def library_call(name: str, b: dict, params: dict, grid, block, got):
     return None
 
 
-def check_and_time(name, kern, b, params, grid, block, tol):
-    """The kernel's row of the JSON line, and its launch's outputs."""
-    got = kern(b, grid=grid, block=block, **params)
-    want = kern.plain(b, grid, block, **params)
-    torch.cuda.synchronize()
-    err = compare(name, got, want, kern.writes, tol)
+def launch_ms(kern, b, params, grid, block) -> float:
+    """The kernel's time alone on the buffers ``b``: its written buffers
+    restored between runs, outside the timed window."""
     pristine = {k: b[k].clone() for k in kern.writes}
     work = {**b, **{k: v.clone() for k, v in pristine.items()}}
 
@@ -462,8 +469,33 @@ def check_and_time(name, kern, b, params, grid, block, tol):
         for k, v in pristine.items():
             work[k].copy_(v)
 
-    ms = time_ms(lambda: kern.launch_into(work, grid, block, **params),
-                 before=restore)
+    return time_ms(lambda: kern.launch_into(work, grid, block, **params),
+                   before=restore)
+
+
+def bfs_chain_levels(kern, args, params, grid, block, cuda_suite, dev) -> dict:
+    """bfs's kernel time at each of the chain's launches, each at the
+    state that level sees, with its bound and the frontier's size."""
+    dist = cuda_suite.bfs_levels(args["edges"], params["n"])
+    out = {"ms": [], "bound_ms": [], "frontier": []}
+    for level in range(int(dist.max()) + 1):
+        state = bfs_state(args, dist, level)
+        b = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in state.items()}
+        out["ms"].append(launch_ms(kern, b, params, grid, block))
+        out["bound_ms"].append(bound("bfs_frontier", b, params, grid,
+                                     block)[0])
+        out["frontier"].append(int(state["frontier"].sum()))
+    return out
+
+
+def check_and_time(name, kern, b, params, grid, block, tol):
+    """The kernel's row of the JSON line, and its launch's outputs."""
+    got = kern(b, grid=grid, block=block, **params)
+    want = kern.plain(b, grid, block, **params)
+    torch.cuda.synchronize()
+    err = compare(name, got, want, kern.writes, tol)
+    ms = launch_ms(kern, b, params, grid, block)
     call_ms = time_ms(lambda: kern(b, grid=grid, block=block, **params))
     plain_ms = time_ms(lambda: kern.plain(b, grid, block, **params))
     lib = library_call(name, b, params, grid, block, got)
@@ -739,6 +771,19 @@ def main() -> int:
                     params["h"], params["w"], grid.x)
                 side = lower_cuda.transpose_tiled_side()
                 ctas = f" ctas={cx * cy} ({cx} x {cy} of {side} x {side})"
+            elif kname == "hotspot":
+                cx, cy = lower_cuda.hotspot_ctas(params["h"], params["w"],
+                                                 grid)
+                cr, cc = lower_cuda.hotspot_region()
+                ctas = f" ctas={cx * cy} ({cx} x {cy} of {cr} x {cc})"
+            elif kname == "bfs_frontier":
+                lv = bfs_chain_levels(kern, host_args[name], params, grid,
+                                      block, cuda_suite, dev)
+                print("levels bfs_frontier: " + " ".join(
+                    f"{k}={v}" for k, v in lv.items()))
+                ctas = (f" levels_ms={sum(lv['ms'])} levels_bound_ms="
+                        f"{sum(lv['bound_ms'])} ctas="
+                        f"{lower_cuda.bfs_frontier_ctas(params['n'])} a pass")
             elif kname == "vecadd":
                 # vecadd_ctas counts the launcher's 16-byte path; buffers
                 # off 16 bytes would take its one-element path instead

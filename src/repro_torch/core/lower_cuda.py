@@ -209,19 +209,67 @@ def _bfs_check(grid: Dim3, block: Dim3, params: dict):
                                 f"keys overflow int32")
 
 
-BFS_FRONTIER = CudaKernel(
+#: the launches' scratch, one for each (device, stream, n): ``owner`` is
+#: INT_MAX between launches (the winners put it back), so it is filled
+#: once, not on every launch (csrc/bfs_frontier.cu says why that is
+#: safe); ``bids`` needs no fill
+_BFS_SCRATCH: dict[tuple, dict[str, torch.Tensor]] = {}
+
+
+def _bfs_scratch_key(b, n: int) -> tuple:
+    dev = b["edges"].device
+    return dev, torch.cuda.current_stream(dev).cuda_stream, n
+
+
+def _bfs_scratch(b, *, n, deg):
+    key = _bfs_scratch_key(b, n)
+    if key not in _BFS_SCRATCH:
+        _BFS_SCRATCH[key] = {
+            "owner": torch.full((n,), _INT_MAX, dtype=_I32, device=key[0]),
+            "bids": torch.empty((n,), dtype=_I32, device=key[0])}
+    return _BFS_SCRATCH[key]
+
+
+def bfs_frontier_cta_nodes() -> int:
+    """The nodes one CTA of ``csrc/bfs_frontier.cu`` covers, as its
+    ``bfs_frontier_cta_nodes`` gives them (builds the kernels' library at
+    first use)."""
+    return _native.function("bfs_frontier_cta_nodes", ())()
+
+
+def bfs_frontier_ctas(n: int) -> int:
+    """The CTAs each pass of a launch over ``n`` nodes starts: enough
+    :func:`bfs_frontier_cta_nodes`-node CTAs to hold node ``n - 1``."""
+    return -(-n // bfs_frontier_cta_nodes())
+
+
+class _BfsFrontierKernel(CudaKernel):
+    """The bfs wrapper: a launch that raises may have left bids in its
+    stream's ``owner``, so the scratch goes and the next launch fills a
+    new one."""
+
+    def launch_into(self, bufs: dict, grid: Dim3, block: Dim3,
+                    **params) -> None:
+        try:
+            super().launch_into(bufs, grid, block, **params)
+        except BaseException:
+            _BFS_SCRATCH.pop(_bfs_scratch_key(bufs, params["n"]), None)
+            raise
+
+
+BFS_FRONTIER = _BfsFrontierKernel(
     name="bfs_frontier", symbol="launch_bfs_frontier",
-    argtypes=(_P,) * 8 + (_I,) * 4 + (_P,),
+    argtypes=(_P,) * 9 + (_I,) * 4 + (_P,),
     buffers={"edges": _I32, "frontier": _I32, "visited": _I32, "nxt": _I32,
              "dist": _I32, "active": _I32, "level": _I32},
     writes=("visited", "nxt", "dist", "active"),
     shapes=_bfs_shapes, check=_bfs_check, plain=bfs_frontier_plain,
-    scratch=lambda b, *, n, deg: {"owner": torch.full(
-        (n,), _INT_MAX, dtype=_I32, device=b["edges"].device)},
+    scratch=_bfs_scratch,
     cargs=lambda b, grid, block, *, n, deg: [
         _ptr(b["edges"]), _ptr(b["frontier"]), _ptr(b["owner"]),
-        _ptr(b["visited"]), _ptr(b["nxt"]), _ptr(b["dist"]),
-        _ptr(b["active"]), _ptr(b["level"]), n, deg, grid.x, block.x],
+        _ptr(b["bids"]), _ptr(b["visited"]), _ptr(b["nxt"]),
+        _ptr(b["dist"]), _ptr(b["active"]), _ptr(b["level"]), n, deg,
+        block.x, bfs_frontier_ctas(n)],
     source="src/repro_torch/csrc/bfs_frontier.cu")
 
 
@@ -338,16 +386,36 @@ def _tile_2d(name: str, t: int):
     return check
 
 
+def hotspot_region() -> tuple[int, int]:
+    """The rows and columns of cells one CTA of ``csrc/hotspot.cu``
+    covers, as its ``hotspot_cta_rows`` / ``hotspot_cta_cols`` give them
+    (builds the kernels' library at first use)."""
+    return (_native.function("hotspot_cta_rows", ())(),
+            _native.function("hotspot_cta_cols", ())())
+
+
+def hotspot_ctas(h: int, w: int, grid) -> tuple[int, int]:
+    """The physical grid ``(x, y)`` of :func:`hotspot_region` CTAs that
+    covers the cells a logical ``grid`` of 8 x 8 tiles writes in an ``[h,
+    w]`` array: rows below ``min(h, 8 grid.y)``, columns below ``min(w, 8
+    grid.x)``."""
+    grid = Dim3.of(grid)
+    rows, cols = hotspot_region()
+    nr = min(h, grid.y * HOTSPOT_TILE)
+    nc = min(w, grid.x * HOTSPOT_TILE)
+    return -(-nc // cols), -(-nr // rows)
+
+
 HOTSPOT = CudaKernel(
     name="hotspot", symbol="launch_hotspot",
-    argtypes=(_P,) * 3 + (_I,) * 2 + (_F,) * 5 + (_I,) * 2 + (_P,),
+    argtypes=(_P,) * 3 + (_I,) * 2 + (_F,) * 5 + (_I,) * 4 + (_P,),
     buffers={"t": _F32, "p": _F32, "t_out": _F32},
     writes=("t_out",),
     shapes=lambda *, h, w, **_: {"t": (h, w), "p": (h, w), "t_out": (h, w)},
     check=_tile_2d("hotspot", HOTSPOT_TILE), plain=hotspot_plain,
     cargs=lambda b, grid, block, *, h, w, cap, rx, ry, rz, amb: [
         _ptr(b["t"]), _ptr(b["p"]), _ptr(b["t_out"]), h, w, cap, rx, ry, rz,
-        amb, grid.x, grid.y],
+        amb, grid.x, grid.y, *hotspot_ctas(h, w, grid)],
     source="src/repro_torch/csrc/hotspot.cu")
 
 

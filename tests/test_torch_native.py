@@ -56,16 +56,22 @@ def card():
     return torch.device("cuda")
 
 
+def _bfs_state(args, dist, level):
+    """bfs's buffers before the chain's launch at ``level``."""
+    return {**args, "frontier": (dist == level).astype(np.int32),
+            "visited": ((dist >= 0) & (dist <= level)).astype(np.int32),
+            "dist": np.where(dist <= level, dist, -1).astype(np.int32),
+            "level": np.full(1, level, np.int32)}
+
+
 def _state(name):
     entry = (cuda_suite.entry_bfs_frontier(n=1024, deg=6)
              if name == "bfs_frontier" else SUITE[name])
     args = entry.make_args(np.random.default_rng(42))
     if name == "bfs_frontier":
         dist = cuda_suite.bfs_levels(args["edges"], 1024)
-        level = int(np.bincount(dist[dist >= 0]).argmax())
-        args.update(frontier=(dist == level).astype(np.int32),
-                    visited=((dist >= 0) & (dist <= level)).astype(np.int32),
-                    level=np.full(1, level, np.int32))
+        args = _bfs_state(args, dist,
+                          int(np.bincount(dist[dist >= 0]).argmax()))
     return entry, args
 
 
@@ -78,7 +84,8 @@ def _launch(step, bufs):
 #: kernels whose float results equal their plain versions bit for bit
 BIT_EXACT = ("srad_stats", "nn_reduce", "nn_select", "kmeans_assign",
              "kmeans_update", "vecadd", "reduce_shared", "reduce_warp",
-             "stencil1d", "stencil2d", "scan_block", "transpose_tiled")
+             "stencil1d", "stencil2d", "scan_block", "transpose_tiled",
+             "hotspot")
 
 
 @pytest.mark.gpu
@@ -550,3 +557,175 @@ def test_transpose_tiled_bit_for_bit_on_the_card(card, h, w, grid, offset):
                        host["x"].t()[covered].view(torch.int32))
     assert torch.equal(got[~covered].view(torch.int32),
                        host["y"][~covered].view(torch.int32))
+
+
+#: (n, nodes a CTA): the main path; n a multiple of 32 but not of 256
+#: (1056 = 33 blocks of 32), of one CTA's nodes, below one CTA, one block
+BFS_CTAS = tuple((n, c) for n in (1_000_000, 1056, 1024, 96, 32, 2048 + 32)
+                 for c in (1024, 512, 256))
+
+
+@pytest.mark.parametrize("n,cta_nodes", BFS_CTAS)
+def test_bfs_frontier_ctas_cover_every_logical_block(monkeypatch, n,
+                                                     cta_nodes):
+    # each logical block of 32 threads (nodes) lies in a CTA below the
+    # count, and the last CTA holds a node: no CTA is started for nothing
+    monkeypatch.setattr(lower_cuda, "bfs_frontier_cta_nodes",
+                        lambda: cta_nodes)
+    ctas = lower_cuda.bfs_frontier_ctas(n)
+    first = np.arange(0, n, 32)
+    assert ((first + 31) // cta_nodes < ctas).all()
+    assert (ctas - 1) * cta_nodes < n
+
+
+#: (h, w, grid) of hotspot: the main path; a grid short of the array in
+#: both axes and in one; a grid past it; sides off the CTA's region, w not
+#: a multiple of 4; one tile
+HOTSPOT = ((1024, 1024, (128, 128)), (40, 72, (9, 5)), (40, 72, (5, 3)),
+           (40, 72, (9, 2)), (40, 72, (12, 7)), (200, 264, (33, 25)),
+           (40, 70, (9, 5)), (40, 70, (4, 5)), (8, 8, (1, 1)))
+
+
+@pytest.mark.parametrize("region", ((32, 128), (16, 64), (64, 32)))
+@pytest.mark.parametrize("h,w,grid", HOTSPOT)
+def test_hotspot_ctas_cover_the_grids_tiles(monkeypatch, h, w, grid,
+                                            region):
+    # every cell a logical tile writes (inside the array) lies in a CTA of
+    # the physical grid, and every CTA holds such a cell.  The region
+    # comes from the kernel's source on the card; here it is the shipped
+    # one and two others
+    monkeypatch.setattr(lower_cuda, "hotspot_region", lambda: region)
+    rows, cols = region
+    cx, cy = lower_cuda.hotspot_ctas(h, w, grid)
+    written = np.zeros((h, w), bool)
+    for by in range(grid[1]):
+        for bx in range(grid[0]):
+            written[by * 8:by * 8 + 8, bx * 8:bx * 8 + 8] = True
+    r, c = np.nonzero(written)
+    assert (r // rows < cy).all() and (c // cols < cx).all()
+    held = np.zeros((cy, cx), bool)
+    held[r // rows, c // cols] = True
+    assert held.all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,block", ((1024, 32), (1056, 32), (1024, 64),
+                                     (1056, 96)))
+def test_bfs_frontier_bit_for_bit_at_every_level(card, n, block):
+    # every level of a small graph, and one past the last (an empty
+    # frontier), at the chevron's blocks of 32 and wider ones: the claim
+    # keys come from the logical ids.  The wrapper's owner scratch is back
+    # at INT_MAX after each launch
+    entry = cuda_suite.entry_bfs_frontier(n=n, deg=6)
+    args = entry.make_args(np.random.default_rng(42))
+    dist = cuda_suite.bfs_levels(args["edges"], n)
+    kern = lower_cuda.KERNELS["bfs_frontier"]
+    grid, actives = n // block, []
+    for level in range(int(dist.max()) + 2):
+        bufs = carry.from_reference(_bfs_state(args, dist, level),
+                                    device=card)
+        before = kern.launches
+        got = kern(bufs, grid=grid, block=block, n=n, deg=6)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        want = kern.plain(bufs, Dim3(grid), Dim3(block), n=n, deg=6)
+        for k in kern.writes:
+            assert torch.equal(got[k], want[k]), (level, k)
+        key = lower_cuda._bfs_scratch_key(bufs, n)
+        owner = lower_cuda._BFS_SCRATCH[key]["owner"]
+        assert bool((owner == lower_cuda._INT_MAX).all())
+        actives.append(int(got["active"][0]))
+    assert actives[-1] == 0 and max(actives) > 1
+
+
+@pytest.mark.gpu
+def test_bfs_chain_twice_on_one_device(card):
+    # the second run finds the first run's owner scratch and must see it
+    # at INT_MAX: both equal the oracle bit for bit
+    entry = cuda_suite.entry_bfs_frontier(n=1056, deg=6)
+    for _ in range(2):
+        out, want = cuda_suite.run_entry(entry, "cuda", device=card)
+        for k, v in want.items():
+            np.testing.assert_array_equal(out[k].cpu().numpy(), v)
+
+
+@pytest.mark.gpu
+def test_bfs_frontier_on_a_second_stream(card):
+    # another stream gets an owner scratch of its own, and the same bits
+    entry = cuda_suite.entry_bfs_frontier(n=1024, deg=6)
+    args = entry.make_args(np.random.default_rng(42))
+    dist = cuda_suite.bfs_levels(args["edges"], 1024)
+    bufs = carry.from_reference(_bfs_state(args, dist, 3), device=card)
+    kern = lower_cuda.KERNELS["bfs_frontier"]
+    want = kern(bufs, grid=32, block=32, n=1024, deg=6)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = kern(bufs, grid=32, block=32, n=1024, deg=6)
+        key = lower_cuda._bfs_scratch_key(bufs, 1024)
+    torch.cuda.synchronize()
+    assert key != lower_cuda._bfs_scratch_key(bufs, 1024)
+    assert key in lower_cuda._BFS_SCRATCH
+    for k in kern.writes:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.gpu
+def test_bfs_frontier_failed_launch_drops_its_scratch(card, monkeypatch):
+    # a launch that raises may leave bids behind: its owner scratch goes,
+    # and the next launch fills a new one
+    entry = cuda_suite.entry_bfs_frontier(n=1024, deg=6)
+    args = entry.make_args(np.random.default_rng(42))
+    dist = cuda_suite.bfs_levels(args["edges"], 1024)
+    bufs = carry.from_reference(_bfs_state(args, dist, 3), device=card)
+    kern = lower_cuda.KERNELS["bfs_frontier"]
+    want = kern(bufs, grid=32, block=32, n=1024, deg=6)
+    key = lower_cuda._bfs_scratch_key(bufs, 1024)
+    assert key in lower_cuda._BFS_SCRATCH
+
+    def fail(*a, **k):
+        raise RuntimeError("launch_bfs_frontier: launch failed")
+
+    monkeypatch.setattr(_native, "launch", fail)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kern(bufs, grid=32, block=32, n=1024, deg=6)
+    assert key not in lower_cuda._BFS_SCRATCH
+    monkeypatch.undo()
+    got = kern(bufs, grid=32, block=32, n=1024, deg=6)
+    for k in kern.writes:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("h,w,grid", HOTSPOT)
+def test_hotspot_bit_for_bit_on_the_card(card, h, w, grid, offset):
+    # t_out equals the plain version's bits: the step below the grid's
+    # tiles, its own input past them; buffers 4 bytes past a 16-byte
+    # boundary (and w % 4 != 0) take the launcher's one-float path
+    r = np.random.default_rng(42)
+    host = {"t": torch.from_numpy(r.uniform(60, 100, (h, w))
+                                  .astype(np.float32)),
+            "p": torch.from_numpy(r.uniform(0, 1, (h, w)).astype(np.float32)),
+            "t_out": torch.from_numpy(r.standard_normal((h, w), np.float32))}
+    bufs = {}
+    for name, t in host.items():
+        flat = torch.zeros(t.numel() + 4, device=card)
+        bufs[name] = flat[offset:offset + t.numel()].view(t.shape)
+        bufs[name].copy_(t.to(card))
+        assert bool(bufs[name].data_ptr() % 16) == bool(offset)
+    params = {"h": h, "w": w, "cap": 0.5, "rx": 0.1, "ry": 0.1, "rz": 0.05,
+              "amb": 80.0}
+    kern = lower_cuda.KERNELS["hotspot"]
+    before = kern.launches
+    kern.launch_into(bufs, Dim3(*grid), Dim3(8, 8), **params)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    got = bufs["t_out"].cpu()
+    want = kern.plain(host, Dim3(*grid), Dim3(8, 8), **params)["t_out"]
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    nr, nc = min(h, 8 * grid[1]), min(w, 8 * grid[0])
+    kept = torch.ones(h, w, dtype=torch.bool)
+    kept[:nr, :nc] = False
+    assert torch.equal(got[kept].view(torch.int32),
+                       host["t_out"][kept].view(torch.int32))
