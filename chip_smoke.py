@@ -37,8 +37,11 @@ Phases, each printing its own lines:
    also give their physical CTA counts, as do transpose_tiled's (64 x
    64 squares of x, one barrier each, from
    ``lower_cuda.transpose_tiled_ctas``), hotspot's (8 warps a CTA over
-   8 x 128 cells, ``lower_cuda.hotspot_ctas``) and bfs_frontier's (1024
-   nodes a CTA of 256 in each of its two passes,
+   8 x 128 cells, ``lower_cuda.hotspot_ctas``), srad_update's (the
+   same mapping, ``lower_cuda.srad_update_ctas``, after its fold over a
+   cluster of 8 CTAs), lavamd's (a CTA a home box, its width and the
+   neighbours it stages at once from ``lower_cuda.lavamd_cta``) and
+   bfs_frontier's (1024 nodes a CTA of 256 in each of its two passes,
    ``lower_cuda.bfs_frontier_ctas``).  bfs_frontier's line also gives
    ``levels_ms``, its kernel time summed over the chain's launches, each
    timed at the state its level sees, and ``levels_bound_ms``, their
@@ -776,6 +779,17 @@ def main() -> int:
                                                  grid)
                 cr, cc = lower_cuda.hotspot_region()
                 ctas = f" ctas={cx * cy} ({cx} x {cy} of {cr} x {cc})"
+            elif kname == "srad_update":
+                cx, cy = lower_cuda.srad_update_ctas(params["h"],
+                                                     params["w"], grid)
+                cr, cc = lower_cuda.srad_update_region()
+                ctas = (f" ctas={cx * cy} ({cx} x {cy} of {cr} x {cc}, "
+                        f"after a fold over a cluster of 8)")
+            elif kname == "lavamd":
+                threads, chunk = lower_cuda.lavamd_cta(params["ppb"],
+                                                       params["nnei"])
+                ctas = (f" ctas={grid.x} (a home box each, {threads} "
+                        f"threads, {chunk} neighbours staged at once)")
             elif kname == "bfs_frontier":
                 lv = bfs_chain_levels(kern, host_args[name], params, grid,
                                       block, cuda_suite, dev)

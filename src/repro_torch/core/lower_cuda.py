@@ -394,16 +394,24 @@ def hotspot_region() -> tuple[int, int]:
             _native.function("hotspot_cta_cols", ())())
 
 
+def tile_grid_ctas(h: int, w: int, grid, region: tuple[int, int],
+                   tile: int) -> tuple[int, int]:
+    """The physical grid ``(x, y)`` of CTAs of ``region`` (rows, columns)
+    that covers the cells a logical ``grid`` of ``tile`` x ``tile`` blocks
+    writes in an ``[h, w]`` array: rows below ``min(h, tile grid.y)``,
+    columns below ``min(w, tile grid.x)``."""
+    grid = Dim3.of(grid)
+    rows, cols = region
+    nr = min(h, grid.y * tile)
+    nc = min(w, grid.x * tile)
+    return -(-nc // cols), -(-nr // rows)
+
+
 def hotspot_ctas(h: int, w: int, grid) -> tuple[int, int]:
     """The physical grid ``(x, y)`` of :func:`hotspot_region` CTAs that
     covers the cells a logical ``grid`` of 8 x 8 tiles writes in an ``[h,
-    w]`` array: rows below ``min(h, 8 grid.y)``, columns below ``min(w, 8
-    grid.x)``."""
-    grid = Dim3.of(grid)
-    rows, cols = hotspot_region()
-    nr = min(h, grid.y * HOTSPOT_TILE)
-    nc = min(w, grid.x * HOTSPOT_TILE)
-    return -(-nc // cols), -(-nr // rows)
+    w]`` array."""
+    return tile_grid_ctas(h, w, grid, hotspot_region(), HOTSPOT_TILE)
 
 
 HOTSPOT = CudaKernel(
@@ -557,6 +565,14 @@ def _lavamd_check(grid: Dim3, block: Dim3, params: dict):
                                 f"{params['nboxes']}")
 
 
+def lavamd_cta(ppb: int, nnei: int) -> tuple[int, int]:
+    """The threads of one CTA of ``csrc/lavamd.cu`` (a CTA a home box) and
+    the neighbour boxes it stages together, as its launcher picks them
+    (builds the kernels' library at first use)."""
+    return (_native.function("lavamd_cta_threads", (_I, _I))(ppb, nnei),
+            _native.function("lavamd_chunk", (_I, _I))(ppb, nnei))
+
+
 LAVAMD = CudaKernel(
     name="lavamd", symbol="launch_lavamd",
     argtypes=(_P,) * 4 + (_I,) * 3 + (_F, _I) + (_P,),
@@ -704,21 +720,37 @@ def srad_update_plain(b, grid: Dim3, block: Dim3, *, h: int, w: int,
     return {"y": y}
 
 
+def srad_update_region() -> tuple[int, int]:
+    """The rows and columns of pixels one stencil CTA of ``csrc/srad.cu``
+    covers, as its ``srad_update_cta_rows`` / ``srad_update_cta_cols``
+    give them (builds the kernels' library at first use)."""
+    return (_native.function("srad_update_cta_rows", ())(),
+            _native.function("srad_update_cta_cols", ())())
+
+
+def srad_update_ctas(h: int, w: int, grid) -> tuple[int, int]:
+    """The physical grid ``(x, y)`` of :func:`srad_update_region` CTAs
+    that covers the pixels a logical ``grid`` of 8 x 8 tiles writes in an
+    ``[h, w]`` image."""
+    return tile_grid_ctas(h, w, grid, srad_update_region(), SRAD_TILE)
+
+
 SRAD_UPDATE = CudaKernel(
     name="srad_update", symbol="launch_srad_update",
-    argtypes=(_P,) * 5 + (_I,) * 4 + (_F,) * 2 + (_I,) * 2 + (_P,),
+    argtypes=(_P,) * 5 + (_I,) * 4 + (_F,) * 2 + (_I,) * 4 + (_P,),
     buffers={"x": _F32, "psum": _F32, "psq": _F32, "y": _F32},
     writes=("y",),
     shapes=lambda *, h, w, lam: {"x": (h, w), "y": (h, w)},
     check=_tile_2d("srad_update", SRAD_TILE), plain=srad_update_plain,
-    # the launch's two totals: the fold pass writes them, the stencil
-    # reads them
+    # the launch's q0 and q0 (1 + q0): the fold pass writes them, the
+    # stencil reads them
     scratch=lambda b, **_: {"tot": torch.empty(2, dtype=_F32,
                                                device=b["x"].device)},
     cargs=lambda b, grid, block, *, h, w, lam: [
         _ptr(b["x"]), _ptr(b["psum"]), _ptr(b["psq"]), _ptr(b["tot"]),
         _ptr(b["y"]), h, w, b["psum"].numel(), b["psq"].numel(),
-        float(h * w), 0.25 * lam, grid.x, grid.y],
+        float(h * w), 0.25 * lam, grid.x, grid.y,
+        *srad_update_ctas(h, w, grid)],
     source="src/repro_torch/csrc/srad.cu")
 
 

@@ -729,3 +729,150 @@ def test_hotspot_bit_for_bit_on_the_card(card, h, w, grid, offset):
     kept[:nr, :nc] = False
     assert torch.equal(got[kept].view(torch.int32),
                        host["t_out"][kept].view(torch.int32))
+
+
+#: (h, w, grid) of srad_update: the main path (srad 2048 2048); a grid
+#: short of the image in both axes and in one; a grid past it; sides off
+#: the CTA's region, w not a multiple of 4; one tile
+SRAD = ((2048, 2048, (256, 256)), (40, 72, (9, 5)), (40, 72, (5, 3)),
+        (40, 72, (9, 2)), (40, 72, (12, 7)), (200, 264, (33, 25)),
+        (40, 70, (9, 5)), (40, 70, (4, 5)), (8, 8, (1, 1)))
+
+
+@pytest.mark.parametrize("region", ((8, 128), (16, 64), (4, 256)))
+@pytest.mark.parametrize("h,w,grid", SRAD)
+def test_srad_update_ctas_cover_the_grids_tiles(monkeypatch, h, w, grid,
+                                                region):
+    # every pixel a logical tile writes (inside the image) lies in a CTA
+    # of the physical grid, and every CTA holds such a pixel.  The region
+    # comes from the kernel's source on the card; here it is the shipped
+    # one and two others
+    monkeypatch.setattr(lower_cuda, "srad_update_region", lambda: region)
+    rows, cols = region
+    cx, cy = lower_cuda.srad_update_ctas(h, w, grid)
+    written = np.zeros((h, w), bool)
+    written[:grid[1] * 8, :grid[0] * 8] = True
+    r, c = np.nonzero(written)
+    assert (r // rows < cy).all() and (c // cols < cx).all()
+    held = np.zeros((cy, cx), bool)
+    held[r // rows, c // cols] = True
+    assert held.all()
+
+
+def _srad_host(h, w, order_free, rng):
+    """srad_update's buffers on the host: a speckled image, y a stale
+    image, and per-block partials of x and x*x (blocks of 128 pixels).
+    ``order_free`` puts each total in one entry of its array, so that any
+    order of the fold gives the same totals."""
+    x = np.exp(0.1 * rng.standard_normal((h, w))).astype(np.float32)
+    n_part = max(1, h * w // 128)
+    if order_free:
+        psum = np.zeros(n_part, np.float32)
+        psq = np.zeros(n_part, np.float32)
+        psum[n_part // 2] = x.astype(np.float64).sum()
+        psq[n_part - 1] = (x.astype(np.float64) ** 2).sum()
+    else:
+        blocks = np.resize(x.reshape(-1), (n_part, 128))
+        psum = blocks.sum(1, dtype=np.float32)
+        psq = (blocks * blocks).sum(1, dtype=np.float32)
+    return {"x": torch.from_numpy(x), "psum": torch.from_numpy(psum),
+            "psq": torch.from_numpy(psq),
+            "y": torch.from_numpy(rng.standard_normal((h, w), np.float32))}
+
+
+def _on_card(host, card, offset):
+    """Each buffer copied to the card, ``offset`` floats past a 16-byte
+    boundary."""
+    bufs = {}
+    for name, t in host.items():
+        flat = torch.zeros(t.numel() + 4, dtype=t.dtype, device=card)
+        bufs[name] = flat[offset:offset + t.numel()].view(t.shape)
+        bufs[name].copy_(t.to(card))
+        assert bool(bufs[name].data_ptr() % 16) == bool(offset)
+    return bufs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("h,w,grid", SRAD)
+def test_srad_update_bit_for_bit_given_order_free_totals(card, h, w, grid,
+                                                         offset):
+    # with totals that no order changes, y equals the plain version's
+    # bits: the step below the grid's tiles, its own input past them;
+    # buffers 4 bytes past a 16-byte boundary (and w % 4 != 0) take the
+    # launcher's one-float paths, in the fold and in the stencil
+    host = _srad_host(h, w, True, np.random.default_rng(42))
+    bufs = _on_card(host, card, offset)
+    kern = lower_cuda.KERNELS["srad_update"]
+    before = kern.launches
+    kern.launch_into(bufs, Dim3(*grid), Dim3(8, 8), h=h, w=w, lam=0.5)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    got = bufs["y"].cpu()
+    want = kern.plain(host, Dim3(*grid), Dim3(8, 8), h=h, w=w,
+                      lam=0.5)["y"]
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    nr, nc = min(h, 8 * grid[1]), min(w, 8 * grid[0])
+    kept = torch.ones(h, w, dtype=torch.bool)
+    kept[:nr, :nc] = False
+    assert torch.equal(got[kept].view(torch.int32),
+                       host["y"][kept].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("h,w,grid", SRAD)
+def test_srad_update_within_tol_on_the_card(card, h, w, grid, offset):
+    # partials of 128 pixels each: the fold's order is not torch.sum's,
+    # so y holds the plain version within the entry's tolerance
+    host = _srad_host(h, w, False, np.random.default_rng(7))
+    bufs = _on_card(host, card, offset)
+    kern = lower_cuda.KERNELS["srad_update"]
+    got = kern(bufs, grid=grid, block=(8, 8), h=h, w=w, lam=0.5)["y"]
+    torch.cuda.synchronize()
+    want = kern.plain(host, Dim3(*grid), Dim3(8, 8), h=h, w=w,
+                      lam=0.5)["y"]
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+#: (nboxes, ppb, nnei, grid, wild) of lavamd: the main path (lavaMD
+#: -boxes1d 10); ppb of one lane, a few, one past a warp, the main path's
+#: and CUDA's widest block (neighbours staged in chunks); no neighbour,
+#: one and five; grids short of nboxes; neighbour ids negative or past
+#: the end (``wild``)
+LAVAMD = ((1000, 100, 27, 1000, False), (64, 1, 27, 64, False),
+          (64, 7, 27, 64, False), (64, 33, 27, 64, False),
+          (64, 100, 27, 64, False), (24, 1024, 27, 24, False),
+          (16, 33, 0, 16, False), (64, 100, 1, 64, False),
+          (64, 100, 5, 64, False),
+          (64, 100, 27, 37, False), (24, 1024, 27, 5, False),
+          (64, 33, 27, 64, True), (40, 100, 9, 33, True),
+          (16, 1024, 4, 16, True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nboxes,ppb,nnei,grid,wild", LAVAMD)
+def test_lavamd_within_tol_on_the_card(card, nboxes, ppb, nnei, grid, wild):
+    # force holds the plain version within the entry's 1e-4 over the
+    # grid's home boxes, and keeps its input past them
+    # the entry's inputs (its generator wants two neighbours at least)
+    r = np.random.default_rng(42)
+    args = cuda_suite.entry_lavamd(nboxes=nboxes, ppb=ppb,
+                                   nnei=max(nnei, 2)).make_args(r)
+    args["nbr"] = np.ascontiguousarray(args["nbr"][:, :nnei])
+    args["force"] = r.standard_normal(nboxes * ppb).astype(np.float32)
+    if wild:
+        odd = np.array([-1, -5, -nboxes - 3, nboxes, nboxes + 7], np.int32)
+        pick = r.random(args["nbr"].shape) < 0.3
+        args["nbr"] = np.where(pick, r.choice(odd, args["nbr"].shape),
+                               args["nbr"]).astype(np.int32)
+    bufs = carry.from_reference(args, device=card)
+    kern = lower_cuda.KERNELS["lavamd"]
+    params = {"nboxes": nboxes, "ppb": ppb, "nnei": nnei, "alpha": 0.5}
+    before = kern.launches
+    got = kern(bufs, grid=grid, block=ppb, **params)["force"]
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = kern.plain(bufs, Dim3(grid), Dim3(ppb), **params)["force"]
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got[grid * ppb:], bufs["force"][grid * ppb:])
