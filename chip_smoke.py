@@ -36,11 +36,14 @@ Phases, each printing its own lines:
    softmax_row: one row a warp, its values in registers, no barrier)
    also give their physical CTA counts, as do transpose_tiled's (64 x
    64 squares of x, one barrier each, from
-   ``lower_cuda.transpose_tiled_ctas``), hotspot's (8 warps a CTA over
-   8 x 128 cells, ``lower_cuda.hotspot_ctas``), srad_update's (the
-   same mapping, ``lower_cuda.srad_update_ctas``, after its fold over a
-   cluster of 8 CTAs), lavamd's (a CTA a home box, its width and the
-   neighbours it stages at once from ``lower_cuda.lavamd_cta``) and
+   ``lower_cuda.transpose_tiled_ctas``), hotspot's and stencil2d's (8
+   warps a CTA over 8 x 128 cells, ``lower_cuda.hotspot_ctas`` and
+   ``lower_cuda.stencil2d_ctas``), srad_update's (the same mapping,
+   ``lower_cuda.srad_update_ctas``, after its fold over a cluster of 8
+   CTAs), kmeans_assign's (a fixed number of points a CTA of 256,
+   partials in registers, ``lower_cuda.kmeans_assign_ctas``), lavamd's
+   (a CTA a home box, its width and the neighbours it stages at once
+   from ``lower_cuda.lavamd_cta``) and
    bfs_frontier's (1024 nodes a CTA of 256 in each of its two passes,
    ``lower_cuda.bfs_frontier_ctas``).  bfs_frontier's line also gives
    ``levels_ms``, its kernel time summed over the chain's launches, each
@@ -774,10 +777,10 @@ def main() -> int:
                     params["h"], params["w"], grid.x)
                 side = lower_cuda.transpose_tiled_side()
                 ctas = f" ctas={cx * cy} ({cx} x {cy} of {side} x {side})"
-            elif kname == "hotspot":
-                cx, cy = lower_cuda.hotspot_ctas(params["h"], params["w"],
-                                                 grid)
-                cr, cc = lower_cuda.hotspot_region()
+            elif kname in ("hotspot", "stencil2d"):
+                cx, cy = getattr(lower_cuda, f"{kname}_ctas")(
+                    params["h"], params["w"], grid)
+                cr, cc = getattr(lower_cuda, f"{kname}_region")()
                 ctas = f" ctas={cx * cy} ({cx} x {cy} of {cr} x {cc})"
             elif kname == "srad_update":
                 cx, cy = lower_cuda.srad_update_ctas(params["h"],
@@ -798,6 +801,11 @@ def main() -> int:
                 ctas = (f" levels_ms={sum(lv['ms'])} levels_bound_ms="
                         f"{sum(lv['bound_ms'])} ctas="
                         f"{lower_cuda.bfs_frontier_ctas(params['n'])} a pass")
+            elif kname == "kmeans_assign":
+                n_ctas = lower_cuda.kmeans_assign_ctas(params["n"], grid.x,
+                                                       block.x)
+                per = lower_cuda.kmeans_assign_cta_points()
+                ctas = f" ctas={n_ctas} ({per} points each)"
             elif kname == "vecadd":
                 # vecadd_ctas counts the launcher's 16-byte path; buffers
                 # off 16 bytes would take its one-element path instead

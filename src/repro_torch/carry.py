@@ -6,6 +6,11 @@ NumPy arrays to the port as tensors on one device, with the names in
 ``const`` wrapped as read-only ``__constant__`` buffers.  The hot-path
 kernels' activations may be bfloat16 (``ml_dtypes``' type, which
 ``torch.from_numpy`` refuses): they cross as their 16-bit patterns.
+
+float64 and int64 buffers follow the port's x64 switch
+(:func:`repro_torch.enable_x64`), as JAX's arrays follow its own: off,
+the default, they cross as float32 and int32, as the reference computes
+in 32 bits whatever NumPy handed it; on, they keep their 64 bits.
 """
 from __future__ import annotations
 
@@ -13,10 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.memory import ConstArray, resolve_device
-
-# JAX runs with 64-bit types disabled, so the reference computes in 32 bits
-# whatever NumPy handed it; the port does the same.
-_NARROW = {np.dtype(np.int64): np.int32, np.dtype(np.float64): np.float32}
+from repro_torch.x64 import canonical_dtype
 
 
 def _is_bfloat16(dtype: np.dtype) -> bool:
@@ -29,8 +31,9 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
     if _is_bfloat16(arr.dtype):
         bits = np.ascontiguousarray(arr).view(np.uint16).copy()
         return torch.from_numpy(bits).view(torch.bfloat16)
-    arr = np.ascontiguousarray(arr.astype(_NARROW.get(arr.dtype, arr.dtype)))
-    return torch.from_numpy(arr)
+    # astype copies: the tensors never share memory with the caller's arrays
+    return torch.from_numpy(np.ascontiguousarray(
+        arr.astype(canonical_dtype(arr.dtype))))
 
 
 def from_reference(args: dict[str, np.ndarray], *, const=(),

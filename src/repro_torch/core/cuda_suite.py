@@ -61,6 +61,7 @@ from repro_torch.core.kernel import (
     LaunchChain,
     Native,
 )
+from repro_torch.x64 import canonical_dtype
 
 OOB = 1 << 30  # out-of-bounds sentinel for drop-mode stores
 
@@ -238,8 +239,9 @@ def make_matmul_tiled(m: int, n: int, k: int, tile: int = 8,
         return ty, tx, by * tile + ty, bx * tile + tx
 
     def init(ctx, st):
-        return st.with_priv({"acc": torch.zeros(ctx.tid.shape, dtype=dtype,
-                                                device=ctx.tid.device)})
+        return st.with_priv({"acc": torch.zeros(
+            ctx.tid.shape, dtype=canonical_dtype(dtype),
+            device=ctx.tid.device)})
 
     def make_load(kk):
         def load(ctx, st):

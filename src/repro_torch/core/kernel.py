@@ -28,6 +28,7 @@ from typing import Any, Callable, Mapping, NamedTuple, Sequence
 import torch
 
 from repro_torch.core.dim3 import Dim3
+from repro_torch.x64 import canonical_dtype
 
 WARP_SIZE = 32
 
@@ -259,6 +260,10 @@ class KernelDef:
         return LaunchConfig.from_chevron(self, config)
 
     def resolved_shared(self, dyn_shared: int | None):
+        """Each shared array's ``(shape, dtype)`` at this launch: extern
+        extents from ``dyn_shared``, and float64 / int64 narrowed to 32
+        bits unless :func:`repro_torch.enable_x64` is on, as JAX's
+        ``jnp.zeros`` narrows them."""
         out = {}
         for name, (shape, dtype) in self.shared.items():
             if any(d == -1 for d in shape):
@@ -267,7 +272,8 @@ class KernelDef:
                         f"kernel {self.name}: shared array {name} is extern "
                         f"(dynamic); pass dyn_shared= at launch")
                 shape = tuple(dyn_shared if d == -1 else d for d in shape)
-            out[name] = (tuple(int(d) for d in shape), dtype)
+            out[name] = (tuple(int(d) for d in shape),
+                         canonical_dtype(dtype))
         return out
 
     def init_shared(self, dyn_shared: int | None, device) -> dict:

@@ -877,9 +877,25 @@ def _kmeans_assign_check(grid: Dim3, block: Dim3, params: dict):
                                 f"kernel holds 1 to {KMEANS_MAX_K} clusters")
 
 
+def kmeans_assign_cta_points() -> int:
+    """The points one CTA of ``csrc/kmeans.cu``'s assign kernel covers, as
+    its ``kmeans_assign_cta_points`` gives them (builds the kernels'
+    library at first use)."""
+    return _native.function("kmeans_assign_cta_points", ())()
+
+
+def kmeans_assign_ctas(n: int, grid: int, block: int) -> int:
+    """The CTAs of :func:`kmeans_assign_cta_points` points that cover the
+    m = min(n, grid * block) points a logical grid of ``grid`` blocks of
+    ``block`` threads assigns."""
+    m = min(n, grid * block)
+    per = kmeans_assign_cta_points()
+    return -(-m // per)
+
+
 KMEANS_ASSIGN = CudaKernel(
     name="kmeans_assign", symbol="launch_kmeans_assign",
-    argtypes=(_P,) * 9 + (_I,) * 4 + (_P,),
+    argtypes=(_P,) * 9 + (_I,) * 5 + (_P,),
     buffers={"px": _F32, "py": _F32, "cx": _F32, "cy": _F32,
              "assign": _I32, "changed": _I32, "sumx": _F32, "sumy": _F32,
              "count": _I32},
@@ -892,7 +908,7 @@ KMEANS_ASSIGN = CudaKernel(
         *(_ptr(b[name]) for name in (
             "px", "py", "cx", "cy", "assign", "changed", "sumx", "sumy",
             "count")),
-        n, k, grid.x, block.x],
+        n, k, grid.x, block.x, kmeans_assign_ctas(n, grid.x, block.x)],
     source="src/repro_torch/csrc/kmeans.cu")
 
 
@@ -1262,15 +1278,31 @@ def stencil2d_plain(b, grid: Dim3, block: Dim3, *, h: int, w: int):
     return {"y": y}
 
 
+def stencil2d_region() -> tuple[int, int]:
+    """The rows and columns of cells one CTA of ``csrc/stencil2d.cu``
+    covers, as its ``stencil2d_cta_rows`` / ``stencil2d_cta_cols`` give
+    them (builds the kernels' library at first use)."""
+    return (_native.function("stencil2d_cta_rows", ())(),
+            _native.function("stencil2d_cta_cols", ())())
+
+
+def stencil2d_ctas(h: int, w: int, grid) -> tuple[int, int]:
+    """The physical grid ``(x, y)`` of :func:`stencil2d_region` CTAs that
+    covers the cells a logical ``grid`` of 8 x 8 tiles writes in an ``[h,
+    w]`` array."""
+    return tile_grid_ctas(h, w, grid, stencil2d_region(), STENCIL2D_TILE)
+
+
 STENCIL2D = CudaKernel(
     name="stencil2d", symbol="launch_stencil2d",
-    argtypes=(_P,) * 2 + (_I,) * 4 + (_P,),
+    argtypes=(_P,) * 2 + (_I,) * 6 + (_P,),
     buffers={"x": _F32, "y": _F32},
     writes=("y",),
     shapes=lambda *, h, w: {"x": (h, w), "y": (h, w)},
     check=_tile_2d("stencil2d", STENCIL2D_TILE), plain=stencil2d_plain,
     cargs=lambda b, grid, block, *, h, w: [
-        _ptr(b["x"]), _ptr(b["y"]), h, w, grid.x, grid.y],
+        _ptr(b["x"]), _ptr(b["y"]), h, w, grid.x, grid.y,
+        *stencil2d_ctas(h, w, grid)],
     source="src/repro_torch/csrc/stencil2d.cu")
 
 

@@ -30,6 +30,8 @@ import itertools
 import numpy as np
 import torch
 
+from repro_torch.x64 import canonical_dtype
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card unless asked otherwise.
@@ -181,7 +183,8 @@ def cuda_malloc(shape, dtype=torch.float32, space: Space = Space.GLOBAL,
             "__shared__ memory is block-scoped: declare it in "
             "KernelDef.shared (or the dyn_shared launch slot for extern "
             "arrays); it cannot be heap-allocated")
-    value = torch.zeros(shape, dtype=dtype, device=resolve_device(device))
+    value = torch.zeros(shape, dtype=canonical_dtype(dtype),
+                        device=resolve_device(device))
     if space is Space.CONST:
         return ConstArray(value)
     return DeviceBuffer(value, space=space)
@@ -196,9 +199,16 @@ def cuda_free(buf) -> None:
     buf._free()
 
 
+def _host_tensor(host) -> torch.Tensor:
+    """``host`` as a CPU tensor, 64-bit types narrowed unless the x64
+    switch is on (as ``jnp.asarray`` narrows them)."""
+    host = np.asarray(host)
+    return torch.from_numpy(np.ascontiguousarray(
+        host.astype(canonical_dtype(host.dtype), copy=False)))
+
+
 def _to_device(host, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(host)).to(
-        resolve_device(device))
+    return _host_tensor(host).to(resolve_device(device))
 
 
 def cuda_memcpy_to_symbol(host, device=None) -> ConstArray:
@@ -218,7 +228,7 @@ def cuda_memcpy_h2d(host, dst: DeviceBuffer | None = None, device=None):
         raise CudaError(
             f"cudaErrorInvalidValue: h2d destination must be a DeviceBuffer "
             f"handle, got {type(dst).__name__}")
-    arr = torch.from_numpy(np.ascontiguousarray(host))
+    arr = _host_tensor(host)
     _check_geometry("h2d", dst.shape, dst.dtype, arr.shape, arr.dtype)
     dst._rebind(arr.to(dst.value.device))
     return dst

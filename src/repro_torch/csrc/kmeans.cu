@@ -9,85 +9,232 @@
 // pl.pallas_call per launch) applied to make_kmeans_assign and
 // make_kmeans_update (src/repro/core/cuda_suite.py:898 and :936).
 //
-// Bound on the H100: atomics, then memory.  assign moves 7.9 MB at
+// Bound on the H100: memory, then atomics.  assign moves 7.9 MB at
 // 494,080 points (px, py, assign read; assign written), 2.4 us at the
 // memory rate; but the reference adds every point to one of k = 4
-// addresses per sum, about 1.5 M atomics on 13 addresses, which the card
-// serialises.  The coordinates are integer-valued and their total stays
-// below 2^24, so every partial sum is an exact float whatever its order.
-// That lets each block pre-reduce: per warp, a shuffle tree per cluster;
-// per block, one __shared__ atomic per warp and cluster; then one global
-// atomicAdd per block and bin (about 100 K in all), and one for the
-// block's moved count from __syncthreads_count.  The results equal the
-// reference's bit for bit.  Distances use the _rn intrinsics: after the
-// first update the centroids are not integers, and an FMA would move
-// near ties.  update divides with __fdiv_rn, so the centroids equal
-// NumPy's float32 division.
+// addresses per sum, which the card would serialise.  The coordinates are
+// integer-valued and their total stays below 2^24, so every partial sum
+// is an exact float whatever its order, and the kernel may pre-reduce.
+// The chevron's grid of one point a thread (7,720 blocks of 64 at that
+// size) made a block pay its start for 64 points and still left one
+// global atomic per block and bin, about 100 K on 13 addresses, which L2
+// runs one after another.  So the chevron's grid and block only fix the
+// m = min(n, grid block) points the launch covers, and the launcher
+// starts ceil(m / (kThreads kPoints)) CTAs (kmeans_assign_cta_points;
+// 483 at 494,080 points):
+//   - a thread takes kPoints points, kThreads apart (neighbouring threads
+//     on neighbouring points), all loads issued before the first compare;
+//   - k <= kRegK: the centroids and the thread's per-cluster sums and
+//     count live in registers (assign_regs<K>, one instantiation a k);
+//   - kRegK < k <= KMEANS_MAX_K: each warp adds its points into its own
+//     __shared__ bins with shared atomics (assign_bins);
+//   - a warp then sums each bin by shuffles, the warps' sums meet in
+//     __shared__ behind one barrier, and the CTA makes one global
+//     atomicAdd per bin that holds a point, and one for its moved count:
+//     about 3,000 in all.
+// tools/kmeans_assign_variants.cu times this beside the one-point-a-thread
+// kernel, that kernel with per-block partials stored instead of added,
+// other CTA widths and points a thread, and shared bins at small k.  On
+// an NVIDIA H100 80GB HBM3 at 700 W, at k = 4: the old kernel 0.0285 ms,
+// with its global atomics stored as partials 0.0148 (the contended
+// atomics cost 13.7 us, 1.8 ns each at 7,720 an address, and the 7,720
+// small CTAs most of the rest), an empty kernel of 483 CTAs 0.0051, this
+// kernel 0.0084; 8 or 16 points a thread up to 37 % slower, CTAs of 128
+// or 512 threads within 10 %; shared bins 0.0140, hence registers up to
+// k = 8.  At k = 32 the bins take 0.0160 against the old kernel's 0.0618
+// (PERF.md has the rest).  Distances use the _rn intrinsics: after the
+// first update the centroids are not integers, and an FMA would move near
+// ties.  update divides with __fdiv_rn, so the centroids equal NumPy's
+// float32 division.
 #include <cuda_runtime.h>
 
 #define KMEANS_MAX_K 32
+
+namespace {
+
+constexpr int kThreads = 256;              // a CTA
+constexpr int kPoints = 4;                 // points a thread
+constexpr int kWarps = kThreads / 32;
+constexpr int kRegK = 8;                   // the largest k held in registers
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float dist2(float x, float y, float cx, float cy) {
   const float dx = __fsub_rn(x, cx), dy = __fsub_rn(y, cy);
   return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+// lane 0 gets the warp's sum (exact in any order for integer values)
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
   return v;
 }
 
-// blockDim is a multiple of 32, and every thread reaches the shuffles and
-// the barriers (no early return).
-__global__ void kmeans_assign_kernel(
-    const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ cx, const float* __restrict__ cy, int* assign,
-    int* changed, float* sumx, float* sumy, int* count, int n, int k) {
-  __shared__ float bx[KMEANS_MAX_K], by[KMEANS_MAX_K];
-  __shared__ int bn[KMEANS_MAX_K];
+// The buffers of one assign launch.
+struct Bufs {
+  const float* px;
+  const float* py;
+  const float* cx;
+  const float* cy;
+  int* assign;
+  int* changed;
+  float* sumx;
+  float* sumy;
+  int* count;
+};
+
+// The first of the thread's kPoints points, kThreads apart.
+__device__ __forceinline__ long long first_point() {
+  return (long long)blockIdx.x * kThreads * kPoints + threadIdx.x;
+}
+
+// The CTA's partials: each warp's sums (sx, sy, count per bin, its moved
+// count) meet in __shared__; thread c < k adds bin c's to the global sums
+// and thread kThreads - 1 the moved count.  Every thread calls this.
+template <int NB>
+__device__ __forceinline__ void flush(const Bufs& b, float (&wx)[kWarps][NB],
+                                      float (&wy)[kWarps][NB],
+                                      int (&wn)[kWarps][NB],
+                                      int (&wm)[kWarps], int moved, int k) {
   const int t = threadIdx.x;
-  for (int c = t; c < k; c += blockDim.x) {
-    bx[c] = 0.0f;
-    by[c] = 0.0f;
-    bn[c] = 0;
-  }
-  const long long i = (long long)blockIdx.x * blockDim.x + t;
-  const bool valid = i < n;
-  const int g = valid ? (int)i : n - 1;
-  const float x = px[g], y = py[g];
-  int best = 0;
-  float bestd = dist2(x, y, cx[0], cy[0]);
-  for (int c = 1; c < k; ++c) {
-    const float d = dist2(x, y, cx[c], cy[c]);
-    if (d < bestd) {              // strict: ties keep the lower centre
-      best = c;
-      bestd = d;
+  moved = warp_sum(moved);
+  if ((t & 31) == 0) wm[t >> 5] = moved;
+  __syncthreads();
+  if (t < k) {
+    float x = 0.0f, y = 0.0f;
+    int n = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      x += wx[w][t];
+      y += wy[w][t];
+      n += wn[w][t];
+    }
+    if (n) {
+      atomicAdd(&b.sumx[t], x);
+      atomicAdd(&b.sumy[t], y);
+      atomicAdd(&b.count[t], n);
     }
   }
-  const int moved = valid && assign[g] != best;
-  if (valid) assign[i] = best;
-  __syncthreads();                // the bins are zeroed
-  const bool lead = (t & 31) == 0;
-  for (int c = 0; c < k; ++c) {
-    const bool mine = valid && best == c;
-    const int wn = __reduce_add_sync(0xffffffffu, mine ? 1 : 0);
-    const float wx = warp_sum(mine ? x : 0.0f);
-    const float wy = warp_sum(mine ? y : 0.0f);
-    if (lead && wn) {
-      atomicAdd(&bx[c], wx);
-      atomicAdd(&by[c], wy);
-      atomicAdd(&bn[c], wn);
+  if (t == kThreads - 1) {
+    int n = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) n += wm[w];
+    if (n) atomicAdd(b.changed, n);
+  }
+}
+
+// k == K <= kRegK: centroids and per-cluster partials in registers.
+template <int K>
+__global__ void __launch_bounds__(kThreads) assign_regs(Bufs b, long long m) {
+  __shared__ float wx[kWarps][K], wy[kWarps][K];
+  __shared__ int wn[kWarps][K], wm[kWarps];
+  float ccx[K], ccy[K], sx[K], sy[K];
+  int sn[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    ccx[c] = b.cx[c], ccy[c] = b.cy[c];
+    sx[c] = 0.0f, sy[c] = 0.0f, sn[c] = 0;
+  }
+  const long long first = first_point();
+  float x[kPoints], y[kPoints];
+  int old[kPoints];
+#pragma unroll
+  for (int j = 0; j < kPoints; ++j) {
+    const long long i = first + (long long)j * kThreads;
+    if (i < m) x[j] = b.px[i], y[j] = b.py[i], old[j] = b.assign[i];
+  }
+  int moved = 0;
+#pragma unroll
+  for (int j = 0; j < kPoints; ++j) {
+    const long long i = first + (long long)j * kThreads;
+    if (i >= m) continue;
+    int best = 0;
+    float bestd = dist2(x[j], y[j], ccx[0], ccy[0]);
+#pragma unroll
+    for (int c = 1; c < K; ++c) {
+      const float d = dist2(x[j], y[j], ccx[c], ccy[c]);
+      if (d < bestd) {            // strict: ties keep the lower centre
+        best = c;
+        bestd = d;
+      }
+    }
+    moved += old[j] != best;
+    b.assign[i] = best;
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      const bool mine = best == c;
+      sx[c] += mine ? x[j] : 0.0f;
+      sy[c] += mine ? y[j] : 0.0f;
+      sn[c] += mine;
     }
   }
-  const int nmoved = __syncthreads_count(moved);  // and the bins are full
-  for (int c = t; c < k; c += blockDim.x) {
-    if (bn[c]) {
-      atomicAdd(&sumx[c], bx[c]);
-      atomicAdd(&sumy[c], by[c]);
-      atomicAdd(&count[c], bn[c]);
-    }
+  const int warp = threadIdx.x >> 5;
+  const bool lead = (threadIdx.x & 31) == 0;
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    const float ax = warp_sum(sx[c]), ay = warp_sum(sy[c]);
+    const int an = warp_sum(sn[c]);
+    if (lead) wx[warp][c] = ax, wy[warp][c] = ay, wn[warp][c] = an;
   }
-  if (t == 0 && nmoved) atomicAdd(changed, nmoved);
+  flush<K>(b, wx, wy, wn, wm, moved, K);
+}
+
+// kRegK < k <= KMEANS_MAX_K: centroids in __shared__, a bin set per warp
+// filled by shared atomics.
+__global__ void __launch_bounds__(kThreads)
+    assign_bins(Bufs b, long long m, int k) {
+  __shared__ float ccx[KMEANS_MAX_K], ccy[KMEANS_MAX_K];
+  __shared__ float wx[kWarps][KMEANS_MAX_K], wy[kWarps][KMEANS_MAX_K];
+  __shared__ int wn[kWarps][KMEANS_MAX_K], wm[kWarps];
+  const int t = threadIdx.x, warp = t >> 5;
+  if (t < k) ccx[t] = b.cx[t], ccy[t] = b.cy[t];
+  for (int e = t; e < kWarps * KMEANS_MAX_K; e += kThreads) {
+    (&wx[0][0])[e] = 0.0f;
+    (&wy[0][0])[e] = 0.0f;
+    (&wn[0][0])[e] = 0;
+  }
+  const long long first = first_point();
+  float x[kPoints], y[kPoints];
+  int old[kPoints];
+#pragma unroll
+  for (int j = 0; j < kPoints; ++j) {
+    const long long i = first + (long long)j * kThreads;
+    if (i < m) x[j] = b.px[i], y[j] = b.py[i], old[j] = b.assign[i];
+  }
+  __syncthreads();                // the centroids are in, the bins zeroed
+  int moved = 0;
+#pragma unroll
+  for (int j = 0; j < kPoints; ++j) {
+    const long long i = first + (long long)j * kThreads;
+    if (i >= m) continue;
+    int best = 0;
+    float bestd = dist2(x[j], y[j], ccx[0], ccy[0]);
+    for (int c = 1; c < k; ++c) {
+      const float d = dist2(x[j], y[j], ccx[c], ccy[c]);
+      if (d < bestd) {            // strict: ties keep the lower centre
+        best = c;
+        bestd = d;
+      }
+    }
+    moved += old[j] != best;
+    b.assign[i] = best;
+    atomicAdd(&wx[warp][best], x[j]);
+    atomicAdd(&wy[warp][best], y[j]);
+    atomicAdd(&wn[warp][best], 1);
+  }
+  flush<KMEANS_MAX_K>(b, wx, wy, wn, wm, moved, k);
+}
+
+// assign_regs<k>, for 1 <= k <= K.
+template <int K>
+void launch_assign(const Bufs& b, long long m, int k, int ctas,
+                   cudaStream_t s) {
+  if (k == K) {
+    assign_regs<K><<<ctas, kThreads, 0, s>>>(b, m);
+  } else if constexpr (K > 1) {
+    launch_assign<K - 1>(b, m, k, ctas, s);
+  }
 }
 
 __global__ void kmeans_update_kernel(const float* __restrict__ sumx,
@@ -103,13 +250,31 @@ __global__ void kmeans_update_kernel(const float* __restrict__ sumx,
   cy[c] = __fdiv_rn(sumy[c], safe);
 }
 
+}  // namespace
+
+// The points one CTA of launch_kmeans_assign covers;
+// lower_cuda.kmeans_assign_ctas gives the CTA count from it.
+extern "C" int kmeans_assign_cta_points() { return kThreads * kPoints; }
+
+// grid, block: the chevron's, whose threads cover the first
+// m = min(n, grid block) points; ctas: CTAs of kmeans_assign_cta_points
+// points that cover those m.
 extern "C" int launch_kmeans_assign(const float* px, const float* py,
                                     const float* cx, const float* cy,
                                     int* assign, int* changed, float* sumx,
                                     float* sumy, int* count, int n, int k,
-                                    int grid, int block, void* stream) {
-  kmeans_assign_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      px, py, cx, cy, assign, changed, sumx, sumy, count, n, k);
+                                    int grid, int block, int ctas,
+                                    void* stream) {
+  if (k < 1 || k > KMEANS_MAX_K) return (int)cudaErrorInvalidValue;
+  const long long threads = (long long)grid * block;
+  const long long m = threads < n ? threads : n;
+  if (m <= 0) return (int)cudaSuccess;
+  const Bufs b{px, py, cx, cy, assign, changed, sumx, sumy, count};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k <= kRegK)
+    launch_assign<kRegK>(b, m, k, ctas, s);
+  else
+    assign_bins<<<ctas, kThreads, 0, s>>>(b, m, k);
   return (int)cudaGetLastError();
 }
 

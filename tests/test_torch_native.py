@@ -876,3 +876,157 @@ def test_lavamd_within_tol_on_the_card(card, nboxes, ppb, nnei, grid, wild):
     want = kern.plain(bufs, Dim3(grid), Dim3(ppb), **params)["force"]
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert torch.equal(got[grid * ppb:], bufs["force"][grid * ppb:])
+
+
+#: (h, w, grid) of stencil2d: the main path (4096 x 4096, the chevron's
+#: (512, 512) tiles), then hotspot's shapes
+STENCIL2D = ((4096, 4096, (512, 512)), *HOTSPOT)
+
+
+@pytest.mark.parametrize("region", ((8, 128), (16, 64), (4, 256)))
+@pytest.mark.parametrize("h,w,grid", STENCIL2D)
+def test_stencil2d_ctas_cover_the_grids_tiles(monkeypatch, h, w, grid,
+                                              region):
+    # every cell a logical tile writes (inside the array) lies in a CTA of
+    # the physical grid, and every CTA holds such a cell.  The tiles write
+    # a product of rows and columns, so each axis is checked on its own.
+    # The region comes from the kernel's source on the card; here it is
+    # the shipped one and two others
+    monkeypatch.setattr(lower_cuda, "stencil2d_region", lambda: region)
+    rows, cols = region
+    cx, cy = lower_cuda.stencil2d_ctas(h, w, grid)
+    for n, tiles, per, ctas in ((h, grid[1], rows, cy), (w, grid[0], cols,
+                                                         cx)):
+        written = np.zeros(n, bool)
+        for t in range(tiles):
+            written[t * 8:t * 8 + 8] = True
+        cells = np.nonzero(written)[0]
+        assert (cells // per < ctas).all()
+        assert np.array_equal(np.unique(cells // per), np.arange(ctas))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("h,w,grid", STENCIL2D)
+def test_stencil2d_bit_for_bit_on_the_card(card, h, w, grid, offset):
+    # y equals the plain version's bits: the stencil below the grid's
+    # tiles, its own input past them; buffers 4 bytes past a 16-byte
+    # boundary (and w % 4 != 0) take the launcher's one-float path
+    r = np.random.default_rng(42)
+    host = {"x": torch.from_numpy(r.standard_normal((h, w), np.float32)),
+            "y": torch.from_numpy(r.standard_normal((h, w), np.float32))}
+    bufs = _on_card(host, card, offset)
+    kern = lower_cuda.KERNELS["stencil2d"]
+    before = kern.launches
+    kern.launch_into(bufs, Dim3(*grid), Dim3(8, 8), h=h, w=w)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    got = bufs["y"].cpu()
+    want = kern.plain(host, Dim3(*grid), Dim3(8, 8), h=h, w=w)["y"]
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    nr, nc = min(h, 8 * grid[1]), min(w, 8 * grid[0])
+    kept = torch.ones(h, w, dtype=torch.bool)
+    kept[:nr, :nc] = False
+    assert torch.equal(got[kept].view(torch.int32),
+                       host["y"][kept].view(torch.int32))
+
+
+#: (n, grid, block) of kmeans_assign: the main path (kmeans -o -i
+#: kdd_cup); n ragged against the block; grids short of n; one point;
+#: CUDA's widest block
+KMEANS_CTAS = ((494080, 7720, 64), (1000, 16, 64), (1000, 10, 64),
+               (2049, 33, 64), (1, 1, 32), (20000, 20, 1024),
+               (4096, 64, 64))
+
+
+@pytest.mark.parametrize("per", (1024, 512, 2048))
+@pytest.mark.parametrize("n,grid,block", KMEANS_CTAS)
+def test_kmeans_assign_ctas_cover_exactly_the_points(monkeypatch, n, grid,
+                                                     block, per):
+    # CTA j holds the points [j per, (j + 1) per): every point the grid
+    # covers lies in one, and the last CTA holds one.  The points a CTA
+    # covers come from the kernel's source on the card; here they are the
+    # shipped count and two others
+    monkeypatch.setattr(lower_cuda, "kmeans_assign_cta_points", lambda: per)
+    ctas = lower_cuda.kmeans_assign_ctas(n, grid, block)
+    m = min(n, grid * block)
+    assert (np.arange(m) // per < ctas).all()
+    assert (ctas - 1) * per < m
+
+
+def _kmeans_host(n, k, rng, held=0.5):
+    """kmeans_assign's buffers: integer-valued points and centroids on a
+    small grid (so distances tie often; the first two centroids are one
+    point and the third lies where many points are equidistant from it
+    and the first), totals below 2^24; ``held`` of the points already
+    hold their answer in ``assign``, the rest a random cluster; the sums
+    and counts start from integers."""
+    px = rng.integers(0, 31, n).astype(np.float32)
+    py = rng.integers(0, 31, n).astype(np.float32)
+    cx = rng.integers(0, 31, k).astype(np.float32)
+    cy = rng.integers(0, 31, k).astype(np.float32)
+    if k > 2:
+        cx[1], cy[1] = cx[0], cy[0]
+        cx[2], cy[2] = cx[0] + 2, cy[0]
+    d = (px[:, None] - cx[None]) ** 2 + (py[:, None] - cy[None]) ** 2
+    answer = d.argmin(1).astype(np.int32)
+    assign = np.where(rng.random(n) < held, answer,
+                      rng.integers(0, k, n)).astype(np.int32)
+    return {"px": px, "py": py, "cx": cx, "cy": cy, "assign": assign,
+            "changed": np.full(1, 3, np.int32),
+            "sumx": rng.integers(0, 9, k).astype(np.float32),
+            "sumy": rng.integers(0, 9, k).astype(np.float32),
+            "count": rng.integers(0, 9, k).astype(np.int32)}
+
+
+#: (n, grid, block, k) of kmeans_assign on the card: the main path; n
+#: ragged against the block; a grid short of n; k = 1, the largest in
+#: registers (8), the first in shared bins (9) and the most (32), each
+#: also with a grid short of n; CUDA's widest block
+KMEANS = ((494080, 7720, 64, 4), (1000, 16, 64, 4), (1000, 10, 64, 4),
+          (5000, 80, 64, 1), (5000, 80, 64, 8), (5000, 80, 64, 9),
+          (5000, 80, 64, 32), (5000, 40, 64, 1), (5000, 40, 64, 32),
+          (20000, 20, 1024, 4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,grid,block,k", KMEANS)
+def test_kmeans_assign_bit_for_bit_on_the_card(card, n, grid, block, k):
+    # every written buffer equals the plain version's bits: assign below
+    # m = min(n, grid block) and its input past it, the moved points
+    # counted against the input assign, sums and counts added on
+    host = _kmeans_host(n, k, np.random.default_rng(42))
+    bufs = carry.from_reference(host, device=card)
+    kern = lower_cuda.KERNELS["kmeans_assign"]
+    before = kern.launches
+    got = kern(bufs, grid=grid, block=block, n=n, k=k)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = kern.plain(carry.from_reference(host, device="cpu"), Dim3(grid),
+                      Dim3(block), n=n, k=k)
+    for name in kern.writes:
+        assert torch.equal(got[name].cpu(), want[name]), name
+    m = min(n, grid * block)
+    assert np.array_equal(got["assign"][m:].cpu().numpy(),
+                          host["assign"][m:])
+    if k > 1:      # with one cluster every answer is 0 and none moves
+        assert 3 < int(got["changed"][0]) < 3 + m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", (3, 9))
+def test_kmeans_assign_ties_go_to_the_lower_centre_on_the_card(card, k):
+    # centroids 0 and 1 coincide, and 2 lies 2 to the right of them: a
+    # point at the one position or one to the right of it ties, and goes
+    # to centroid 0
+    host = _kmeans_host(256, k, np.random.default_rng(3))
+    cx0, cy0 = host["cx"][0], host["cy"][0]
+    host["px"][:128] = cx0 + np.arange(128) % 2
+    host["py"][:128] = cy0
+    bufs = carry.from_reference(host, device=card)
+    got = lower_cuda.KERNELS["kmeans_assign"](bufs, grid=4, block=64, n=256,
+                                              k=k)["assign"].cpu().numpy()
+    d = ((host["px"][:, None] - host["cx"][None]) ** 2
+         + (host["py"][:, None] - host["cy"][None]) ** 2)
+    assert np.array_equal(got, d.argmin(1))
+    assert (got[:128] == 0).all()
