@@ -33,12 +33,15 @@ Phases, each printing its own lines:
    else.  The lines of matmul_tiled, of vecadd (CTAs of 256 threads that
    move two float4s each) and of the kernels that run a logical block a
    warp in CTAs of 256 (reduce_shared, reduce_warp, srad_stats,
-   softmax_row: one row a warp, its values in registers, no barrier)
+   softmax_row: one row a warp, its values in registers, no barrier;
+   scan_block: one block a warp, its levels in registers and shuffles)
    also give their physical CTA counts, as do transpose_tiled's (64 x
    64 squares of x, one barrier each, from
-   ``lower_cuda.transpose_tiled_ctas``), hotspot's and stencil2d's (8
-   warps a CTA over 8 x 128 cells, ``lower_cuda.hotspot_ctas`` and
-   ``lower_cuda.stencil2d_ctas``), srad_update's (the same mapping,
+   ``lower_cuda.transpose_tiled_ctas``), stencil1d's (8 warps a CTA over
+   1,024 elements, ``lower_cuda.stencil1d_ctas``), hotspot's and
+   stencil2d's (8 warps a CTA over 8 x 128 cells,
+   ``lower_cuda.hotspot_ctas`` and ``lower_cuda.stencil2d_ctas``),
+   srad_update's (the same mapping,
    ``lower_cuda.srad_update_ctas``, after its fold over a cluster of 8
    CTAs), kmeans_assign's (a fixed number of points a CTA of 256,
    partials in registers, ``lower_cuda.kmeans_assign_ctas``), lavamd's
@@ -405,7 +408,7 @@ def compare(name: str, got: dict, want: dict, writes, tol: float) -> float:
 
 #: kernels whose launcher runs a logical block a warp, in CTAs of 256
 WARP_BLOCK_KERNELS = ("reduce_shared", "reduce_warp", "srad_stats",
-                      "softmax_row")
+                      "softmax_row", "scan_block")
 
 
 def warp_block_ctas(grid: int, block: int) -> int:
@@ -777,6 +780,11 @@ def main() -> int:
                     params["h"], params["w"], grid.x)
                 side = lower_cuda.transpose_tiled_side()
                 ctas = f" ctas={cx * cy} ({cx} x {cy} of {side} x {side})"
+            elif kname == "stencil1d":
+                per = lower_cuda.stencil1d_cta_elems()
+                n_ctas = lower_cuda.stencil1d_ctas(params["n"], grid.x,
+                                                   block.x)
+                ctas = f" ctas={n_ctas} ({per} elements each)"
             elif kname in ("hotspot", "stencil2d"):
                 cx, cy = getattr(lower_cuda, f"{kname}_ctas")(
                     params["h"], params["w"], grid)

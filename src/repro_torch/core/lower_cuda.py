@@ -1209,9 +1209,9 @@ MATMUL_TILED = CudaKernel(
 # --------------------------------------------------------------------------
 # stencil1d, stencil2d
 # --------------------------------------------------------------------------
-#: the widest block of the kernels whose __shared__ arrays are sized
-#: statically (stencil1d, scan_block, pixel_pipeline) and of softmax_row
-#: (its launcher's switch covers 32 ... 1024 values a row)
+#: the widest block of the kernels built for one block (stencil1d,
+#: pixel_pipeline, whose __shared__ array is sized statically) and of
+#: softmax_row (its launcher's switch covers 32 ... 1024 values a row)
 MAX_THREADS = 1024
 STENCIL2D_TILE = 8
 
@@ -1249,15 +1249,29 @@ def _stencil1d_check(grid: Dim3, block: Dim3, params: dict):
     _block_of("stencil1d", block, params["nthreads"])
 
 
+def stencil1d_cta_elems() -> int:
+    """The elements one CTA of ``csrc/stencil1d.cu`` covers, as its
+    ``stencil1d_cta_elems`` gives them (builds the kernels' library at
+    first use)."""
+    return _native.function("stencil1d_cta_elems", ())()
+
+
+def stencil1d_ctas(n: int, grid: int, block: int) -> int:
+    """The CTAs of :func:`stencil1d_cta_elems` elements that cover the
+    ``m = min(n, grid * block)`` elements a logical grid writes."""
+    return -(-min(n, grid * block) // stencil1d_cta_elems())
+
+
 STENCIL1D = CudaKernel(
     name="stencil1d", symbol="launch_stencil1d",
-    argtypes=(_P,) * 2 + (_I,) * 3 + (_P,),
+    argtypes=(_P,) * 2 + (_I,) * 4 + (_P,),
     buffers={"x": _F32, "y": _F32},
     writes=("y",),
     shapes=lambda *, n, nthreads: {"x": (n,), "y": (n,)},
     check=_stencil1d_check, plain=stencil1d_plain,
     cargs=lambda b, grid, block, *, n, nthreads: [
-        _ptr(b["x"]), _ptr(b["y"]), n, grid.x, block.x],
+        _ptr(b["x"]), _ptr(b["y"]), n, grid.x, block.x,
+        stencil1d_ctas(n, grid.x, block.x)],
     source="src/repro_torch/csrc/stencil1d.cu")
 
 

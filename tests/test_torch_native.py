@@ -5,6 +5,8 @@ device and ``nvcc``; they skip elsewhere, and on a machine with a card
 they run with ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_native.py``.
 """
+import importlib.util
+import pathlib
 import shutil
 
 import numpy as np
@@ -1030,3 +1032,108 @@ def test_kmeans_assign_ties_go_to_the_lower_centre_on_the_card(card, k):
          + (host["py"][:, None] - host["cy"][None]) ** 2)
     assert np.array_equal(got, d.argmin(1))
     assert (got[:128] == 0).all()
+
+
+#: (n, grid, block) of scan_block: the main path, grids short of n and a
+#: ragged n, then every block it admits at a ragged n, its grid whole
+SCAN = ((1 << 24, 131072, 128), (40003, 100, 128), (40003, 7, 1024),
+        (1000, 7, 128), *((4101, 4101 // b, b) for b in
+                          (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)))
+
+
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("n,grid,block", SCAN)
+def test_scan_block_ctas_cover_the_blocks(n, grid, block):
+    # the launcher runs thread j of the logical grid on warp j // max(block,
+    # 32) (a warp a block, or 32 / block blocks a warp below 32), 8 warps a
+    # CTA: every thread lies in a CTA of the count chip_smoke.py prints,
+    # and every CTA holds one
+    ctas = _chip_smoke().warp_block_ctas(grid, block)
+    cta = np.arange(grid * block, dtype=np.int64) // max(block, 32) // 8
+    assert (cta < ctas).all()
+    assert np.array_equal(np.unique(cta), np.arange(ctas))
+
+
+#: (n, grid, block) of stencil1d: the main path; ragged n; blocks of 1,
+#: 96 and 1024; grids short of n (m = 3999 ends inside a lane's four)
+STENCIL1D = ((1 << 24, 131072, 128), (4000, 32, 128), (4001, 4001, 1),
+             (4003, 42, 96), (4000, 4, 1024), (4003, 3, 1024),
+             (4001, 30, 128), (4000, 41, 96), (4000, 3999, 1))
+
+
+@pytest.mark.parametrize("per", (1024, 512, 2048))
+@pytest.mark.parametrize("n,grid,block", STENCIL1D)
+def test_stencil1d_ctas_cover_the_elements(monkeypatch, n, grid, block,
+                                           per):
+    # CTA j covers the elements [j per, (j + 1) per): every element below
+    # m = min(n, grid block) lies in a CTA of the physical grid, and every
+    # CTA holds one.  The elements a CTA covers come from the kernel's
+    # source on the card; here they are the shipped count and two others
+    monkeypatch.setattr(lower_cuda, "stencil1d_cta_elems", lambda: per)
+    ctas = lower_cuda.stencil1d_ctas(n, grid, block)
+    cta = np.arange(min(n, grid * block), dtype=np.int64) // per
+    assert (cta < ctas).all()
+    assert np.array_equal(np.unique(cta), np.arange(ctas))
+
+
+def _floats(n, seed):
+    return torch.from_numpy(
+        np.random.default_rng(seed).standard_normal(n, np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("shape", ("main", "one", "short"))
+@pytest.mark.parametrize("block", (1, 2, 4, 8, 16, 32, 64, 128, 256, 512,
+                                   1024))
+def test_scan_block_bit_for_bit_on_the_card(card, block, shape, offset):
+    # y equals the plain version's bits below grid * block and keeps its
+    # input past it, at the main path's n = 2^24 (grid n / block), one
+    # block, and a grid short of a ragged n; buffers aligned to 16 bytes
+    # and 4 bytes past it
+    n = 1 << 24 if shape == "main" else 40003
+    grid = {"main": n // block, "one": 1, "short": n // block // 3}[shape]
+    host = {"x": _floats(n, 42), "y": _floats(n, 43)}
+    bufs = _on_card(host, card, offset)
+    kern = lower_cuda.KERNELS["scan_block"]
+    before = kern.launches
+    kern.launch_into(bufs, Dim3(grid), Dim3(block), n=n, nthreads=block)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    got = bufs["y"].cpu()
+    want = kern.plain(host, Dim3(grid), Dim3(block), n=n,
+                      nthreads=block)["y"]
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    m = grid * block
+    assert torch.equal(got[m:].view(torch.int32),
+                       host["y"][m:].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("n,grid,block", STENCIL1D)
+def test_stencil1d_bit_for_bit_on_the_card(card, n, grid, block, offset):
+    # y equals the plain version's bits: the stencil below m = min(n,
+    # grid block), its own input past m; buffers aligned to 16 bytes and
+    # 4 bytes past it
+    host = {"x": _floats(n, 42), "y": _floats(n, 43)}
+    bufs = _on_card(host, card, offset)
+    kern = lower_cuda.KERNELS["stencil1d"]
+    before = kern.launches
+    kern.launch_into(bufs, Dim3(grid), Dim3(block), n=n, nthreads=block)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    got = bufs["y"].cpu()
+    want = kern.plain(host, Dim3(grid), Dim3(block), n=n,
+                      nthreads=block)["y"]
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    m = min(n, grid * block)
+    assert torch.equal(got[m:].view(torch.int32),
+                       host["y"][m:].view(torch.int32))
