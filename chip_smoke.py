@@ -7,14 +7,16 @@ Phases, each printing its own lines:
 
 1. the card (``nvidia-smi`` name and power limit) and the ``nvcc`` build
    of ``src/repro_torch/csrc/*.cu`` into ``build/repro_torch/``;
-2. per hand-written kernel (26 for the 23 entries: srad_step, nn and
-   kmeans run two kernels an iteration): one launch at the main path's
-   shape through the kernel and through its plain PyTorch version on the same
-   inputs on the card, compared (within the entry's ``tol`` for the
-   float32 results of the ``TOLERANT`` kernels, bit for bit for every
-   other kernel), then both timed with CUDA events, the median of 25 runs
-   after warm-up.  A chain's first kernel runs on the entry's inputs, a later
-   one on the state that one launch of each kernel before it leaves.
+2. per hand-written kernel (27 for the 23 entries: srad_step, nn and
+   kmeans run two kernels an iteration, and the histogram entry runs a
+   second time in its contiguous layout, ``VARIANTS``): one launch at the
+   main path's shape through the kernel and through its plain PyTorch
+   version on the same inputs on the card, compared (within the entry's
+   ``tol`` for the float32 results of the ``TOLERANT`` kernels, bit for
+   bit for every other kernel), then both timed with CUDA events, the
+   median of 25 runs after warm-up.  A chain's first kernel runs on the
+   entry's inputs, a later one on the state that one launch of each
+   kernel before it leaves.
    ``ms`` is the kernel alone (its written buffers restored between runs,
    outside the timed window); ``call_ms`` adds the wrapper's functional
    copy of the written buffers; ``bound_ms`` is the least time the card
@@ -25,20 +27,25 @@ Phases, each printing its own lines:
    ``psum`` alone but reads the same bytes as the kernel; the per-block
    ``torch.min`` of the distances for nn_reduce, when its indices agree;
    ``torch.add``, ``torch.flip``, ``torch.bincount`` and ``torch.matmul``
-   for vecadd, reverse, histogram and matmul_tiled; ``torch.softmax``,
-   the per-block ``torch.cumsum`` and ``x.t().contiguous()`` for
-   softmax_row, scan_block and transpose_tiled).  Float32 matrix
-   products run in full float32: TF32 is switched off explicitly, or
-   matmul_tiled's plain version and yardstick would compute something
-   else.  The lines of matmul_tiled, of vecadd (CTAs of 256 threads that
+   for vecadd, reverse, both histogram layouts and matmul_tiled;
+   ``torch.softmax``, the per-block ``torch.cumsum`` and
+   ``x.t().contiguous()`` for softmax_row, scan_block and
+   transpose_tiled).  Float32 matrix products run in full float32: TF32
+   is switched off explicitly, or matmul_tiled's plain version and
+   yardstick would compute something else.  The lines of matmul_tiled, of vecadd (CTAs of 256 threads that
    move two float4s each) and of the kernels that run a logical block a
    warp in CTAs of 256 (reduce_shared, reduce_warp, srad_stats,
    softmax_row: one row a warp, its values in registers, no barrier;
    scan_block: one block a warp, its levels in registers and shuffles)
    also give their physical CTA counts, as do transpose_tiled's (64 x
    64 squares of x, one barrier each, from
-   ``lower_cuda.transpose_tiled_ctas``), stencil1d's (8 warps a CTA over
-   1,024 elements, ``lower_cuda.stencil1d_ctas``), hotspot's and
+   ``lower_cuda.transpose_tiled_ctas``), stencil1d's and
+   pixel_pipeline's (8 warps a CTA over 1,024 elements, four a lane, no
+   barrier, ``lower_cuda.stencil1d_ctas`` and
+   ``lower_cuda.pixel_pipeline_ctas``), both histogram layouts' (the
+   pixels the reference's threads count, read as runs of consecutive
+   pixels, a fixed count of them a CTA of 256 with 16-byte loads and a
+   shared histogram, ``lower_cuda.histogram_ctas``), hotspot's and
    stencil2d's (8 warps a CTA over 8 x 128 cells,
    ``lower_cuda.hotspot_ctas`` and ``lower_cuda.stencil2d_ctas``),
    srad_update's (the same mapping,
@@ -55,16 +62,19 @@ Phases, each printing its own lines:
    level's time, bound and frontier;
 3. the main path: the eleven Rodinia entries at Rodinia 3.1's run-script
    sizes, and the twelve textbook entries at sizes that load the card
-   (``SIZES``), through ``run_entry(entry, backend="cuda")`` - chevron/
-   api/backends/``lower_cuda`` - with every launch count set to 0 just before
-   and read just after; each kernel of the entry must have launched, and
-   their launches must sum to the chain's count.  Each entry is checked
-   against the port's NumPy oracle (timed, since lavaMD's runs 27,000
-   NumPy steps): integer buffers and all of kmeans's bit for bit, the
-   other float32 ones within the entry's ``tol`` (``EXACT_ENTRIES`` bit
-   for bit).  Seven entries are launch chains and sixteen single
-   launches.  Every entry draws its inputs from one generator seeded
-   with ``SEED``, in the order of ``SIZES``.
+   (``SIZES``), then the histogram entry in its contiguous layout on the
+   same pixels (``VARIANTS``), through ``run_entry(entry, backend="cuda")``
+   - chevron/api/backends/``lower_cuda`` - with every launch count set to
+   0 just before and read just after; each kernel of the entry must have
+   launched, and their launches must sum to the chain's count.  Each
+   entry is checked against the port's NumPy oracle (timed, since
+   lavaMD's runs 27,000 NumPy steps): integer buffers and all of kmeans's
+   bit for bit, the other float32 ones within the entry's ``tol``
+   (``EXACT_ENTRIES`` bit for bit).  Seven entries are launch chains and
+   sixteen single launches (seventeen runs with the contiguous
+   histogram).  Every entry of ``SIZES`` draws its inputs from one
+   generator seeded with ``SEED``, in its order; a variant takes its
+   entry's.
    Then needle_nw's host time per launch, layer by layer;
 4. the hot-path kernels (matmul, rmsnorm, flash attention) at
    granite-3-2b's widths (``HOT``): each call goes through
@@ -88,7 +98,7 @@ Phases, each printing its own lines:
    (``F.rms_norm``, ``torch.matmul``, ``F.scaled_dot_product_attention``,
    timed only) are timed as in phase 2.  The inputs are drawn from the
    same generator after every entry's;
-5. the kernels' JSON line (the 26 suite kernels and a row per hot-path
+5. the kernels' JSON line (the 27 suite kernels and a row per hot-path
    call and dtype, named ``<kernel>/<call>/<dtype>``), the card line, and
    last
    ``{"ok": true, "device": {...}}``.
@@ -171,6 +181,9 @@ SIZES = {
     "transpose_tiled": {"h": 4096, "w": 4096},           # 262,144 tiles
     "pixel_pipeline": {"n": 1 << 24, "block": 128},
 }
+#: entries run again with another option, on the inputs of the entry of
+#: ``SIZES`` they vary: name -> (that entry, the option)
+VARIANTS = {"histogram_contiguous": ("histogram", {"layout": "contiguous"})}
 
 
 #: the hot-path calls at granite-3-2b's widths
@@ -230,9 +243,22 @@ def time_ms(fn, before=None) -> float:
     return statistics.median(times)
 
 
-def entries(cuda_suite):
-    return {name: getattr(cuda_suite, f"entry_{name}")(**size)
-            for name, size in SIZES.items()}
+def size_of(name: str) -> dict:
+    """The entry function's arguments for ``name`` of ``SIZES`` or
+    ``VARIANTS``."""
+    if name in VARIANTS:
+        base, option = VARIANTS[name]
+        return {**SIZES[base], **option}
+    return SIZES[name]
+
+
+def entries(cuda_suite) -> dict:
+    """Every entry of ``SIZES``, then of ``VARIANTS``, by name."""
+    out = {}
+    for name in (*SIZES, *VARIANTS):
+        base = VARIANTS[name][0] if name in VARIANTS else name
+        out[name] = getattr(cuda_suite, f"entry_{base}")(**size_of(name))
+    return out
 
 
 def bfs_state(args: dict, dist: np.ndarray, level: int) -> dict:
@@ -344,7 +370,7 @@ def bound(name: str, b: dict, p: dict, grid, block) -> tuple[float, str]:
         ops_ms = p["n"] / F32_OPS_PER_S * 1e3
     elif name == "reverse":
         nbytes = i4 * 2 * block.x               # d in and out
-    elif name == "histogram_coalesced":
+    elif name in ("histogram_coalesced", "histogram_contiguous"):
         nbytes = i4 * (p["n"] + 2 * p["nbins"])   # x in; hist in and out
     elif name in ("reduce_shared", "reduce_warp"):
         nbytes = i4 * (p["n"] + grid.x)         # x in; a sum a block out
@@ -432,7 +458,7 @@ def library_call(name: str, b: dict, params: dict, grid, block, got):
     if name == "reverse":
         d = b["d"]
         return lambda: torch.flip(d, (0,))
-    if name == "histogram_coalesced":
+    if name in ("histogram_coalesced", "histogram_contiguous"):
         x, nbins = b["x"], params["nbins"]
         return lambda: torch.bincount(x, minlength=nbins).to(torch.int32)
     if name in ("reduce_shared", "reduce_warp"):
@@ -750,7 +776,8 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     ents = entries(cuda_suite)
-    host_args = {n: e.make_args(rng) for n, e in ents.items()}
+    host_args = {n: ents[n].make_args(rng) for n in SIZES}
+    host_args.update((n, host_args[base]) for n, (base, _) in VARIANTS.items())
     hot_host = hot_inputs(rng)      # after every entry's inputs
 
     # ---- phase 2: each kernel against its plain version, and timed ------
@@ -780,11 +807,17 @@ def main() -> int:
                     params["h"], params["w"], grid.x)
                 side = lower_cuda.transpose_tiled_side()
                 ctas = f" ctas={cx * cy} ({cx} x {cy} of {side} x {side})"
-            elif kname == "stencil1d":
-                per = lower_cuda.stencil1d_cta_elems()
-                n_ctas = lower_cuda.stencil1d_ctas(params["n"], grid.x,
-                                                   block.x)
+            elif kname in ("stencil1d", "pixel_pipeline"):
+                per = getattr(lower_cuda, f"{kname}_cta_elems")()
+                n_ctas = getattr(lower_cuda, f"{kname}_ctas")(
+                    params["n"], grid.x, block.x)
                 ctas = f" ctas={n_ctas} ({per} elements each)"
+            elif kname.startswith("histogram_"):
+                n_ctas = lower_cuda.histogram_ctas(
+                    params["n"], params["total_threads"], grid.x, block.x,
+                    kname.removeprefix("histogram_"))
+                per = lower_cuda.histogram_cta_pixels()
+                ctas = f" ctas={n_ctas} ({per} pixels each)"
             elif kname in ("hotspot", "stencil2d"):
                 cx, cy = getattr(lower_cuda, f"{kname}_ctas")(
                     params["h"], params["w"], grid)
@@ -879,7 +912,7 @@ def main() -> int:
                                  f"the entry ran {expect} launches")
         for kname, count in per_kernel.items():
             rows[kname]["launches"] = count
-        print(f"main {name}: {SIZES[name]} wall_s={walls[name]} "
+        print(f"main {name}: {size_of(name)} wall_s={walls[name]} "
               f"launches={per_kernel} iterations={stats[name].iterations} "
               f"host_syncs={stats[name].host_syncs} "
               f"us_per_launch={walls[name] / ran * 1e6} "

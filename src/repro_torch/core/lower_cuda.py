@@ -1062,10 +1062,44 @@ def _histogram_check(grid: Dim3, block: Dim3, params: dict):
                                 f"{HISTOGRAM_MAX_BINS}")
 
 
+def histogram_cta_pixels() -> int:
+    """The pixels one CTA of ``csrc/histogram.cu`` counts, as its
+    ``histogram_cta_pixels`` gives them (builds the kernels' library at
+    first use)."""
+    return _native.function("histogram_cta_pixels", ())()
+
+
+def histogram_runs(n: int, total_threads: int, grid: int, block: int,
+                   layout: str) -> tuple[int, int, int]:
+    """The pixels the reference's threads of a launch count, with
+    multiplicity, as ``(count, stride, length)``: run ``r < count`` is
+    ``[r stride, min(r stride + length, n))``.  Coalesced, row ``k`` of
+    the ``iters`` rows is ``[k T, k T + G)`` for ``T = total_threads``
+    and ``G = grid * block``; the rows tile ``[0, n)`` when ``G = T`` and
+    overlap when ``G > T``.  Contiguous, one run ``[0, min(n, G iters))``.
+    The launcher computes the same."""
+    iters = -(-n // total_threads)
+    threads = grid * block
+    if layout == "contiguous":
+        return 1, 0, min(n, threads * iters)
+    if threads == total_threads:
+        return 1, 0, n
+    return iters, total_threads, min(threads, n)
+
+
+def histogram_ctas(n: int, total_threads: int, grid: int, block: int,
+                   layout: str) -> int:
+    """The CTAs of :func:`histogram_cta_pixels` pixels that cover every
+    run of :func:`histogram_runs`: CTA ``b`` counts chunk ``b % chunks``
+    of run ``b // chunks``."""
+    count, _, length = histogram_runs(n, total_threads, grid, block, layout)
+    return count * -(-length // histogram_cta_pixels())
+
+
 def _histogram(layout: str) -> CudaKernel:
     return CudaKernel(
         name=f"histogram_{layout}", symbol="launch_histogram",
-        argtypes=(_P,) * 2 + (_I,) * 7 + (_P,),
+        argtypes=(_P,) * 2 + (_I,) * 8 + (_P,),
         buffers={"x": _I32, "hist": _I32},
         writes=("hist",),
         shapes=lambda *, n, nbins, total_threads: {"x": (n,),
@@ -1073,7 +1107,8 @@ def _histogram(layout: str) -> CudaKernel:
         check=_histogram_check, plain=_histogram_plain(layout),
         cargs=lambda b, grid, block, *, n, nbins, total_threads: [
             _ptr(b["x"]), _ptr(b["hist"]), n, nbins, total_threads,
-            -(-n // total_threads), _LAYOUTS[layout], grid.x, block.x],
+            -(-n // total_threads), _LAYOUTS[layout], grid.x, block.x,
+            histogram_ctas(n, total_threads, grid.x, block.x, layout)],
         source="src/repro_torch/csrc/histogram.cu")
 
 
@@ -1210,7 +1245,7 @@ MATMUL_TILED = CudaKernel(
 # stencil1d, stencil2d
 # --------------------------------------------------------------------------
 #: the widest block of the kernels built for one block (stencil1d,
-#: pixel_pipeline, whose __shared__ array is sized statically) and of
+#: pixel_pipeline, whose reference kernels size __shared__ arrays by it) and of
 #: softmax_row (its launcher's switch covers 32 ... 1024 values a row)
 MAX_THREADS = 1024
 STENCIL2D_TILE = 8
@@ -1476,15 +1511,29 @@ def _pixel_pipeline_check(grid: Dim3, block: Dim3, params: dict):
     _within("pixel_pipeline", grid, block, params["n"])
 
 
+def pixel_pipeline_cta_elems() -> int:
+    """The elements one CTA of ``csrc/pixel_pipeline.cu`` covers, as its
+    ``pixel_pipeline_cta_elems`` gives them (builds the kernels' library
+    at first use)."""
+    return _native.function("pixel_pipeline_cta_elems", ())()
+
+
+def pixel_pipeline_ctas(n: int, grid: int, block: int) -> int:
+    """The CTAs of :func:`pixel_pipeline_cta_elems` elements that cover
+    the ``m = min(n, grid * block)`` elements a logical grid writes."""
+    return -(-min(n, grid * block) // pixel_pipeline_cta_elems())
+
+
 PIXEL_PIPELINE = CudaKernel(
     name="pixel_pipeline", symbol="launch_pixel_pipeline",
-    argtypes=(_P,) * 2 + (_F,) * 2 + (_I,) * 2 + (_P,),
+    argtypes=(_P,) * 2 + (_F,) * 2 + (_I,) * 3 + (_P,),
     buffers={"img": _F32, "out": _F32},
     writes=("out",),
     shapes=lambda *, n, nthreads, c0, c1: {"img": (n,), "out": (n,)},
     check=_pixel_pipeline_check, plain=pixel_pipeline_plain,
     cargs=lambda b, grid, block, *, n, nthreads, c0, c1: [
-        _ptr(b["img"]), _ptr(b["out"]), c0, c1, grid.x, block.x],
+        _ptr(b["img"]), _ptr(b["out"]), c0, c1, grid.x, block.x,
+        pixel_pipeline_ctas(n, grid.x, block.x)],
     source="src/repro_torch/csrc/pixel_pipeline.cu")
 
 

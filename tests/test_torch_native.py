@@ -1137,3 +1137,151 @@ def test_stencil1d_bit_for_bit_on_the_card(card, n, grid, block, offset):
     m = min(n, grid * block)
     assert torch.equal(got[m:].view(torch.int32),
                        host["y"][m:].view(torch.int32))
+
+
+#: (n, grid, block) of pixel_pipeline: the main path; blocks of 1, 33
+#: (m = grid block not a multiple of 4) and 1024; grids short of n
+PIXEL = ((1 << 24, 131072, 128), (4000, 4000, 1), (4029, 1221, 33),
+         (4029, 1001, 33), (4000, 31, 128), (40960, 40, 1024),
+         (40000, 39, 1024))
+
+
+@pytest.mark.parametrize("per", (1024, 512, 2048))
+@pytest.mark.parametrize("n,grid,block", PIXEL)
+def test_pixel_pipeline_ctas_cover_the_elements(monkeypatch, n, grid, block,
+                                                per):
+    # CTA j covers the elements [j per, (j + 1) per): every element below
+    # m = grid block lies in a CTA of the physical grid, and every CTA
+    # holds one.  The elements a CTA covers come from the kernel's source
+    # on the card; here they are the shipped count and two others
+    monkeypatch.setattr(lower_cuda, "pixel_pipeline_cta_elems", lambda: per)
+    ctas = lower_cuda.pixel_pipeline_ctas(n, grid, block)
+    cta = np.arange(min(n, grid * block), dtype=np.int64) // per
+    assert (cta < ctas).all()
+    assert np.array_equal(np.unique(cta), np.arange(ctas))
+
+
+def _pixels(n, seed):
+    """pixel_pipeline's img as the entry draws it, in [0.5, 2)."""
+    return torch.from_numpy(np.random.default_rng(seed).uniform(
+        0.5, 2.0, n).astype(np.float32))
+
+
+def _pixel_on_the_card(card, n, grid, block, offset):
+    """out after one launch over img and an out of NaNs, ``offset``
+    floats past a 16-byte boundary, and the launch's parameters."""
+    host = {"img": _pixels(n, 42), "out": torch.full((n,), torch.nan)}
+    bufs = _on_card(host, card, offset)
+    kern = lower_cuda.KERNELS["pixel_pipeline"]
+    params = {"n": n, "nthreads": block, "c0": 0.85, "c1": 0.1}
+    before = kern.launches
+    kern.launch_into(bufs, Dim3(grid), Dim3(block), **params)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    return bufs, params
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("n,grid,block", PIXEL)
+def test_pixel_pipeline_within_tol_on_the_card(card, n, grid, block, offset):
+    # out within the entry's 2e-5 of the plain version below m = grid
+    # block, and its NaNs untouched past m
+    bufs, params = _pixel_on_the_card(card, n, grid, block, offset)
+    kern = lower_cuda.KERNELS["pixel_pipeline"]
+    want = kern.plain(bufs, Dim3(grid), Dim3(block), **params)["out"]
+    m = grid * block
+    got = bufs["out"]
+    torch.testing.assert_close(got[:m], want[:m], rtol=2e-5, atol=2e-5)
+    assert torch.isnan(got[m:]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,grid,block", PIXEL)
+def test_pixel_pipeline_bits_do_not_depend_on_the_offset(card, n, grid,
+                                                         block):
+    # the arithmetic per element does not depend on where the element
+    # lies: buffers on a 16-byte boundary and 4 bytes past it give the
+    # same bits
+    got = [_pixel_on_the_card(card, n, grid, block, offset)[0]["out"].cpu()
+           for offset in (0, 1)]
+    assert torch.equal(got[0].view(torch.int32), got[1].view(torch.int32))
+
+
+#: (n, total_threads, grid, block) of the histogram: G = grid block equal
+#: to T (the main path's shape, scaled down), short of it, and past it
+#: (pixels counted twice); n ragged against T; T not a multiple of 4,
+#: with G short of, equal to and past it; n < T
+HIST_CTAS = ((1 << 20, 16384, 64, 256), (1 << 20, 16384, 5, 256),
+             (10000, 1000, 10, 256), (10007, 2048, 8, 256),
+             (10000, 1001, 3, 256), (10000, 1001, 7, 143),
+             (5003, 333, 3, 256), (1000, 4096, 16, 256))
+
+
+@pytest.mark.parametrize("layout", ("coalesced", "contiguous"))
+@pytest.mark.parametrize("per", (1024, 4096, 65536))
+@pytest.mark.parametrize("n,total_threads,grid,block", HIST_CTAS)
+def test_histogram_ctas_cover_the_threads_pixels(monkeypatch, n,
+                                                 total_threads, grid, block,
+                                                 per, layout):
+    # CTA b counts [a, min(a + per, end)) for a = r stride + c per, c = b
+    # % chunks, of run r = b // chunks, as the launcher does: the pixels
+    # of all CTAs, with multiplicity, are those the plain version's
+    # threads count (a histogram of x = arange(n) into n bins), and the
+    # last chunk of the longest run holds a pixel.  The pixels a CTA
+    # counts come from the kernel's source on the card; here they are the
+    # shipped count and two others
+    monkeypatch.setattr(lower_cuda, "histogram_cta_pixels", lambda: per)
+    count, stride, length = lower_cuda.histogram_runs(
+        n, total_threads, grid, block, layout)
+    ctas = lower_cuda.histogram_ctas(n, total_threads, grid, block, layout)
+    chunks = ctas // count
+    assert ctas == count * chunks and (chunks - 1) * per < length
+    pixels = []
+    for b in range(ctas):
+        r, c = divmod(b, chunks)
+        end = min(r * stride + length, n)
+        a = r * stride + c * per
+        pixels.append(np.arange(a, min(a + per, end)))
+    got = np.bincount(np.concatenate(pixels), minlength=n)
+    kern = lower_cuda.KERNELS[f"histogram_{layout}"]
+    want = kern.plain({"x": torch.arange(n, dtype=torch.int32),
+                       "hist": torch.zeros(n, dtype=torch.int32)},
+                      Dim3(grid), Dim3(block), n=n, nbins=n,
+                      total_threads=total_threads)["hist"]
+    assert np.array_equal(got, want.numpy())
+
+
+#: (n, total_threads, grid, block) of the histogram on the card: the main
+#: path's shape scaled down (G = T), a short grid, and G > T with T not a
+#: multiple of 4 and n ragged against it
+HIST = {"main": (1 << 20, 16384, 64, 256), "short": (1 << 20, 16384, 5, 256),
+        "wide": (100003, 1001, 16, 128)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("nbins", (1, 256, lower_cuda.HISTOGRAM_MAX_BINS))
+@pytest.mark.parametrize("shape", tuple(HIST))
+@pytest.mark.parametrize("layout", ("coalesced", "contiguous"))
+def test_histogram_bit_for_bit_on_the_card(card, layout, shape, nbins,
+                                           offset):
+    # hist equals the plain version's bits: its input plus the counts of
+    # the pixels the reference's threads count, drawn from [-2 nbins, 2
+    # nbins) so that some wrap once and some are dropped; x on a 16-byte
+    # boundary and 4 bytes past it
+    n, total_threads, grid, block = HIST[shape]
+    rng = np.random.default_rng(42)
+    host = {"x": torch.from_numpy(
+                rng.integers(-2 * nbins, 2 * nbins, n).astype(np.int32)),
+            "hist": torch.from_numpy(
+                rng.integers(0, 9, nbins).astype(np.int32))}
+    bufs = _on_card(host, card, offset)
+    kern = lower_cuda.KERNELS[f"histogram_{layout}"]
+    params = {"n": n, "nbins": nbins, "total_threads": total_threads}
+    before = kern.launches
+    kern.launch_into(bufs, Dim3(grid), Dim3(block), **params)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = kern.plain(host, Dim3(grid), Dim3(block), **params)["hist"]
+    assert torch.equal(bufs["hist"].cpu(), want)
