@@ -51,7 +51,11 @@ Phases, each printing its own lines:
    srad_update's (the same mapping,
    ``lower_cuda.srad_update_ctas``, after its fold over a cluster of 8
    CTAs), kmeans_assign's (a fixed number of points a CTA of 256,
-   partials in registers, ``lower_cuda.kmeans_assign_ctas``), lavamd's
+   partials in registers, ``lower_cuda.kmeans_assign_ctas``),
+   streamcluster's (the same mapping, savings and claims in shared bins,
+   ``lower_cuda.streamcluster_ctas``), backprop_layer's (a thread-block
+   cluster of CTAs a hidden unit, ``lower_cuda.backprop_layer_ctas``),
+   lavamd's
    (a CTA a home box, its width and the neighbours it stages at once
    from ``lower_cuda.lavamd_cta``) and
    bfs_frontier's (1024 nodes a CTA of 256 in each of its two passes,
@@ -842,11 +846,15 @@ def main() -> int:
                 ctas = (f" levels_ms={sum(lv['ms'])} levels_bound_ms="
                         f"{sum(lv['bound_ms'])} ctas="
                         f"{lower_cuda.bfs_frontier_ctas(params['n'])} a pass")
-            elif kname == "kmeans_assign":
-                n_ctas = lower_cuda.kmeans_assign_ctas(params["n"], grid.x,
-                                                       block.x)
-                per = lower_cuda.kmeans_assign_cta_points()
+            elif kname in ("kmeans_assign", "streamcluster"):
+                n_ctas = getattr(lower_cuda, f"{kname}_ctas")(
+                    params["n"], grid.x, block.x)
+                per = getattr(lower_cuda, f"{kname}_cta_points")()
                 ctas = f" ctas={n_ctas} ({per} points each)"
+            elif kname == "backprop_layer":
+                n_ctas, c = lower_cuda.backprop_layer_ctas(params["in_n"],
+                                                           grid.x)
+                ctas = f" ctas={n_ctas} ({n_ctas // c} clusters of {c})"
             elif kname == "vecadd":
                 # vecadd_ctas counts the launcher's 16-byte path; buffers
                 # off 16 bytes would take its one-element path instead

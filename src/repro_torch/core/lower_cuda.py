@@ -430,10 +430,17 @@ HOTSPOT = CudaKernel(
 # --------------------------------------------------------------------------
 # backprop_layer
 # --------------------------------------------------------------------------
-#: the kernel's physical block; a wider logical block (one thread per
-#: input) gives each thread the inputs t + BACKPROP_THREADS * m
+#: CUDA's widest block; a unit runs at least min(in_n, BACKPROP_THREADS)
+#: threads (:func:`backprop_layer_threads`), so a thread owns at most
+#: BACKPROP_MAX_PER_THREAD of a logical block's inputs
 BACKPROP_THREADS = 1024
 BACKPROP_MAX_PER_THREAD = 64     # instantiated in csrc/backprop_layer.cu
+#: the largest thread-block cluster a hidden unit runs on, and the widest
+#: of its CTAs (at most 16 and 256, csrc/backprop_layer.cu's limits; their
+#: product at least BACKPROP_THREADS); tools/backprop_layer_variants.cu
+#: times the choices
+BACKPROP_CLUSTER = 8
+BACKPROP_CTA_THREADS = 256
 
 
 def backprop_layer_plain(bufs, grid: Dim3, block: Dim3, *, in_n: int,
@@ -466,9 +473,29 @@ def _backprop_check(grid: Dim3, block: Dim3, params: dict):
                                 f"out_n {out_n}")
 
 
+def backprop_layer_ctas(in_n: int, grid: int) -> tuple[int, int]:
+    """``(CTAs, C)``: the physical CTAs that run ``grid`` hidden units of
+    ``in_n`` inputs, a cluster of C CTAs a unit.  C is the largest power
+    of two up to BACKPROP_CLUSTER that divides in_n and leaves each CTA at
+    least a warp of the unit's inputs (C = 1 below 64 inputs)."""
+    most = min(BACKPROP_CLUSTER, in_n // 32)
+    c = 1
+    while 2 * c <= most and in_n % (2 * c) == 0:
+        c *= 2
+    return grid * c, c
+
+
+def backprop_layer_threads(in_n: int) -> int:
+    """T, the threads that run one hidden unit of ``in_n`` inputs: C CTAs
+    (:func:`backprop_layer_ctas`) of up to BACKPROP_CTA_THREADS threads,
+    one input a thread at most; thread t owns the inputs t + T m."""
+    c = backprop_layer_ctas(in_n, 1)[1]
+    return min(in_n, c * BACKPROP_CTA_THREADS)
+
+
 BACKPROP_LAYER = CudaKernel(
     name="backprop_layer", symbol="launch_backprop_layer",
-    argtypes=(_P,) * 6 + (_I, _F, _I, _I) + (_P,),
+    argtypes=(_P,) * 6 + (_I, _F, _I, _I, _I) + (_P,),
     buffers={"inp": _F32, "w": _F32, "bias": _F32, "delta": _F32,
              "hidden": _F32, "w_out": _F32},
     writes=("hidden", "w_out"),
@@ -479,7 +506,7 @@ BACKPROP_LAYER = CudaKernel(
     cargs=lambda b, grid, block, *, in_n, out_n, lr: [
         _ptr(b["inp"]), _ptr(b["w"]), _ptr(b["bias"]), _ptr(b["delta"]),
         _ptr(b["hidden"]), _ptr(b["w_out"]), in_n, lr, grid.x,
-        min(in_n, BACKPROP_THREADS)],
+        backprop_layer_threads(in_n), backprop_layer_ctas(in_n, grid.x)[1]],
     source="src/repro_torch/csrc/backprop_layer.cu")
 
 
@@ -625,9 +652,25 @@ def _streamcluster_check(grid: Dim3, block: Dim3, params: dict):
                                 f"multiple of 32 up to 1024")
 
 
+def streamcluster_cta_points() -> int:
+    """The points one CTA of ``csrc/streamcluster.cu`` covers, as its
+    ``streamcluster_cta_points`` gives them (builds the kernels' library
+    at first use)."""
+    return _native.function("streamcluster_cta_points", ())()
+
+
+def streamcluster_ctas(n: int, grid: int, block: int) -> int:
+    """The CTAs of :func:`streamcluster_cta_points` points that cover the
+    m = min(n, grid * block) points a logical grid of ``grid`` blocks of
+    ``block`` threads evaluates."""
+    m = min(n, grid * block)
+    per = streamcluster_cta_points()
+    return -(-m // per)
+
+
 STREAMCLUSTER = CudaKernel(
     name="streamcluster", symbol="launch_streamcluster",
-    argtypes=(_P,) * 11 + (_I,) * 4 + (_P,),
+    argtypes=(_P,) * 11 + (_I,) * 5 + (_P,),
     buffers={name: _I32 for name in (
         "px", "py", "cx", "cy", "cand", "assign", "gain", "csave", "dirty",
         "ndirty", "switched")},
@@ -641,7 +684,7 @@ STREAMCLUSTER = CudaKernel(
         *(_ptr(b[name]) for name in (
             "px", "py", "cx", "cy", "cand", "assign", "gain", "csave",
             "dirty", "ndirty", "switched")),
-        n, k, grid.x, block.x],
+        n, k, grid.x, block.x, streamcluster_ctas(n, grid.x, block.x)],
     source="src/repro_torch/csrc/streamcluster.cu")
 
 

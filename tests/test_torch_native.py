@@ -1285,3 +1285,147 @@ def test_histogram_bit_for_bit_on_the_card(card, layout, shape, nbins,
     assert kern.launches == before + 1
     want = kern.plain(host, Dim3(grid), Dim3(block), **params)["hist"]
     assert torch.equal(bufs["hist"].cpu(), want)
+
+
+#: (n, grid, block) of streamcluster: the main path (sc_gpu's 65,536
+#: points, 1,024 blocks of 64); n ragged against the grid; grids short of
+#: n; one point; blocks of 32 and 1024
+SC_CTAS = ((65536, 1024, 64), (1000, 16, 64), (1000, 10, 64),
+           (2049, 33, 64), (1, 1, 32), (5000, 157, 32), (20000, 20, 1024))
+
+
+@pytest.mark.parametrize("per", (256, 512, 1024, 2048))
+@pytest.mark.parametrize("n,grid,block", SC_CTAS)
+def test_streamcluster_ctas_cover_exactly_the_points(monkeypatch, n, grid,
+                                                     block, per):
+    # CTA j holds the points [j per, (j + 1) per): every point the grid
+    # covers lies in one, and every CTA holds one.  The points a CTA
+    # covers come from the kernel's source on the card; here they are 1
+    # to 8 points a thread of a CTA of 256
+    monkeypatch.setattr(lower_cuda, "streamcluster_cta_points", lambda: per)
+    ctas = lower_cuda.streamcluster_ctas(n, grid, block)
+    cta = np.arange(min(n, grid * block), dtype=np.int64) // per
+    assert (cta < ctas).all()
+    assert np.array_equal(np.unique(cta), np.arange(ctas))
+
+
+@pytest.mark.parametrize("most,widest",
+                         ((8, 256), (4, 256), (16, 256), (8, 128), (16, 128)))
+@pytest.mark.parametrize("in_n", tuple(1 << e for e in range(17)))
+def test_backprop_layer_ctas_give_each_unit_a_cluster(monkeypatch, in_n,
+                                                      most, widest):
+    # each of the grid's units runs on a cluster of C CTAs: the largest
+    # power of two up to the largest cluster that leaves every CTA whole
+    # warps, one CTA below 64 inputs; its T threads fill CTAs of at most
+    # the widest CTA, at most one input a thread, whole warps from 32
+    # inputs up, and at most 64 inputs a thread.  The shipped cluster and
+    # width first, then others whose product is 1024 or more
+    monkeypatch.setattr(lower_cuda, "BACKPROP_CLUSTER", most)
+    monkeypatch.setattr(lower_cuda, "BACKPROP_CTA_THREADS", widest)
+    for grid in (16, 3):
+        ctas, c = lower_cuda.backprop_layer_ctas(in_n, grid)
+        assert ctas == grid * c
+    assert c & (c - 1) == 0 and in_n % c == 0
+    threads = lower_cuda.backprop_layer_threads(in_n)
+    per = threads // c
+    assert threads == c * per and per <= widest and threads <= in_n
+    assert in_n // threads <= lower_cuda.BACKPROP_MAX_PER_THREAD
+    if in_n >= 32:
+        assert c == min(most, in_n // 32) and per % 32 == 0
+        assert per == min(widest, in_n // c)
+    else:
+        assert c == 1 and threads == in_n
+
+
+def _sc_host(n, k, rng, dirty=False, wild=False):
+    """streamcluster's buffers as the entry draws them (coordinates in
+    [0, 100), assign in [0, k)), with gain, csave, ndirty and switched
+    starting from values the launch must add to or keep; ``dirty``: half
+    the flags already set; ``wild``: a tenth of assign at -1 and k + 3."""
+    assign = rng.integers(0, k, n).astype(np.int32)
+    if wild:
+        pick = rng.random(n) < 0.1
+        assign[pick] = np.where(rng.random(int(pick.sum())) < 0.5, -1, k + 3)
+    return {"px": rng.integers(0, 100, n).astype(np.int32),
+            "py": rng.integers(0, 100, n).astype(np.int32),
+            "cx": rng.integers(0, 100, k).astype(np.int32),
+            "cy": rng.integers(0, 100, k).astype(np.int32),
+            "cand": rng.integers(0, 100, 2).astype(np.int32),
+            "assign": assign,
+            "gain": np.full(1, 7, np.int32),
+            "csave": rng.integers(0, 9, k).astype(np.int32),
+            "dirty": ((rng.random(k) < 0.5) if dirty
+                      else np.zeros(k, bool)).astype(np.int32),
+            "ndirty": np.full(1, 3, np.int32),
+            "switched": rng.integers(0, 2, n).astype(np.int32)}
+
+
+#: (n, grid, block, k, dirty, wild) of streamcluster on the card: the main
+#: path, also with flags set and assign outside [0, k); n ragged against
+#: the grid; a grid short of n; k = 1; the last k in shared bins and the
+#: first past them (also with a short grid); blocks of 32 and 1024
+SC = ((65536, 1024, 64, 20, False, False), (65536, 1024, 64, 20, True, True),
+      (1000, 16, 64, 20, False, False), (1000, 10, 64, 20, False, False),
+      (5000, 80, 64, 1, False, False), (5000, 80, 64, 1, True, True),
+      (20000, 320, 64, 1024, True, True), (20000, 320, 64, 1025, True, True),
+      (20000, 200, 64, 1025, False, False), (5000, 157, 32, 20, True, False),
+      (20000, 20, 1024, 20, True, False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,grid,block,k,dirty,wild", SC)
+def test_streamcluster_bit_for_bit_on_the_card(card, n, grid, block, k,
+                                               dirty, wild):
+    # every written buffer equals the plain version's bits: gain and csave
+    # added on, only the centres whose flag was 0 counted in ndirty,
+    # switched set below m = min(n, grid block) and kept past it
+    host = _sc_host(n, k, np.random.default_rng(42), dirty, wild)
+    bufs = carry.from_reference(host, device=card)
+    kern = lower_cuda.KERNELS["streamcluster"]
+    before = kern.launches
+    got = kern(bufs, grid=grid, block=block, n=n, k=k)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = kern.plain(carry.from_reference(host, device="cpu"), Dim3(grid),
+                      Dim3(block), n=n, k=k)
+    for name in kern.writes:
+        assert torch.equal(got[name].cpu(), want[name]), name
+    m = min(n, grid * block)
+    assert np.array_equal(got["switched"][m:].cpu().numpy(),
+                          host["switched"][m:])
+    assert int(got["ndirty"][0]) > 3 or (dirty and k == 1)
+
+
+#: (in_n, out_n, grid) of backprop_layer on the card: every T / C from one
+#: warp a CTA up, 4 to 64 inputs a thread, and a grid short of out_n
+BACKPROP = ((32, 16, 16), (64, 16, 16), (1024, 16, 16), (4096, 16, 16),
+            (65536, 16, 16), (4096, 16, 5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("in_n,out_n,grid", BACKPROP)
+def test_backprop_layer_on_clusters_on_the_card(card, in_n, out_n, grid):
+    # w_out equals the plain version's bits and hidden lies within the
+    # entry's tol; the units past the grid keep their input
+    entry = cuda_suite.entry_backprop_layer(in_n=in_n, out_n=out_n)
+    host = entry.make_args(np.random.default_rng(42))
+    rng = np.random.default_rng(7)
+    host["hidden"] = rng.standard_normal(out_n, dtype=np.float32)
+    host["w_out"] = rng.standard_normal((out_n, in_n), dtype=np.float32)
+    bufs = carry.from_reference(host, device=card)
+    kern = lower_cuda.KERNELS["backprop_layer"]
+    params = {"in_n": in_n, "out_n": out_n, "lr": 0.3}
+    before = kern.launches
+    got = kern(bufs, grid=grid, block=in_n, **params)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = kern.plain(bufs, Dim3(grid), Dim3(in_n), **params)
+    assert torch.equal(got["w_out"], want["w_out"])
+    torch.testing.assert_close(got["hidden"], want["hidden"],
+                               rtol=entry.tol, atol=entry.tol)
+    assert np.array_equal(got["hidden"][grid:].cpu().numpy(),
+                          host["hidden"][grid:])
+    assert np.array_equal(got["w_out"][grid:].cpu().numpy(),
+                          host["w_out"][grid:])
+    ctas, c = lower_cuda.backprop_layer_ctas(in_n, grid)
+    assert ctas == grid * c and (c > 1) == (in_n >= 64)
