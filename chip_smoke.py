@@ -55,7 +55,8 @@ Phases, each printing its own lines:
    streamcluster's (the same mapping, savings and claims in shared bins,
    ``lower_cuda.streamcluster_ctas``), backprop_layer's (a thread-block
    cluster of CTAs a hidden unit, ``lower_cuda.backprop_layer_ctas``),
-   lavamd's
+   lud_diag's (a tile in one warp's registers, 32 / P tiles a warp of
+   P lanes each, no barrier, ``lower_cuda.lud_diag_ctas``), lavamd's
    (a CTA a home box, its width and the neighbours it stages at once
    from ``lower_cuda.lavamd_cta``) and
    bfs_frontier's (1024 nodes a CTA of 256 in each of its two passes,
@@ -136,8 +137,8 @@ REPLACES = "src/repro/core/pallas_emit.py:34"
 #: float32 kernels held to the entry's tol against their plain versions
 #: (FMA contraction, exp, a fold in another order); every other kernel is
 #: held bit for bit
-TOLERANT = ("srad_update", "backprop_layer", "lud_diag", "lavamd",
-            "matmul_tiled", "softmax_row", "pixel_pipeline")
+TOLERANT = ("srad_update", "backprop_layer", "lavamd", "matmul_tiled",
+            "softmax_row", "pixel_pipeline")
 #: entries whose float32 results the oracle fixes bit for bit
 EXACT_ENTRIES = ("kmeans", "vecadd", "stencil1d", "stencil2d",
                  "transpose_tiled")
@@ -851,6 +852,10 @@ def main() -> int:
                     params["n"], grid.x, block.x)
                 per = getattr(lower_cuda, f"{kname}_cta_points")()
                 ctas = f" ctas={n_ctas} ({per} points each)"
+            elif kname == "lud_diag":
+                n_ctas = lower_cuda.lud_diag_ctas(params["b"], grid.x)
+                per = lower_cuda.lud_diag_cta_tiles(params["b"])
+                ctas = f" ctas={n_ctas} ({per} tiles each)"
             elif kname == "backprop_layer":
                 n_ctas, c = lower_cuda.backprop_layer_ctas(params["in_n"],
                                                            grid.x)

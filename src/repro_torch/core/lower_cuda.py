@@ -513,7 +513,7 @@ BACKPROP_LAYER = CudaKernel(
 # --------------------------------------------------------------------------
 # lud_diag
 # --------------------------------------------------------------------------
-LUD_MAX_B = 32                   # the kernel's __shared__ tile
+LUD_MAX_B = 32                   # a tile's rows on one warp's lanes
 
 
 def lud_diag_plain(bufs, grid: Dim3, block: Dim3, *, ntiles: int, b: int):
@@ -544,16 +544,30 @@ def _lud_check(grid: Dim3, block: Dim3, params: dict):
                                 f"{ntiles}")
 
 
+def lud_diag_cta_tiles(b: int) -> int:
+    """The tiles of ``b`` rows one CTA of ``csrc/lud_diag.cu`` holds, as
+    its ``lud_diag_cta_tiles`` gives them (builds the kernels' library at
+    first use)."""
+    return _native.function("lud_diag_cta_tiles", (_I,))(b)
+
+
+def lud_diag_ctas(b: int, grid: int) -> int:
+    """The CTAs of :func:`lud_diag_cta_tiles` tiles that cover the
+    ``grid`` tiles of ``b`` rows a launch factors."""
+    per = lud_diag_cta_tiles(b)
+    return -(-grid // per)
+
+
 LUD_DIAG = CudaKernel(
     name="lud_diag", symbol="launch_lud_diag",
-    argtypes=(_P,) * 2 + (_I,) * 2 + (_P,),
+    argtypes=(_P,) * 2 + (_I,) * 3 + (_P,),
     buffers={"a": _F32, "lu": _F32},
     writes=("lu",),
     shapes=lambda *, ntiles, b: {"a": (ntiles * b, b),
                                  "lu": (ntiles * b, b)},
     check=_lud_check, plain=lud_diag_plain,
     cargs=lambda bf, grid, block, *, ntiles, b: [
-        _ptr(bf["a"]), _ptr(bf["lu"]), b, grid.x],
+        _ptr(bf["a"]), _ptr(bf["lu"]), b, grid.x, lud_diag_ctas(b, grid.x)],
     source="src/repro_torch/csrc/lud_diag.cu")
 
 

@@ -87,7 +87,7 @@ def _launch(step, bufs):
 BIT_EXACT = ("srad_stats", "nn_reduce", "nn_select", "kmeans_assign",
              "kmeans_update", "vecadd", "reduce_shared", "reduce_warp",
              "stencil1d", "stencil2d", "scan_block", "transpose_tiled",
-             "hotspot")
+             "hotspot", "lud_diag")
 
 
 @pytest.mark.gpu
@@ -1429,3 +1429,134 @@ def test_backprop_layer_on_clusters_on_the_card(card, in_n, out_n, grid):
                           host["w_out"][grid:])
     ctas, c = lower_cuda.backprop_layer_ctas(in_n, grid)
     assert ctas == grid * c and (c > 1) == (in_n >= 64)
+
+
+#: the mappings of lud_diag the CTA counts are checked under: W warps a
+#: CTA, and 32 / P tiles a warp of P lanes each (packed) or one
+LUD_MAPPINGS = tuple((w, packed) for w in (1, 4, 8) for packed in (True,
+                                                                  False))
+
+
+@pytest.mark.parametrize("grid", (1, 3, 127, 128, 129, 1000))
+@pytest.mark.parametrize("b", (1, 2, 5, 8, 16, 17, 31, 32))
+def test_lud_diag_ctas_give_every_tile_one_segment(monkeypatch, b, grid):
+    # lane l of warp w of CTA x holds row l % P of tile (x W + w) T + l // P
+    # (P lanes a tile, T tiles a warp); a segment past T or a tile past the
+    # grid is idle.  Every tile the grid covers sits in exactly one
+    # (CTA, warp, segment), and every CTA holds one.  The tiles a CTA holds
+    # come from the kernel's source on the card; here each mapping
+    lanes = 1 << (b - 1).bit_length()
+    for warps, packed in LUD_MAPPINGS:
+        per_warp = 32 // lanes if packed else 1
+        monkeypatch.setattr(lower_cuda, "lud_diag_cta_tiles",
+                            lambda b, n=warps * per_warp: n)
+        ctas = lower_cuda.lud_diag_ctas(b, grid)
+        cta, warp, lane = np.meshgrid(np.arange(ctas), np.arange(warps),
+                                      np.arange(0, 32, lanes), indexing="ij")
+        seg = lane // lanes
+        tile = (cta * warps + warp) * per_warp + seg
+        live = (seg < per_warp) & (tile < grid)
+        assert np.array_equal(np.sort(tile[live]), np.arange(grid))
+        assert live.reshape(ctas, -1).any(1).all()
+
+
+def _lud_run(card, a, lu, grid, b):
+    """lud_diag's kernel and its plain version on the card over ``a`` and
+    ``lu`` (tensors on the card), one launch of ``grid`` tiles of b."""
+    kern = lower_cuda.KERNELS["lud_diag"]
+    bufs = {"a": a, "lu": lu}
+    params = {"ntiles": a.shape[0] // b, "b": b}
+    before = kern.launches
+    got = kern(bufs, grid=grid, block=b, **params)["lu"]
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = kern.plain(bufs, Dim3(grid), Dim3(b), **params)["lu"]
+    return got, want
+
+
+def _assert_same_bits(got, want):
+    # every value the plain version's, NaN where it is NaN, and the sign of
+    # every zero
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    num = ~torch.isnan(want)
+    assert torch.equal(torch.signbit(got[num]), torch.signbit(want[num]))
+
+
+#: (ntiles, b, grid) of lud_diag on the card: the main path (2048.dat's 128
+#: tiles of 16); every MB the launcher dispatches on, below and at it, with
+#: b % 4 != 0 (one float at a time) and tiles ragged against a CTA's; grids
+#: short of ntiles
+LUD = ((128, 16, 128), (37, 1, 37), (37, 2, 37), (37, 5, 37), (37, 8, 37),
+       (37, 16, 37), (37, 17, 37), (37, 31, 37), (37, 32, 37),
+       (128, 16, 75), (40, 5, 13), (9, 32, 4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ntiles,b,grid", LUD)
+def test_lud_diag_bit_for_bit_on_the_card(card, ntiles, b, grid):
+    # lu equals the plain version's bits on the entry's draw; the tiles
+    # past the grid keep lu's input
+    entry = cuda_suite.entry_lud_diag(ntiles=ntiles, b=b)
+    host = entry.make_args(np.random.default_rng(42))
+    host["lu"] = np.random.default_rng(7).standard_normal(
+        (ntiles * b, b), dtype=np.float32)
+    bufs = carry.from_reference(host, device=card)
+    got, want = _lud_run(card, bufs["a"], bufs["lu"], grid, b)
+    _assert_same_bits(got, want)
+    assert np.array_equal(got[grid * b:].cpu().numpy(),
+                          host["lu"][grid * b:])
+    assert lower_cuda.lud_diag_ctas(b, grid) * \
+        lower_cuda.lud_diag_cta_tiles(b) >= grid
+
+
+def _lud_singular(b):
+    """Four tiles of b (b >= 4) on which the reference's rule shows: a
+    zero pivot at step 0; a zero pivot at step 1 (rows [1, 2, 3, 4] and
+    [2, 4, 5, 1] on top); a NaN at (1, 1); and -0.0 in column 0 below row
+    1, so that L keeps -0.0 there until step 1's multipliers, all
+    negative, meet it."""
+    r = np.random.default_rng(3)
+    tiles = 0.1 * r.standard_normal((4, b, b)).astype(np.float32)
+    tiles += 4.0 * np.eye(b, dtype=np.float32)
+    tiles[0, 0, 0] = 0.0
+    tiles[1, 0, :4] = [1, 2, 3, 4]
+    tiles[1, 1, :4] = [2, 4, 5, 1]
+    tiles[2, 1, 1] = np.nan
+    tiles[3, 2:, 0] = -0.0
+    tiles[3, 2:, 1] = -np.abs(tiles[3, 2:, 1]) - 0.5
+    return tiles.reshape(4 * b, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", (4, 16, 32))
+def test_lud_diag_follows_the_reference_rule_on_singular_tiles_on_the_card(
+        card, b):
+    # an infinite or NaN multiplier makes the columns left of the pivot NaN
+    # (s - m * 0), and -0.0 - (m * 0) is +0.0 for m < 0, as in the plain
+    # version and the reference; the kernel keeps every such bit
+    a = torch.from_numpy(_lud_singular(b)).to(card)
+    lu = torch.zeros_like(a)
+    got, want = _lud_run(card, a, lu, 4, b)
+    _assert_same_bits(got, want)
+    got = got.view(4, b, b).cpu()
+    assert torch.isnan(got[0, 2:]).all()
+    assert torch.isnan(got[1, 2:, 0]).all()
+    assert torch.isnan(got[2, 2:, 0]).all()
+    assert (got[3, 2:, 0] == 0).all()
+    assert not torch.signbit(got[3, 2:, 0]).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", (8, 16, 32))
+def test_lud_diag_reads_a_view_off_16_bytes_on_the_card(card, b):
+    # a view of a starts 4 bytes past a 16-byte boundary: the launcher
+    # takes its one-float path, with the same bits
+    ntiles = 37
+    entry = cuda_suite.entry_lud_diag(ntiles=ntiles, b=b)
+    host = entry.make_args(np.random.default_rng(42))
+    store = torch.empty(ntiles * b * b + 1, device=card)
+    a = store[1:].view(ntiles * b, b)
+    a.copy_(torch.from_numpy(host["a"]))
+    assert a.data_ptr() % 16 == 4 and a.is_contiguous()
+    got, want = _lud_run(card, a, torch.zeros_like(a), ntiles, b)
+    _assert_same_bits(got, want)

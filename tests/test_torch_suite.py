@@ -921,3 +921,47 @@ def test_scan_block_adds_the_reference_zero_below_each_offset(backend):
     assert 0 < np.signbit(want[:256]).sum() < 256
     np.testing.assert_array_equal(np.signbit(got), np.signbit(want))
     np.testing.assert_array_equal(got, want)
+
+
+def _lud_pivot_tiles(b, pivot):
+    """Two diagonally dominant tiles of b; the first meets a zero pivot at
+    step 1 (rows [1, 2, 3, 4] and [2, 4, 5, 1] on top) or a NaN one (a NaN
+    at (1, 1))."""
+    r = np.random.default_rng(42)
+    tiles = 0.1 * r.standard_normal((2, b, b)).astype(np.float32)
+    tiles += 4.0 * np.eye(b, dtype=np.float32)
+    if pivot == "zero":
+        tiles[0, 0, :4] = [1, 2, 3, 4]
+        tiles[0, 1, :4] = [2, 4, 5, 1]
+    else:
+        tiles[0, 1, 1] = np.nan
+    return {"a": tiles.reshape(2 * b, b),
+            "lu": np.zeros((2 * b, b), np.float32)}
+
+
+@pytest.mark.parametrize("path", ("plain", "vector"))
+@pytest.mark.parametrize("pivot", ("zero", "nan"))
+@pytest.mark.parametrize("b", (4, 16))
+def test_lud_diag_meets_a_zero_or_nan_pivot_as_the_reference(b, pivot,
+                                                             path):
+    # below a zero or NaN pivot m is infinite or NaN, and the reference's
+    # step takes s[i][c] - m * 0 for every column c < k too, so those come
+    # out NaN; the port's plain version (the kernel's rule on the card) and
+    # its vector lowering give NaN where the reference's loop launch does,
+    # and its values within the entry's tol elsewhere
+    args = _lud_pivot_tiles(b, pivot)
+    want = japi.launch(jsuite.make_lud_diag(2, b), grid=2, block=b,
+                       backend="loop",
+                       args={k: jnp.asarray(v) for k, v in args.items()})
+    bufs = carry.from_reference(args, device="cpu")
+    if path == "plain":
+        got = lower_cuda.KERNELS["lud_diag"](bufs, grid=2, block=b,
+                                             ntiles=2, b=b)
+    else:
+        got = launch(cuda_suite.make_lud_diag(2, b), grid=2, block=b,
+                     args=bufs, backend="vector")
+    got, want = _np(got["lu"]), np.asarray(want["lu"])
+    assert np.isnan(want[2:b, 0]).all() and np.isfinite(want[b:]).all()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    tol = _tol("lud_diag")
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
