@@ -79,8 +79,24 @@ Phases, each printing its own lines:
    sixteen single launches (seventeen runs with the contiguous
    histogram).  Every entry of ``SIZES`` draws its inputs from one
    generator seeded with ``SEED``, in its order; a variant takes its
-   entry's.
-   Then needle_nw's host time per launch, layer by layer;
+   entry's;
+3b. the seven chains again on the same inputs, device-resident
+   (``chain_mode="device"``: update hooks on the card, the stop flag read
+   back every ``check_every`` iterations) and graph-captured
+   (``chain_mode="graph"``: the iterations after the first captured once
+   into a ``torch.cuda.CUDAGraph`` and replayed), counted as in phase 3
+   (a replay adds the captured launches to each kernel's count), each
+   held against the oracle as in phase 3 and bit for bit against host
+   mode outside ``SuiteEntry.iteration_state``.  A ``main_mode`` line per
+   chain and mode gives the wall (one run, card synchronised at both
+   ends), and for graph mode ``capture_s`` and ``replay_s`` from a second
+   run with the capture and each replay synchronised at both ends, and
+   ``replay_us``, the replay time per replayed launch - the steady state
+   a replayed unit gives, which the wall of one run does not show, since
+   the capture walks the host path once per launch.
+   Then needle_nw's host time per launch, layer by layer, beside its
+   per-launch wall in device mode (``device_us``) and replayed
+   (``graph_replay_us``);
 4. the hot-path kernels (matmul, rmsnorm, flash attention) at
    granite-3-2b's widths (``HOT``): each call goes through
    ``repro_torch.kernels.ops.<fn>`` with tensors on the card and
@@ -114,6 +130,7 @@ It imports neither JAX nor the reference package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -751,6 +768,79 @@ def layer_us(entry, args: dict, dev, api, carry, kern, n=512) -> dict:
     return out
 
 
+def drive(cuda_suite, lower_cuda, entry, args, dev, kernels, **kw):
+    """One ``run_entry`` on the card with every launch count set to 0 just
+    before and read just after: the output, the wall (card synchronised
+    at both ends) and the launches of each of ``kernels``; raises if any
+    other kernel launched."""
+    for kern in lower_cuda.KERNELS.values():
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _ = cuda_suite.run_entry(entry, "cuda", args=args,
+                                  with_reference=False, device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: k.launches for n, k in lower_cuda.KERNELS.items()}
+    per_kernel = {k: counts.pop(k) for k in kernels}
+    if any(counts.values()):
+        raise AssertionError(f"{entry.name}: other kernels launched: "
+                             f"{counts}")
+    return out, wall, per_kernel
+
+
+def to_numpy(v) -> np.ndarray:
+    """A buffer's values on the host: a tensor's, or a ConstArray's."""
+    return getattr(v, "value", v).cpu().numpy()
+
+
+def check_oracle(name: str, entry, out: dict, want: dict) -> None:
+    """Finite, of the oracle's shape, within the entry's ``tol`` of it, and
+    bit for bit on integer buffers and ``EXACT_ENTRIES``; raises."""
+    for k, v in want.items():
+        got = to_numpy(out[k])
+        if got.shape != v.shape or not np.isfinite(got).all() or \
+                not np.allclose(got, v, rtol=entry.tol, atol=entry.tol):
+            raise AssertionError(f"{name}: {k} disagrees with the oracle")
+        exact = v.dtype.kind == "i" or name in EXACT_ENTRIES
+        if exact and not np.array_equal(got, v):
+            raise AssertionError(f"{name}: {k} not bit-identical")
+
+
+def graph_unit(chain) -> int:
+    """The iterations one replay of ``chain``'s captured unit runs in graph
+    mode (``LaunchChain.run_graph``'s rule)."""
+    has_stop = chain.stop is not None or chain.device_stop is not None
+    return min(chain.check_every, chain.repeat - 1) if has_stop \
+        else chain.repeat - 1
+
+
+@contextlib.contextmanager
+def graph_spans(spans: dict, launch_chain, graph_exec):
+    """Add to ``spans["capture"]`` and ``spans["replay"]`` the wall of each
+    unit capture and each graph launch inside the block, the card
+    synchronised at both ends of each."""
+    capture, launch = launch_chain.capture_unit, graph_exec.launch
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                spans[key] += time.perf_counter() - t0
+        return run
+
+    launch_chain.capture_unit = timed(capture, "capture")
+    graph_exec.launch = timed(launch, "replay")
+    try:
+        yield
+    finally:
+        launch_chain.capture_unit, graph_exec.launch = capture, launch
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -884,30 +974,15 @@ def main() -> int:
         wants[n] = e.reference(host_args[n])
         oracle_s[n] = time.perf_counter() - t0
     stats = {n: cuda_suite.ChainStats() for n in ents}
-    walls, launches = {}, {}
+    walls, launches, host_outs = {}, {}, {}
     for name, entry in ents.items():
-        for kern in lower_cuda.KERNELS.values():
-            kern.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out, _ = cuda_suite.run_entry(entry, "cuda", args=host_args[name],
-                                      with_reference=False, device=dev,
-                                      chain_stats=stats[name])
-        torch.cuda.synchronize()
-        walls[name] = time.perf_counter() - t0
-        counts = {n: k.launches for n, k in lower_cuda.KERNELS.items()}
-        launches[name] = {k: counts.pop(k) for k in kernels_of[name]}
-        if any(counts.values()):
-            raise AssertionError(f"{name}: other kernels launched: {counts}")
-        for k, v in wants[name].items():
-            got = out[k].cpu().numpy()
-            if got.shape != v.shape or not np.isfinite(got).all() or \
-                    not np.allclose(got, v, rtol=entry.tol, atol=entry.tol):
-                raise AssertionError(f"{name}: {k} disagrees with the "
-                                     f"oracle")
-            exact = v.dtype.kind == "i" or name in EXACT_ENTRIES
-            if exact and not np.array_equal(got, v):
-                raise AssertionError(f"{name}: {k} not bit-identical")
+        out, walls[name], launches[name] = drive(
+            cuda_suite, lower_cuda, entry, host_args[name], dev,
+            kernels_of[name], chain_stats=stats[name])
+        check_oracle(name, entry, out, wants[name])
+        if entry.chain is not None:
+            host_outs[name] = {k: to_numpy(v) for k, v in out.items()
+                               if k not in entry.iteration_state}
         if name == "streamcluster":
             # the oracle has no ndirty: it counts the distinct centres
             # that switchers leave
@@ -931,10 +1006,55 @@ def main() -> int:
               f"us_per_launch={walls[name] / ran * 1e6} "
               f"oracle_s={oracle_s[name]} oracle=match")
 
+    # ---- phase 3b: the chains device-resident and graph-captured --------
+    from repro_torch.core.graphs import GraphExec
+    from repro_torch.core.kernel import LaunchChain
+
+    per_launch = {}
+    for name in host_outs:
+        entry = ents[name]
+        for mode in ("device", "graph"):
+            st = cuda_suite.ChainStats()
+            out, wall, per_kernel = drive(
+                cuda_suite, lower_cuda, entry, host_args[name], dev,
+                kernels_of[name], chain_stats=st, chain_mode=mode)
+            ran = sum(per_kernel.values())
+            if min(per_kernel.values()) == 0 or ran != st.launches:
+                raise AssertionError(f"{name}/{mode}: kernels counted "
+                                     f"{per_kernel}, the chain ran "
+                                     f"{st.launches} launches")
+            check_oracle(name, entry, out, wants[name])
+            for k, v in host_outs[name].items():
+                if not np.array_equal(to_numpy(out[k]), v):
+                    raise AssertionError(f"{name}/{mode}: {k} differs from "
+                                         f"host mode")
+            del out
+            spans = ""
+            per_launch[name, mode] = wall / ran * 1e6
+            if mode == "graph":
+                t = {"capture": 0.0, "replay": 0.0}
+                with graph_spans(t, LaunchChain, GraphExec):
+                    cuda_suite.run_entry(entry, "cuda", args=host_args[name],
+                                         with_reference=False, device=dev,
+                                         chain_mode=mode)
+                replayed = st.graph_replays * graph_unit(entry.chain) \
+                    * len(entry.chain.steps)
+                per_launch[name, "replay"] = t["replay"] / replayed * 1e6
+                spans = (f" capture_s={t['capture']} replay_s={t['replay']} "
+                         f"replayed_launches={replayed} "
+                         f"replay_us={per_launch[name, 'replay']}")
+            print(f"main_mode {name}: mode={mode} {size_of(name)} "
+                  f"wall_s={wall}{spans} launches={per_kernel} "
+                  f"iterations={st.iterations} host_syncs={st.host_syncs} "
+                  f"graph_replays={st.graph_replays} "
+                  f"us_per_launch={per_launch[name, mode]} oracle=match")
+
     nw = "needle_nw"
     layers = layer_us(ents[nw], host_args[nw], dev, api, carry,
                       lower_cuda.KERNELS[nw])
     layers["chain_us"] = walls[nw] / launches[nw][nw] * 1e6
+    layers["device_us"] = per_launch[nw, "device"]
+    layers["graph_replay_us"] = per_launch[nw, "replay"]
     print(f"layers {nw}: " + " ".join(f"{k}={v}" for k, v in layers.items()))
 
     # ---- phase 4: the hot-path kernels at granite-3-2b's widths ---------

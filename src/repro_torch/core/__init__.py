@@ -1,8 +1,10 @@
 """Core runtime of the port: kernel IR, lowerings, backends, launch API,
-memory, and the suite (see ``repro.core`` for the reference)."""
+memory, streams, events and graphs, and the suite (see ``repro.core`` for
+the reference)."""
 from repro_torch.core.api import LaunchConfig, compiled, launch
 from repro_torch.core.backends import backend_names, register_backend
 from repro_torch.core.dim3 import Dim3
+from repro_torch.core.graphs import Graph, GraphError, GraphExec
 from repro_torch.core.kernel import (
     WARP_SIZE,
     BlockState,
@@ -21,14 +23,18 @@ from repro_torch.core.memory import (
     Space,
     cuda_free,
     cuda_malloc,
+    cuda_memcpy_async,
     cuda_memcpy_d2h,
     cuda_memcpy_h2d,
 )
+from repro_torch.core.streams import Event, Policy, Runtime, Stream
 
 __all__ = [
     "WARP_SIZE", "BlockState", "ChainStats", "ChainStep", "ConstArray",
-    "Ctx", "CudaError", "DeviceBuffer", "Dim3", "KernelDef",
-    "LaunchChain", "LaunchConfig", "Native", "Space", "UnsupportedKernel",
+    "Ctx", "CudaError", "DeviceBuffer", "Dim3", "Event", "Graph",
+    "GraphError", "GraphExec", "KernelDef", "LaunchChain", "LaunchConfig",
+    "Native", "Policy", "Runtime", "Space", "Stream", "UnsupportedKernel",
     "backend_names", "compiled", "cuda_free", "cuda_malloc",
-    "cuda_memcpy_d2h", "cuda_memcpy_h2d", "launch", "register_backend",
+    "cuda_memcpy_async", "cuda_memcpy_d2h", "cuda_memcpy_h2d", "launch",
+    "register_backend",
 ]

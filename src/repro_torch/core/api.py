@@ -13,12 +13,16 @@ through a :class:`~repro_torch.core.kernel.CompiledKernel` from a bounded
 in-memory LRU keyed on (backend, geometry, grain, buffer shapes, dtypes
 and devices).  A launch runs on the device its buffers lie on.
 
+A stream (:class:`~repro_torch.core.streams.Stream`) in the chevrons'
+fourth slot, ``kernel[grid, block, None, s](...)``, routes the launch
+through ``s.launch`` (asynchronous, hazard-tracked, in place on the
+stream's heap) and returns the stream.
+
 Not yet ported, and refused rather than ignored: the reference's on-disk
 compile cache (``enable_disk_cache``, ``CUPBOP_CACHE_DIR``),
 ``launch_batch``, ``sanitize=``/``optimize=`` (and their environment
-switches), the stream slot of the chevrons, and ``devices=``/
-``shard_axis=``.  Each raises ``NotImplementedError`` naming the ROADMAP
-item that brings it.
+switches), and ``devices=``/``shard_axis=``.  Each raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import collections
 import dataclasses
 import os
 import weakref
+from typing import Any
 
 from repro_torch.core import grain as grain_mod
 from repro_torch.core import memory as memory_mod
@@ -47,7 +52,6 @@ NOT_PORTED = {
     "optimize": "ROADMAP 1.9 (barrier-fission optimizer)",
     "devices": "ROADMAP 1.12 (shard)",
     "shard_axis": "ROADMAP 1.12 (shard)",
-    "stream": "ROADMAP 1.7 (streams, graphs)",
     "disk cache": "ROADMAP 1.8 (compile cache)",
     "launch_batch": "ROADMAP 1.11 (serving)",
 }
@@ -235,12 +239,18 @@ class LaunchConfig:
     CUDA keeps out of the chevrons are set with :meth:`on`::
 
         out = kernel[(gx, gy), (bx, by)].on(backend="cuda")(t=t, p=p)
+
+    When a ``stream`` occupies the fourth chevron slot the launch is routed
+    through ``stream.launch`` (async, hazard-tracked) and returns the
+    stream; otherwise it is a synchronous launch returning the updated
+    buffers.
     """
 
     kernel: KernelDef
     grid: Dim3
     block: Dim3
     dyn_shared: int | None = None
+    stream: Any = None
     backend: str = "vector"
     grain: int | str = 1
     interpret: bool = True
@@ -250,13 +260,13 @@ class LaunchConfig:
     def from_chevron(cls, kernel: KernelDef, config: tuple) -> "LaunchConfig":
         grid, block, *rest = config
         dyn_shared = rest[0] if len(rest) >= 1 else None
-        _refuse(stream=rest[1] if len(rest) >= 2 else None)
+        stream = rest[1] if len(rest) >= 2 else None
         if dyn_shared is not None and not isinstance(dyn_shared, int):
             raise TypeError(
                 f"kernel {kernel.name}: third chevron slot (dyn_shared) must "
                 f"be an int or None, got {dyn_shared!r}")
         return cls(kernel=kernel, grid=Dim3.of(grid), block=Dim3.of(block),
-                   dyn_shared=dyn_shared)
+                   dyn_shared=dyn_shared, stream=stream)
 
     def on(self, **overrides) -> "LaunchConfig":
         """Re-bind execution options: backend, grain, interpret, pool."""
@@ -269,10 +279,18 @@ class LaunchConfig:
         return dataclasses.replace(
             self, **{k: v for k, v in overrides.items() if k in allowed})
 
-    def __call__(self, args: dict | None = None, /, **buffers) -> dict:
-        return _launch(self.kernel, self.grid, self.block,
-                       {**(args or {}), **buffers}, self.backend, self.grain,
-                       self.dyn_shared, self.interpret, self.pool)
+    def __call__(self, args: dict | None = None, /, **buffers):
+        merged = {**(args or {}), **buffers}
+        if self.stream is not None:
+            self.stream.launch(
+                self.kernel, grid=self.grid, block=self.block,
+                backend=self.backend, grain=self.grain,
+                dyn_shared=self.dyn_shared, args=merged or None,
+                interpret=self.interpret, pool=self.pool)
+            return self.stream
+        return _launch(self.kernel, self.grid, self.block, merged,
+                       self.backend, self.grain, self.dyn_shared,
+                       self.interpret, self.pool)
 
 
 def launch(kernel: KernelDef, *, grid, block, args: dict,

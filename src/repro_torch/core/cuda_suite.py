@@ -61,6 +61,7 @@ from repro_torch.core.kernel import (
     LaunchChain,
     Native,
 )
+from repro_torch.core.streams import Stream
 from repro_torch.x64 import canonical_dtype
 
 OOB = 1 << 30  # out-of-bounds sentinel for drop-mode stores
@@ -1209,7 +1210,8 @@ def run_entry(entry: SuiteEntry, backend: str = "loop", *, rng=None,
               args: dict | None = None, grain=1, pool=None, grid=None,
               block=None, with_reference: bool = True,
               chain_mode: str = "host",
-              chain_stats: ChainStats | None = None, device=None):
+              chain_stats: ChainStats | None = None,
+              check_every: int | None = None, device=None):
     """Execute a suite entry end to end under one backend.
 
     A plain entry is one launch, at ``grid``/``block`` when given and at
@@ -1221,9 +1223,16 @@ def run_entry(entry: SuiteEntry, backend: str = "loop", *, rng=None,
     :func:`repro_torch.carry.from_reference` - the card unless the caller
     asks for ``"cpu"``.  Returns ``(out, want)``: the final buffer dict
     (tensors) and the NumPy oracle's expectation (``None`` when
-    ``with_reference=False``).  ``chain_stats`` collects a chain's replay
-    counters.  Only the host-hop chain mode is ported; a plain entry
-    takes no other mode.
+    ``with_reference=False``).
+
+    ``chain_mode`` selects a chain's replay: ``"host"`` is the
+    per-iteration host-hop baseline, ``"device"`` the device-resident
+    replay (on-device update hooks, stop flag read back every
+    ``check_every`` iterations, the chain's own period by default), and
+    ``"graph"`` the graph-captured replay over a
+    :class:`~repro_torch.core.streams.Stream` (on the card a
+    ``torch.cuda.CUDAGraph``).  A plain entry takes only ``"host"``.
+    ``chain_stats`` collects a chain's replay counters.
     """
     if entry.chain is None:
         if chain_mode != "host":
@@ -1234,10 +1243,9 @@ def run_entry(entry: SuiteEntry, backend: str = "loop", *, rng=None,
         raise ValueError(
             f"entry {entry.name}: geometry overrides are per-step for "
             f"chain entries; rebuild the chain instead")
-    elif chain_mode != "host":
-        raise NotImplementedError(
-            f"chain_mode={chain_mode!r} is not ported yet: ROADMAP 1.7 "
-            f"(streams, graphs)")
+    elif chain_mode not in ("host", "device", "graph"):
+        raise ValueError(f"unknown chain_mode {chain_mode!r}; expected "
+                         f"host | device | graph")
     if args is None:
         args = entry.make_args(rng if rng is not None
                                else np.random.default_rng(42))
@@ -1254,7 +1262,16 @@ def run_entry(entry: SuiteEntry, backend: str = "loop", *, rng=None,
         return launch(step.kernel, grid=step.grid, block=step.block,
                       args=b, dyn_shared=step.dyn_shared, **kw)
 
-    return entry.chain.run(launch_step, bufs, stats=chain_stats), want
+    if chain_mode == "host":
+        out = entry.chain.run(launch_step, bufs, stats=chain_stats)
+    elif chain_mode == "device":
+        out = entry.chain.run_device(launch_step, bufs,
+                                     check_every=check_every,
+                                     stats=chain_stats)
+    else:
+        out = entry.chain.run_graph(Stream(bufs), check_every=check_every,
+                                    stats=chain_stats, **kw)
+    return out, want
 
 
 def _device_of(bufs: dict) -> torch.device:
@@ -1317,10 +1334,21 @@ def entry_bfs_frontier(n: int = 64, deg: int = 4) -> SuiteEntry:
                 "active": torch.zeros_like(bufs["active"]),
                 "level": _scalar(it, bufs)}
 
+    def update(bufs):
+        # device-resident prepare: the level counter lives on the device
+        # and increments there - no per-iteration host scalar
+        return {"frontier": bufs["nxt"],
+                "nxt": torch.zeros_like(bufs["nxt"]),
+                "active": torch.zeros_like(bufs["active"]),
+                "level": bufs["level"] + 1}
+
     chain = LaunchChain(
-        steps=(ChainStep(kernel, grid, block, prepare=prepare),),
+        steps=(ChainStep(kernel, grid, block, prepare=prepare,
+                         update=update),),
         repeat=n,                 # upper bound; stop flag exits early
         stop=lambda bufs: int(bufs["active"][0]) == 0,
+        device_stop=lambda bufs: bufs["active"][0] == 0,
+        check_every=4,            # device-resident stop-poll period
     )
     return SuiteEntry(
         "bfs_frontier", ("atomic_cas", "warp", "const", "chain"),
@@ -1366,8 +1394,15 @@ def entry_pathfinder(scale: int = 1, dtype=torch.int32, *, rows: int = 6,
             upd["src"] = bufs["dst"]
         return upd
 
+    def update(bufs):
+        # device-resident ping-pong: src takes the previous dst, the row
+        # counter increments on the device
+        return {"src": bufs["dst"], "dst": torch.zeros_like(bufs["dst"]),
+                "row": bufs["row"] + 1}
+
     chain = LaunchChain(
-        steps=(ChainStep(kernel, grid, block, prepare=prepare),),
+        steps=(ChainStep(kernel, grid, block, prepare=prepare,
+                         update=update),),
         repeat=rows - 1,
     )
     return SuiteEntry(
@@ -1410,7 +1445,8 @@ def entry_needle_nw(n: int = 32, penalty: int = 2,
     chain = LaunchChain(
         steps=(ChainStep(
             kernel, grid, block,
-            prepare=lambda it, bufs: {"diag": _scalar(it + 2, bufs)}),),
+            prepare=lambda it, bufs: {"diag": _scalar(it + 2, bufs)},
+            update=lambda bufs: {"diag": bufs["diag"] + 1}),),
         repeat=2 * n - 1,
     )
     return SuiteEntry(
@@ -1448,10 +1484,15 @@ def entry_hotspot(h: int = 32, w: int = 64, iters: int = 4,
     def prep(it, bufs):
         if it == 0:
             return {}
+        return upd(bufs)
+
+    def upd(bufs):
+        # device-resident t <-> t_out ping-pong
         return {"t": bufs["t_out"], "t_out": torch.zeros_like(bufs["t_out"])}
 
     chain = LaunchChain(
-        steps=(ChainStep(kernel, (w // 8, h // 8), (8, 8), prepare=prep),),
+        steps=(ChainStep(kernel, (w // 8, h // 8), (8, 8), prepare=prep,
+                         update=upd),),
         repeat=iters,
     )
     return SuiteEntry(
@@ -1502,13 +1543,17 @@ def entry_srad_step(scale: int = 1, iters: int = 2, lam: float = 0.2, *,
     def prep_stats(it, bufs):
         if it == 0:
             return {}
-        # x <-> y ping-pong, partials re-zeroed
+        return upd_stats(bufs)
+
+    def upd_stats(bufs):
+        # x <-> y ping-pong, partials re-zeroed, on the device
         return {"x": bufs["y"], "y": torch.zeros_like(bufs["y"]),
                 "psum": torch.zeros_like(bufs["psum"]),
                 "psq": torch.zeros_like(bufs["psq"])}
 
     chain = LaunchChain(
-        steps=(ChainStep(stats_k, grid1, block, prepare=prep_stats),
+        steps=(ChainStep(stats_k, grid1, block, prepare=prep_stats,
+                         update=upd_stats),
                ChainStep(update_k, (w // 8, h // 8), (8, 8))),
         repeat=iters,
     )
@@ -1559,7 +1604,8 @@ def entry_nn(n: int = 256, block: int = 64, knn: int = 8) -> SuiteEntry:
         steps=(ChainStep(reduce_k, grid, block),
                ChainStep(select_k, 1, grid,
                          prepare=lambda it, bufs: {
-                             "step": _scalar(it, bufs)})),
+                             "step": _scalar(it, bufs)},
+                         update=lambda bufs: {"step": bufs["step"] + 1})),
         repeat=knn,
     )
     return SuiteEntry(
@@ -1621,17 +1667,23 @@ def entry_kmeans(n: int = 256, k: int = 4, block: int = 64,
     def prep_assign(it, bufs):
         if it == 0:
             return {}
-        # the per-iteration accumulators, re-zeroed
+        return upd_assign(bufs)
+
+    def upd_assign(bufs):
+        # the per-iteration accumulators, re-zeroed on the device
         return {name: torch.zeros_like(bufs[name])
                 for name in ("changed", "sumx", "sumy", "count")}
 
     chain = LaunchChain(
-        steps=(ChainStep(assign_k, grid, block, prepare=prep_assign),
+        steps=(ChainStep(assign_k, grid, block, prepare=prep_assign,
+                         update=upd_assign),
                ChainStep(update_k, k, 8)),
         repeat=repeat,                # upper bound; the stop flag ends it
-        # read back to the host once per iteration, as the reference's
-        # host mode does
+        # read back to the host once per iteration in host mode, once
+        # every check_every iterations in the device-resident modes
         stop=lambda bufs: int(bufs["changed"][0]) == 0,
+        device_stop=lambda bufs: bufs["changed"][0] == 0,
+        check_every=3,
     )
     return SuiteEntry(
         "kmeans", ("atomic", "chain"), assign_k, grid, block, None,

@@ -27,6 +27,7 @@ from typing import Any, Callable, Mapping, NamedTuple, Sequence
 
 import torch
 
+from repro_torch.core import memory
 from repro_torch.core.dim3 import Dim3
 from repro_torch.x64 import canonical_dtype
 
@@ -307,6 +308,16 @@ class ChainStep:
     buffer overrides merged into the heap (bump the iteration scalar,
     ping-pong src/dst, re-zero an accumulator).  It receives
     ``(iteration, buffers)`` and must not mutate ``buffers``.
+
+    ``update`` is the *device-resident* form of the same hook: a pure
+    function of the buffer dict alone (``bufs -> overrides``, torch ops
+    on the tensors, no iteration number - per-iteration scalars live in
+    small device buffers the update increments, e.g. ``level + 1``).  It
+    needs no host value, so it runs without a host round-trip and
+    captures into a graph as an update node.  The device-resident
+    contract: ``update`` is applied before every launch *except iteration
+    0*, whose ``prepare`` must therefore be an identity (every suite
+    chain's ``prepare(0, ...)`` re-states the initial buffer values).
     """
 
     kernel: KernelDef
@@ -314,17 +325,21 @@ class ChainStep:
     block: Any
     dyn_shared: int | None = None
     prepare: Callable[[int, dict], dict] | None = None
+    update: Callable[[dict], dict] | None = None
 
 
 @dataclasses.dataclass
 class ChainStats:
     """Replay counters for one :class:`LaunchChain` run.
 
-    ``host_syncs`` counts stop-flag reads back to the host."""
+    ``host_syncs`` counts host round-trips forced by the chain driver
+    (stop-flag reads, the traffic the device-resident modes amortize);
+    ``graph_replays`` counts graph launches in graph mode."""
 
     iterations: int = 0
     launches: int = 0
     host_syncs: int = 0
+    graph_replays: int = 0
 
     @property
     def syncs_per_iteration(self) -> float:
@@ -339,20 +354,66 @@ class LaunchChain:
     ``stop(buffers)`` checked host-side between iterations (Rodinia BFS
     reading back its stop flag).  The caller supplies ``launch_step``,
     which runs one :class:`ChainStep` under whatever backend it chose.
+
+    Three replay modes, all bit-identical on the oracle outputs:
+
+    * :meth:`run` - the host-hop baseline: host ``prepare`` hooks, stop
+      flag read back every iteration (one host sync per iteration);
+    * :meth:`run_device` - device-resident: ``update`` hooks keep the
+      inter-launch state on the device and the stop flag
+      (``device_stop``, a device predicate) is read back only every
+      ``check_every`` iterations, so host syncs drop to O(1/k);
+    * :meth:`run_graph` - device-resident *and* graph-captured: the
+      iteration body is captured once into a
+      :class:`~repro_torch.core.graphs.Graph` and replayed (on the card
+      one ``torch.cuda.CUDAGraph`` replay; one replay for the whole chain
+      when there is no stop flag).
+
+    Stop-flag chains replayed in k-batched modes may overshoot
+    convergence by up to ``check_every - 1`` iterations; such chains must
+    be no-ops once converged (Rodinia BFS is: an empty frontier claims
+    nothing), and per-iteration scratch such as the frontier ping-pong is
+    declared in ``SuiteEntry.iteration_state``.
     """
 
     steps: Sequence[ChainStep]
     repeat: int = 1
     stop: Callable[[dict], bool] | None = None
+    device_stop: Callable[[dict], Any] | None = None
+    check_every: int = 1
+
+    def _has_stop(self) -> bool:
+        return self.stop is not None or self.device_stop is not None
+
+    def _require_device_resident(self):
+        for step in self.steps:
+            if step.update is None and step.prepare is not None:
+                raise UnsupportedKernel(
+                    f"chain step {step.kernel.name}: host-side prepare hook "
+                    f"without a device update; graph capture needs on-device "
+                    f"inter-launch state (declare ChainStep.update)")
+
+    def _stopped(self, bufs: dict) -> bool:
+        """Read the stop predicate back to the host (THE host sync)."""
+        if self.device_stop is not None:
+            raw = {n: memory.unwrap(v) for n, v in bufs.items()}
+            return bool(self.device_stop(raw))
+        if self.stop is not None:
+            return bool(self.stop(bufs))
+        return False
+
+    def _apply_update(self, step: ChainStep, bufs: dict) -> dict:
+        raw = {n: memory.unwrap(v) for n, v in bufs.items()}
+        return {**bufs, **step.update(raw)}
 
     def run(self, launch_step: Callable[[ChainStep, dict], dict],
             bufs: dict, stats: ChainStats | None = None) -> dict:
         """Host-hop replay: host prepare hooks, stop checked per iteration."""
         for it in range(self.repeat):
-            if it and self.stop is not None:
+            if it and self._has_stop():
                 if stats is not None:
                     stats.host_syncs += 1
-                if self.stop(bufs):
+                if self._stopped(bufs):
                     break
             for step in self.steps:
                 if step.prepare is not None:
@@ -363,6 +424,122 @@ class LaunchChain:
             if stats is not None:
                 stats.iterations += 1
         return bufs
+
+    def run_device(self, launch_step: Callable[[ChainStep, dict], dict],
+                   bufs: dict, *, check_every: int | None = None,
+                   stats: ChainStats | None = None) -> dict:
+        """Device-resident replay: on-device updates, stop polled 1-in-k.
+
+        Steps with an ``update`` hook never call their host ``prepare``;
+        steps with only a ``prepare`` still work (but keep the host hop
+        they encode).
+        """
+        k = max(1, self.check_every if check_every is None else check_every)
+        for it in range(self.repeat):
+            if it and self._has_stop() and it % k == 0:
+                if stats is not None:
+                    stats.host_syncs += 1
+                if self._stopped(bufs):
+                    break
+            for step in self.steps:
+                if step.update is not None:
+                    if it:
+                        bufs = self._apply_update(step, bufs)
+                elif step.prepare is not None:
+                    bufs = {**bufs, **step.prepare(it, bufs)}
+                bufs = {**bufs, **launch_step(step, bufs)}
+                if stats is not None:
+                    stats.launches += 1
+            if stats is not None:
+                stats.iterations += 1
+        return bufs
+
+    def run_graph(self, stream, *, check_every: int | None = None,
+                  stats: ChainStats | None = None, **launch_kw) -> dict:
+        """Graph-captured device-resident replay.
+
+        Iteration 0 launches eagerly (its prepare is identity by the
+        device-resident contract); the remaining iterations are captured
+        *once* as a graph unit - ``update`` hooks become update nodes,
+        launches kernel nodes - and replayed.  Without a stop flag the
+        unit is all ``repeat - 1`` remaining iterations: the whole chain
+        is one replay.  With a stop flag the unit is ``check_every``
+        iterations and the predicate is read back once per replay; a tail
+        shorter than the unit runs eagerly, so the chain never exceeds
+        ``repeat``.
+
+        ``stream`` (a :class:`~repro_torch.core.streams.Stream`) supplies
+        the capture surface and the heap; ``launch_kw`` (backend, grain,
+        ...) reaches every captured launch.  Steps with a host
+        ``prepare`` but no device ``update`` cannot be captured and raise
+        :class:`UnsupportedKernel`.
+        """
+        self._require_device_resident()
+        for step in self.steps:
+            stream.launch(step.kernel, grid=step.grid, block=step.block,
+                          dyn_shared=step.dyn_shared, **launch_kw)
+        if stats is not None:
+            stats.iterations += 1
+            stats.launches += len(self.steps)
+        if self.repeat <= 1:
+            return dict(stream.buffers)
+        k = max(1, self.check_every if check_every is None else check_every)
+        unit = min(k, self.repeat - 1) if self._has_stop() \
+            else self.repeat - 1
+        ex = self.capture_unit(stream, unit, **launch_kw)
+        done = 1
+        while done < self.repeat:
+            if done > 1 and self._has_stop():
+                if stats is not None:
+                    stats.host_syncs += 1
+                if self._stopped(stream.buffers):
+                    break
+            remaining = self.repeat - done
+            if remaining < unit:
+                # a tail shorter than the captured unit runs eagerly: a
+                # replay would overshoot the repeat bound by unit -
+                # remaining real iterations
+                for _ in range(remaining):
+                    for step in self.steps:
+                        if step.update is not None:
+                            stream.device_update(step.update)
+                        stream.launch(step.kernel, grid=step.grid,
+                                      block=step.block,
+                                      dyn_shared=step.dyn_shared,
+                                      **launch_kw)
+                if stats is not None:
+                    stats.iterations += remaining
+                    stats.launches += remaining * len(self.steps)
+                break
+            ex.launch(stream)
+            done += unit
+            if stats is not None:
+                stats.iterations += unit
+                stats.launches += unit * len(self.steps)
+                stats.graph_replays += 1
+        return dict(stream.buffers)
+
+    def capture_unit(self, stream, iterations: int, **launch_kw):
+        """Capture ``iterations`` chain iterations into one reusable
+        :class:`~repro_torch.core.graphs.GraphExec` (cudaGraphInstantiate
+        for a chain unit).
+
+        Each captured iteration is [device update; launch] per step, so a
+        replay advances the heap by ``iterations`` chain iterations:
+        replay it in a loop for steady-state serving, as :meth:`run_graph`
+        does.  Every per-iteration hook must be device-resident
+        (``ChainStep.update``).
+        """
+        self._require_device_resident()
+        graph = stream.begin_capture()
+        for _ in range(iterations):
+            for step in self.steps:
+                if step.update is not None:
+                    stream.device_update(step.update)
+                stream.launch(step.kernel, grid=step.grid, block=step.block,
+                              dyn_shared=step.dyn_shared, **launch_kw)
+        stream.end_capture()
+        return graph.instantiate(stream.buffers)
 
 
 def _hash_callable(h, fn: Callable, depth: int) -> None:

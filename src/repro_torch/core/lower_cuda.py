@@ -18,13 +18,19 @@ the same launch, and the CUDA blocks are the blocks:
   vectorised over all threads.  Nothing gives way from one to the other:
   a build or launch that fails raises.
 
-Launches are functional, like the reference's: the written buffers are
-copied, the copies updated, and the inputs left untouched.  ``grain`` and
+Launches through ``api.launch`` are functional, like the reference's: the
+written buffers are copied, the copies updated, and the inputs left
+untouched.  Inside :func:`in_place` - the stream runtime's launches, eager
+or captured into a graph - a launch writes the buffers it is given in
+place, as a CUDA kernel does; a kernel reads its written buffers from the
+copies in the functional case, so both give the same bits.  ``grain`` and
 ``interpret`` are accepted for the uniform backend signature and have no
 effect: the card's block scheduler does the fetching.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import dataclasses
 from typing import Callable
@@ -38,6 +44,24 @@ from repro_torch.core.kernel import KernelDef, UnsupportedKernel
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _I32, _F32 = torch.int32, torch.float32
 _INT_MAX = 2**31 - 1
+
+
+#: whether launches write their buffers in place (see :func:`in_place`)
+_IN_PLACE = contextvars.ContextVar("repro_torch_cuda_in_place",
+                                   default=False)
+
+
+@contextlib.contextmanager
+def in_place():
+    """Launches on the card inside the block update the written buffers
+    they are given in place instead of copies of them.  A launch captured
+    into a CUDA graph must: its replay writes the tensors the next replay
+    reads, not copies that nothing reads."""
+    token = _IN_PLACE.set(True)
+    try:
+        yield
+    finally:
+        _IN_PLACE.reset(token)
 
 
 def _no_scratch(bufs, **params) -> dict:
@@ -104,6 +128,9 @@ class CudaKernel:
         bufs = self.validate(glob, grid, block, params)
         if next(iter(bufs.values())).device.type == "cpu":
             return self.plain(bufs, grid, block, **params)
+        if _IN_PLACE.get():
+            self.launch_into(bufs, grid, block, **params)
+            return {n: bufs[n] for n in self.writes}
         outs = {n: bufs[n].clone() for n in self.writes}
         self.launch_into({**bufs, **outs}, grid, block, **params)
         return outs
@@ -1632,6 +1659,18 @@ def launch_params(kernel: KernelDef, dyn_shared=None) -> dict:
     if kernel_for(kernel).extern is not None:
         params["dyn_shared"] = dyn_shared
     return params
+
+
+def prepare_capture(kernel: KernelDef, glob: dict, dyn_shared=None) -> None:
+    """Allocate the scratch that a launch of ``kernel`` over ``glob`` on
+    the current stream takes, outside any capture: a capture on that
+    stream then finds it.  bfs_frontier's ``owner`` is filled once per
+    stream and must outlive the graph, not come from its memory pool.
+    A kernel whose buffers the graph itself creates is left alone."""
+    k = kernel_for(kernel)
+    if set(k.buffers) <= set(glob):
+        k.scratch({n: glob[n] for n in k.buffers},
+                  **launch_params(kernel, dyn_shared))
 
 
 def run(kernel: KernelDef, *, grid, block, glob, grain=1, dyn_shared=None,

@@ -24,6 +24,7 @@ CPU unless the caller asks for it (:func:`resolve_device`).
 """
 from __future__ import annotations
 
+import contextlib
 import enum
 import itertools
 
@@ -96,7 +97,7 @@ class ConstArray:
         return self.value.dtype
 
     def __array__(self, dtype=None, copy=None):
-        arr = self.value.detach().cpu().numpy()
+        arr = host_array(self.value)
         return arr.astype(dtype) if dtype is not None else arr
 
     def __repr__(self):
@@ -151,7 +152,7 @@ class DeviceBuffer:
         return self.value.dtype
 
     def __array__(self, dtype=None, copy=None):
-        arr = self.value.detach().cpu().numpy()
+        arr = host_array(self.value)
         return arr.astype(dtype) if dtype is not None else arr
 
     def __repr__(self):
@@ -183,7 +184,7 @@ def cuda_malloc(shape, dtype=torch.float32, space: Space = Space.GLOBAL,
             "__shared__ memory is block-scoped: declare it in "
             "KernelDef.shared (or the dyn_shared launch slot for extern "
             "arrays); it cannot be heap-allocated")
-    value = torch.zeros(shape, dtype=canonical_dtype(dtype),
+    value = torch.zeros(shape, dtype=torch_dtype(dtype),
                         device=resolve_device(device))
     if space is Space.CONST:
         return ConstArray(value)
@@ -199,16 +200,46 @@ def cuda_free(buf) -> None:
     buf._free()
 
 
-def _host_tensor(host) -> torch.Tensor:
-    """``host`` as a CPU tensor, 64-bit types narrowed unless the x64
-    switch is on (as ``jnp.asarray`` narrows them)."""
-    host = np.asarray(host)
+def _is_bfloat16(dtype: np.dtype) -> bool:
+    # ml_dtypes' bfloat16, recognised without importing ml_dtypes
+    return dtype.name == "bfloat16" and dtype.itemsize == 2
+
+
+def host_tensor(host) -> torch.Tensor:
+    """A CPU tensor with a copy of ``host``'s values: 64-bit types
+    narrowed unless the x64 switch is on (as ``jnp.asarray`` narrows
+    them), and ``ml_dtypes``' bfloat16, which ``torch.from_numpy``
+    refuses, carried over as its 16-bit patterns, bit for bit."""
+    arr = np.asarray(host)
+    if _is_bfloat16(arr.dtype):
+        bits = np.ascontiguousarray(arr).view(np.int16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    # astype copies: the tensor never shares memory with the caller's array
     return torch.from_numpy(np.ascontiguousarray(
-        host.astype(canonical_dtype(host.dtype), copy=False)))
+        arr.astype(canonical_dtype(arr.dtype))))
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A NumPy copy of ``t``'s values (blocks until they are ready); a
+    bfloat16 tensor comes back as an ``ml_dtypes.bfloat16`` array with
+    the same bits."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """``dtype`` (a ``torch.dtype`` or anything NumPy takes) as the
+    ``torch.dtype`` an allocation holds under the x64 switch."""
+    if not isinstance(dtype, torch.dtype):
+        dtype = torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+    return canonical_dtype(dtype)
 
 
 def _to_device(host, device) -> torch.Tensor:
-    return _host_tensor(host).to(resolve_device(device))
+    return host_tensor(host).to(resolve_device(device))
 
 
 def cuda_memcpy_to_symbol(host, device=None) -> ConstArray:
@@ -228,7 +259,7 @@ def cuda_memcpy_h2d(host, dst: DeviceBuffer | None = None, device=None):
         raise CudaError(
             f"cudaErrorInvalidValue: h2d destination must be a DeviceBuffer "
             f"handle, got {type(dst).__name__}")
-    arr = _host_tensor(host)
+    arr = host_tensor(host)
     _check_geometry("h2d", dst.shape, dst.dtype, arr.shape, arr.dtype)
     dst._rebind(arr.to(dst.value.device))
     return dst
@@ -236,7 +267,105 @@ def cuda_memcpy_h2d(host, dst: DeviceBuffer | None = None, device=None):
 
 def cuda_memcpy_d2h(dev) -> np.ndarray:
     """``cudaMemcpy`` device-to-host (blocks until the value is ready)."""
-    return unwrap(dev, "cuda_memcpy_d2h").detach().cpu().numpy()
+    return host_array(unwrap(dev, "cuda_memcpy_d2h"))
+
+
+def _on_stream(stream):
+    """The context that issues work on ``stream``'s CUDA stream (the
+    current stream when ``stream`` is None or lies on the CPU)."""
+    cuda = getattr(stream, "cuda_stream", None)
+    return torch.cuda.stream(cuda) if cuda is not None \
+        else contextlib.nullcontext()
+
+
+def stage_h2d(host, device) -> torch.Tensor:
+    """``host`` as a tensor ready for an asynchronous copy to ``device``:
+    in page-locked memory when ``device`` is a card, so that
+    ``copy_(..., non_blocking=True)`` returns before the copy is done."""
+    t = host_tensor(host)
+    return t.pin_memory() if torch.device(device).type == "cuda" else t
+
+
+def cuda_memcpy_async(dst, src, stream=None):
+    """``cudaMemcpyAsync``: enqueue an h2d/d2h/d2d copy.
+
+    The copy kind follows from the operand types (the
+    ``cudaMemcpyDefault`` rule):
+
+    * **name operands** (strings) address ``stream``'s named heap and
+      need ``stream=``.  They take part in the stream's hazard ordering
+      and event waits, and h2d/d2d capture as graph memcpy nodes (d2h is
+      host-visible and raises during capture, the
+      ``cudaErrorStreamCaptureUnsupported`` rule);
+    * **DeviceBuffer operands** are tracked handles: copies are liveness-
+      and geometry-checked and land in the destination's storage, on
+      ``stream``'s CUDA stream (the current one without ``stream``).  To
+      capture a copy into a graph, name the buffer on the stream instead;
+    * a **NumPy array** is host memory: host->X is h2d, staged through
+      page-locked memory and copied with ``non_blocking=True``, so it
+      returns before the copy is done; X->host is d2h into the given
+      array, the one form that blocks the host.
+
+    Copies into ``__constant__`` space (:class:`ConstArray`) raise
+    :class:`UnsupportedSpace`: constant memory is read-only on device.
+
+    Returns the destination operand (or the fetched array for a bare d2h
+    with ``dst=None``).
+    """
+    # --- named-heap forms ---------------------------------------------------
+    if isinstance(dst, str) or isinstance(src, str):
+        if stream is None:
+            raise CudaError(
+                "cudaErrorInvalidValue: named-buffer copies address a "
+                "stream's heap; pass stream=")
+        if isinstance(dst, str):
+            if isinstance(src, (str, DeviceBuffer, ConstArray,
+                                torch.Tensor)):
+                stream.memcpy_d2d(dst, src)      # device-side source
+            else:
+                stream.memcpy_h2d(dst, np.asarray(src))
+            return dst
+        return _into_host(dst, stream.memcpy_d2h(src))
+    # --- handle / host-array forms ------------------------------------------
+    if stream is not None and getattr(stream, "_capture", None) is not None:
+        from repro_torch.core.graphs import GraphError
+        raise GraphError(
+            f"cuda_memcpy_async over raw handles on capturing stream "
+            f"{stream.name!r}: handle copies are not graph nodes - copy "
+            f"through a named heap buffer to capture it")
+    if isinstance(dst, ConstArray):
+        raise UnsupportedSpace(
+            "cuda_memcpy_async destination is __constant__ (ConstArray); "
+            "constant memory is read-only on device "
+            "(cudaErrorInvalidSymbol)")
+    if isinstance(dst, DeviceBuffer):
+        out = dst.value
+        if isinstance(src, (DeviceBuffer, ConstArray)):      # d2d
+            val = unwrap(src, "cuda_memcpy_async")
+        else:                                                # h2d
+            val = stage_h2d(src, out.device)
+        _check_geometry("memcpy", out.shape, out.dtype, val.shape, val.dtype)
+        with _on_stream(stream):
+            out.copy_(val, non_blocking=True)
+        return dst
+    if isinstance(src, (DeviceBuffer, ConstArray)):          # d2h
+        with _on_stream(stream):
+            return _into_host(dst, cuda_memcpy_d2h(src))
+    raise CudaError(
+        f"cudaErrorInvalidValue: cannot infer copy kind from "
+        f"({type(dst).__name__}, {type(src).__name__}); operands must be "
+        f"heap names, DeviceBuffer handles, or host arrays")
+
+
+def _into_host(dst, fetched: np.ndarray):
+    """A d2h's result: ``fetched`` itself, or copied into the host array
+    ``dst`` (geometry-checked)."""
+    if dst is None:
+        return fetched
+    _check_geometry("d2h", np.shape(dst), np.asarray(dst).dtype,
+                    fetched.shape, fetched.dtype)
+    np.copyto(dst, fetched)
+    return dst
 
 
 def _check_geometry(kind, dshape, ddtype, sshape, sdtype):

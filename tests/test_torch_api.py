@@ -146,7 +146,6 @@ def test_grain_policies_give_the_same_result():
     lambda k, a: api.launch(k, grid=1, block=32, args=a, devices=2),
     lambda k, a: api.compiled(k, grid=1, block=32, args=a, shard_axis="x"),
     lambda k, a: k[1, 32].on(optimize=False)(a),
-    lambda k, a: k[1, 32, None, object()](a),
     lambda k, a: api.launch_batch(k, grid=1, block=32, args_list=[a]),
     lambda k, a: api.enable_disk_cache("/nonexistent")])
 def test_options_not_ported_yet_raise(call):
@@ -313,7 +312,8 @@ def test_launch_chain_counts_and_stops():
 
 
 def test_run_entry_refuses_chain_modes_not_ported():
+    # host, device and graph are the reference's modes; any other raises
     entry = cuda_suite.entry_needle_nw()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cuda_suite.run_entry(entry, "vector", chain_mode="device",
+    with pytest.raises(ValueError, match="unknown chain_mode"):
+        cuda_suite.run_entry(entry, "vector", chain_mode="pipelined",
                              device="cpu")

@@ -46,6 +46,40 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     assert res.stdout.startswith("ok")
 
 
+def test_streams_graphs_and_device_chains_stand_alone():
+    # the modules of streams, events, graphs and device-resident chains
+    # are scanned above, and their public names import and build a
+    # stream, a graph and a chain with JAX and the reference blocked
+    scanned = {p.relative_to(PORT).as_posix() for p in FILES
+               if PORT in p.parents}
+    assert {"core/streams.py", "core/graphs.py", "core/memory.py",
+            "core/kernel.py", "core/cuda_suite.py"} <= scanned
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "from repro_torch.core import (Event, Graph, GraphError, GraphExec,\n"
+        "    Policy, Runtime, Stream, cuda_memcpy_async, cuda_suite)\n"
+        "s = Stream({'a': torch.zeros(4)})\n"
+        "g = s.begin_capture()\n"
+        "s.device_update(lambda h: {'a': h['a'] + 1})\n"
+        "s.end_capture()\n"
+        "g.instantiate(s.buffers).launch(s)\n"
+        "e = cuda_suite.entry_pathfinder()\n"
+        "out, _ = cuda_suite.run_entry(e, 'vector', device='cpu',\n"
+        "                              chain_mode='graph')\n"
+        "assert s.buffers['a'].tolist() == [1.0] * 4\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n")
+    env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 #: the hot-path kernels' sources, each with the Pallas kernel it replaces
 HOT_PATH = {"flash_attention.cu": "src/repro/kernels/flash_attention.py:34",
             "flash_attention_tc.cu":

@@ -449,8 +449,8 @@ def test_run_entry_rejects_modes_and_overrides_it_cannot_apply():
         cuda_suite.run_entry(chain, "vector", grid=2, device="cpu")
     with pytest.raises(ValueError, match="per-step"):
         cuda_suite.run_entry(chain, "vector", block=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.7"):
-        cuda_suite.run_entry(chain, "vector", chain_mode="graph",
+    with pytest.raises(ValueError, match="unknown chain_mode"):
+        cuda_suite.run_entry(chain, "vector", chain_mode="fused",
                              device="cpu")
 
 

@@ -162,3 +162,32 @@ def test_cuda_backend_refuses_float64_cells(name):
             pytest.raises(UnsupportedKernel, match=REFUSALS[name]):
         cuda_suite.run_entry(_port_entry(name), "cuda", args=args,
                              with_reference=False, device="cpu")
+
+
+#: the 64-bit types JAX narrows with its switch off, and what to
+WIDE = {np.float64: "float32", np.int64: "int32", np.uint64: "uint32",
+        np.complex128: "complex64"}
+
+
+@pytest.mark.parametrize("x64", (False, True))
+@pytest.mark.parametrize("wide", tuple(WIDE), ids=lambda t: t.__name__)
+def test_carry_malloc_and_h2d_narrow_as_jax_does(wide, x64):
+    from repro.core import memory as jmemory
+    arr = (np.arange(6) + 1).astype(wide).reshape(2, 3)
+    with JAX_X64(x64):
+        want = {"carry": jax.numpy.asarray(arr).dtype,
+                "malloc": jmemory.cuda_malloc((2, 3), wide).dtype,
+                "h2d": jmemory.cuda_memcpy_h2d(arr).dtype}
+    with repro_torch.enable_x64(x64):
+        got = {"carry": carry.from_reference({"a": arr},
+                                             device="cpu")["a"].dtype,
+               "malloc": cuda_malloc((2, 3), wide, device="cpu").dtype,
+               "h2d": cuda_memcpy_h2d(arr, device="cpu").dtype}
+        torch_wide = canonical_dtype(torch.from_numpy(arr).dtype)
+    for k, dt in got.items():
+        assert str(dt).removeprefix("torch.") == np.dtype(want[k]).name, k
+    assert str(torch_wide).removeprefix("torch.") == \
+        (np.dtype(wide).name if x64 else WIDE[wide])
+    with repro_torch.enable_x64(x64):
+        back = cuda_memcpy_h2d(arr, device="cpu").value
+    np.testing.assert_array_equal(back.numpy(), arr)
