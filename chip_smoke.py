@@ -97,6 +97,18 @@ Phases, each printing its own lines:
    Then needle_nw's host time per launch, layer by layer, beside its
    per-launch wall in device mode (``device_us``) and replayed
    (``graph_replay_us``);
+3c. the conformance matrix (``repro_torch.core.conformance``): all 23
+   cases with every variant (grain 3, the Dim3 refactorizations, the
+   f32/f64/i32 dtypes, a chain's device-resident leg, and its graph leg,
+   which runs on ``cuda`` on the card) on ``CONFORMANCE_BACKENDS`` at
+   ``build_suite(1)``'s sizes, case by case with every launch count set
+   to 0 before the phase; a ``conformance <backend>`` line each with its
+   cells by status and its seconds, a ``conformance legs`` line naming
+   the backends of each replay leg, and the Table-II row of each backend
+   (``coverage <backend>: correct= pct=`` beside the paper's 69.6 % and
+   56.6 %).  Every passing ``cuda`` cell must have launched each kernel
+   of its entry, and each of the 26 kernels of the 23 entries must have
+   launched in the phase;
 4. the hot-path kernels (matmul, rmsnorm, flash attention) at
    granite-3-2b's widths (``HOT``): each call goes through
    ``repro_torch.kernels.ops.<fn>`` with tensors on the card and
@@ -213,6 +225,11 @@ VARIANTS = {"histogram_contiguous": ("histogram", {"layout": "contiguous"})}
 #: heads, d_ff 8192), over two sequences of train_4k's 4096 tokens
 #: (src/repro/configs/registry.py:59); decode as attend_decode, one new
 #: token for each of 32 sequences over a 4096-token cache
+#: the conformance phase's backends on the card (phase 3c); the loop
+#: family stays off it: a pass takes 96 s on a CPU and would be
+#: launch-bound here
+CONFORMANCE_BACKENDS = ("vector", "cuda")
+
 HOT = {
     "rmsnorm": {"rows": 2 * 4096, "d": 2048},
     "matmul": {"m": 2 * 4096, "k": 2048, "n": 8192},   # the MLP's up proj
@@ -841,6 +858,88 @@ def graph_spans(spans: dict, launch_chain, graph_exec):
         launch_chain.capture_unit, graph_exec.launch = capture, launch
 
 
+def conformance_phase(dev) -> None:
+    """Phase 3c: the conformance matrix over all 23 cases with every
+    variant, on ``CONFORMANCE_BACKENDS`` on the card, case by case with the
+    card synchronised at both ends of each; then the Table-II rows of those
+    backends (``benchmarks/torch_coverage.py``'s sweep).  Raises on any
+    disagreement, on a passing ``cuda`` cell whose entry's kernels did not
+    each launch, on a ``vector`` cell that launched a kernel, on a suite
+    kernel that launched no time in the phase, and on a Table-II count
+    below the committed baseline's."""
+    sys.path.insert(0, str(ROOT / "benchmarks"))
+    import torch_coverage
+    from repro_torch.core import conformance, cuda_suite, lower_cuda
+
+    def counts():
+        return {n: k.launches for n, k in lower_cuda.KERNELS.items()}
+
+    cases = conformance.build_cases()
+    suite_kernels = {s.kernel.name for case in cases for s in
+                     cuda_suite.entry_steps(case.make(case.dtypes[0]))}
+    for kern in lower_cuda.KERNELS.values():
+        kern.launches = 0
+    cells, legs, bad = [], {}, []
+    seconds = dict.fromkeys(CONFORMANCE_BACKENDS, 0.0)
+    for backend in CONFORMANCE_BACKENDS:
+        for case in cases:
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = conformance.run_matrix([case], (backend,), variants=True,
+                                         device=dev)
+            torch.cuda.synchronize()
+            seconds[backend] += time.perf_counter() - t0
+            cells += rep.cells
+            bad += rep.disagreements
+            for mode, bs in rep.legs().items():
+                legs.setdefault(mode, [])
+                legs[mode] += [b for b in bs if b not in legs[mode]]
+            ran = {k: v - before[k] for k, v in counts().items()}
+            passed = sum(c.status == "pass" for c in rep.cells)
+            mine = {s.kernel.name for s in cuda_suite.entry_steps(
+                case.make(case.dtypes[0]))}
+            if backend != "cuda" and any(ran.values()):
+                raise AssertionError(f"{case.name}/{backend}: kernels "
+                                     f"launched: {ran}")
+            if backend == "cuda" and any(ran[k] < passed for k in mine):
+                raise AssertionError(
+                    f"{case.name}/cuda: {passed} passing cells, kernels "
+                    f"launched {ran}")
+    if bad:
+        raise AssertionError("conformance disagreements: " + "; ".join(
+            f"{c.label()} :: {c.detail}" for c in bad[:20]))
+    launched = counts()
+    idle = sorted(k for k in suite_kernels if not launched[k])
+    if len(suite_kernels) != 26 or idle:
+        raise AssertionError(f"conformance: of {len(suite_kernels)} suite "
+                             f"kernels, {idle} launched no time")
+    summary = conformance.Report(cells, len(cases),
+                                 CONFORMANCE_BACKENDS).summary()
+    for b in CONFORMANCE_BACKENDS:
+        row = summary[b]
+        print(f"conformance {b}: pass={row['pass']} fail={row['fail']} "
+              f"unsupport={row['unsupport']} skip={row['skip']} "
+              f"cells={sum(row.values())} seconds={seconds[b]}")
+    print("conformance legs: " + " ".join(
+        f"{m}={','.join(bs)}" for m, bs in legs.items())
+        + f" kernels_launched={len(suite_kernels)} launches="
+        + f"{sum(launched[k] for k in suite_kernels)}")
+
+    table = torch_coverage.run(dev, backends=CONFORMANCE_BACKENDS)
+    cov, pct = torch_coverage.counts(table), torch_coverage.percentages(table)
+    with open(ROOT / "benchmarks" / "torch_coverage_baseline.json") as f:
+        base = json.load(f)
+    for fw in CONFORMANCE_BACKENDS:
+        print(f"coverage {fw}: correct={cov[fw]}/{len(table)} "
+              f"pct={pct[fw]:.1f} "
+              f"paper_cupbop={torch_coverage.PAPER_CUPBOP_PCT} "
+              f"paper_prior={torch_coverage.PAPER_PRIOR_PCT}")
+        if cov[fw] < base["backends"][fw]:
+            raise AssertionError(f"coverage {fw}: {cov[fw]} below the "
+                                 f"baseline's {base['backends'][fw]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1056,6 +1155,9 @@ def main() -> int:
     layers["device_us"] = per_launch[nw, "device"]
     layers["graph_replay_us"] = per_launch[nw, "replay"]
     print(f"layers {nw}: " + " ".join(f"{k}={v}" for k, v in layers.items()))
+
+    # ---- phase 3c: the conformance matrix and Table II on the card ------
+    conformance_phase(dev)
 
     # ---- phase 4: the hot-path kernels at granite-3-2b's widths ---------
     rows.update(hot_phase(hot_host, dev, cuda_suite.matmul_tol))

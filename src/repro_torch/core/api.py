@@ -18,6 +18,9 @@ fourth slot, ``kernel[grid, block, None, s](...)``, routes the launch
 through ``s.launch`` (asynchronous, hazard-tracked, in place on the
 stream's heap) and returns the stream.
 
+:func:`supported` and :func:`coverage` probe a kernel through
+:func:`launch`: a cell and a row of the paper's Table II.
+
 Not yet ported, and refused rather than ignored: the reference's on-disk
 compile cache (``enable_disk_cache``, ``CUPBOP_CACHE_DIR``),
 ``launch_batch``, ``sanitize=``/``optimize=`` (and their environment
@@ -35,14 +38,18 @@ from typing import Any
 from repro_torch.core import grain as grain_mod
 from repro_torch.core import memory as memory_mod
 from repro_torch.core import packing
-from repro_torch.core.backends import get_backend
+from repro_torch.core.backends import backend_names, get_backend
 from repro_torch.core.dim3 import Dim3
-from repro_torch.core.kernel import CompiledKernel, KernelDef
+from repro_torch.core.kernel import (
+    CompiledKernel,
+    KernelDef,
+    UnsupportedKernel,
+)
 
 __all__ = [
     "CacheStats", "LaunchConfig", "cache_clear", "cache_resize",
-    "cache_size", "cache_stats", "compiled", "enable_disk_cache", "launch",
-    "launch_batch",
+    "cache_size", "cache_stats", "compiled", "coverage", "enable_disk_cache",
+    "launch", "launch_batch", "supported",
 ]
 
 #: options of the reference's launch path that the port does not have yet,
@@ -309,3 +316,32 @@ def launch(kernel: KernelDef, *, grid, block, args: dict,
             optimize=optimize)
     return _launch(kernel, Dim3.of(grid), Dim3.of(block), args, backend,
                    grain, dyn_shared, interpret, pool)
+
+
+def supported(kernel: KernelDef, backend: str, *, grid=4, block=64,
+              args=None, dyn_shared=None) -> bool:
+    """Coverage probe: can ``backend`` express ``kernel``? (a Table-II cell)
+
+    The probe is one :func:`launch` over ``args``; only
+    :class:`UnsupportedKernel` reads as "unsupported", anything else
+    raises.  ``backend`` must name a registered backend: an unknown name
+    raises ``UnknownBackend``.
+    """
+    get_backend(backend)
+    if args is None:
+        raise ValueError("supported() needs representative args")
+    try:
+        launch(kernel, grid=grid, block=block, args=args, backend=backend,
+               dyn_shared=dyn_shared)
+    except UnsupportedKernel:
+        return False
+    return True
+
+
+def coverage(kernel: KernelDef, *, grid=4, block=64, args=None,
+             dyn_shared=None) -> dict[str, bool]:
+    """One Table-II row: :func:`supported` across every registered
+    backend, in registration order."""
+    return {name: supported(kernel, name, grid=grid, block=block, args=args,
+                            dyn_shared=dyn_shared)
+            for name in backend_names()}

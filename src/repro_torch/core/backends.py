@@ -65,6 +65,11 @@ def register_backend(name: str, builder: Callable,
     return entry
 
 
+def unregister_backend(name: str) -> None:
+    """Remove ``name`` from the registry; an unknown name is a no-op."""
+    _REGISTRY.pop(name, None)
+
+
 def get_backend(name: str) -> Backend:
     try:
         return _REGISTRY[name]

@@ -1,0 +1,134 @@
+"""The cross-framework column: the port's conformance cells against the
+reference's at the same points, on the CPU.
+
+Each point is one ``(case, axis, dtype, grid, block, grain, mode)`` of the
+matrix, as ``repro_torch.core.conformance`` enumerates it with every
+variant on; both packages build the point's entry from their own
+registries, draw its inputs from ``np.random.default_rng(42)`` and run it
+through their own ``run_entry``:
+
+* here, every host point of every case on ``vector`` (base, grain 3,
+  each Dim3 refactorization, each extra dtype) against the reference's
+  ``vector``, and every base point on ``cuda`` (the kernels' plain
+  versions, since the tensors lie on the CPU) against the reference's
+  ``pallas`` (interpret mode), whose place ``cuda`` takes.  No base point
+  departs; the points where ``cuda`` refuses what the reference's
+  lowerings run are the geometry and dtype points, which the reference's
+  matrix never gives ``pallas`` (``tests/test_torch_conformance.py``
+  names each refusal, ROADMAP "Deliberate departures");
+* in ``tests/test_torch_conformance_parity_chains.py``, the chains'
+  ``device_resident`` and ``graph`` points on ``vector``, and vecadd,
+  scan_block and needle_nw at grains 1 and 3 on ``loop`` against the
+  reference's ``loop``;
+* in ``tests/test_torch_coverage_parity.py``, ``api.supported`` /
+  ``api.coverage`` against the reference's.
+
+The chains file shares this one's helpers; the split keeps each file
+under a minute and a half of CPU time.
+
+The statuses must agree.  Integer buffers, the entries whose order the
+reference fixes (``BIT_EXACT`` of ``tests/test_torch_suite.py``) and the
+chains whose values are integers in every dtype (pathfinder, needle_nw)
+must agree bit for bit; every other buffer within the point's oracle
+tolerance.  The reference's f64 points enter JAX's x64 mode through
+``JAX_X64`` of ``tests/test_torch_x64.py`` (the reference's own
+``run_cell`` calls ``jax.experimental.enable_x64``, which this JAX lacks).
+"""
+import numpy as np
+import pytest
+
+from repro.core import conformance as jconf
+from repro.core import cuda_suite as jsuite
+from repro.core.kernel import UnsupportedKernel as JUnsupportedKernel
+from repro_torch.core import conformance
+from test_torch_suite import BIT_EXACT
+from test_torch_x64 import JAX_X64
+
+CASES = {c.name: c for c in conformance.build_cases()}
+JCASES = {c.name: c for c in jconf.build_cases()}
+#: chains whose buffers hold integer values in every dtype variant
+INTEGER_VALUED = ("pathfinder", "needle_nw")
+
+
+def _points(name: str) -> list[tuple]:
+    case = CASES[name]
+    entries = {tag: case.make(tag) for tag in case.dtypes}
+    return conformance._points(case, entries, variants=True)
+
+
+VECTOR_POINTS = [(name, *p) for name in CASES for p in _points(name)
+                 if p[-1] == "host"]
+BASE_POINTS = [(name, *_points(name)[0]) for name in CASES]
+
+
+def _id(point) -> str:
+    name, axis, tag, grid, _, grain, _ = point
+    shape = "x".join(map(str, np.atleast_1d(grid)))
+    return f"{name}-{axis}-{tag}-{shape}-g{grain}"
+
+
+def _reference(name, backend, tag, grid, block, grain, mode):
+    """The reference's cell at the point: (status, NumPy buffers)."""
+    jcase = JCASES[name]
+    entry = jcase.make(tag)
+    geo = {} if entry.chain is not None else {"grid": grid, "block": block}
+    with JAX_X64(tag == "f64"):
+        try:
+            out, want = jsuite.run_entry(entry, backend, grain=grain,
+                                         chain_mode=jconf._CHAIN_MODE[mode],
+                                         **geo)
+        except JUnsupportedKernel:
+            return "unsupport", None
+        out = {k: np.asarray(v) for k, v in out.items()}
+    _, bad = jconf._oracle_check(out, want, jconf._tol_for(entry, jcase, tag))
+    return ("fail" if bad else "pass"), out
+
+
+def _check(point, backend, ref_backend):
+    name, _, tag, grid, block, grain, mode = point
+    case = CASES[name]
+    entry = case.make(tag)
+    cell, out = conformance.run_cell(entry, case, backend, tag, grid, block,
+                                     grain, mode, device="cpu")
+    status, want = _reference(name, ref_backend, tag, grid, block, grain,
+                              mode)
+    assert cell.status == status, f"{cell.label()}: {cell.detail}"
+    assert cell.status == "pass", cell.detail
+    tol = conformance._tol_for(entry, case, tag)
+    for k, v in want.items():
+        got = conformance._host(out[k])
+        assert got.shape == v.shape and got.dtype == v.dtype, (k, got.dtype,
+                                                               v.dtype)
+        if v.dtype.kind in "iub" or name in BIT_EXACT + INTEGER_VALUED:
+            np.testing.assert_array_equal(got, v, err_msg=k)
+        else:
+            np.testing.assert_allclose(got, v, rtol=tol, atol=tol,
+                                       err_msg=k)
+
+
+@pytest.mark.parametrize("point", VECTOR_POINTS, ids=_id)
+def test_vector_point_agrees_with_the_reference(point):
+    _check(point, "vector", "vector")
+
+
+@pytest.mark.parametrize("point", BASE_POINTS, ids=_id)
+def test_cuda_base_point_agrees_with_the_reference_pallas(point):
+    _check(point, "cuda", "pallas")
+
+
+def test_the_points_are_the_reference_matrix_points():
+    """The port sweeps the reference's geometry, dtype and grain points
+    (the reference adds its optimized and frontend legs, not ported)."""
+    assert list(CASES) == list(JCASES)
+    for name, case in CASES.items():
+        jcase = JCASES[name]
+        assert case.dtypes == jcase.dtypes and case.grains == jcase.grains
+        base = jcase.make(jcase.dtypes[0])
+        for _, tag, grid, block, grain, mode in _points(name):
+            entry = jcase.make(tag)
+            assert block == entry.block
+            if mode == "host" and tag == jcase.dtypes[0] and grain == 1 \
+                    and grid != base.grid:
+                assert grid in jconf.grid_variants(base.grid)
+            if tag != jcase.dtypes[0]:
+                assert grid == entry.grid

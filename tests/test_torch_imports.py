@@ -6,7 +6,8 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+BENCH = sorted((ROOT / "benchmarks").glob("torch_*.py"))
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + BENCH
 BANNED = re.compile(r"^\s*(import\s+(jax|jaxlib|repro)\b(?!_torch)"
                     r"|from\s+(jax|jaxlib|repro)\b(?!_torch))", re.M)
 
@@ -78,6 +79,43 @@ def test_streams_graphs_and_device_chains_stand_alone():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_conformance_and_the_coverage_scripts_stand_alone():
+    # the conformance module and the port's Table-II scripts are scanned
+    # above, and run with JAX and the reference blocked: the matrix on
+    # two cases, its CLI, and the coverage sweep's cheap columns
+    scanned = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {"src/repro_torch/core/conformance.py",
+            "benchmarks/torch_coverage.py",
+            "benchmarks/torch_check_coverage.py"} <= scanned
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "sys.path.insert(0, 'benchmarks')\n"
+        "import torch_check_coverage, torch_coverage\n"
+        "from repro_torch.core import conformance\n"
+        "cases = [c for c in conformance.build_cases()\n"
+        "         if c.name in ('vecadd', 'pathfinder')]\n"
+        "rep = conformance.run_matrix(cases=cases,\n"
+        "                             backends=('vector', 'cuda'),\n"
+        "                             device='cpu')\n"
+        "assert rep.cells and not rep.disagreements\n"
+        "assert conformance.main(['--no-variants', '--kernels', 'reverse',\n"
+        "                         '--backends', 'vector', 'cuda',\n"
+        "                         '--device', 'cpu']) == 0\n"
+        "torch_coverage.frameworks = lambda: ('vector', 'cuda')\n"
+        "counts, _, n = torch_check_coverage.current_counts(device='cpu')\n"
+        "assert counts == {'vector': 23, 'cuda': 23} and n == 23, counts\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n")
+    env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
 
 
 #: the hot-path kernels' sources, each with the Pallas kernel it replaces
