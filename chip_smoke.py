@@ -109,6 +109,22 @@ Phases, each printing its own lines:
    56.6 %).  Every passing ``cuda`` cell must have launched each kernel
    of its entry, and each of the 26 kernels of the 23 entries must have
    launched in the phase;
+3d. the frontend (``repro_torch.frontend``): (a) each of the six corpus
+   ``.cu`` kernels translated and run on ``vector`` with its buffers on
+   the card at ``build_suite(1)``'s sizes, bit for bit the hand-written
+   entry on ``vector`` and on ``cuda``, whose kernel must have launched
+   (a ``frontend_gate <name>`` line each, with the twin's time a block);
+   (b) each corpus source with its macros (vecadd's scalar ``n``) bound
+   to an entry's parameters, checked against the source's ``#define``
+   names and the entry's block, its twin on ``vector`` beside the
+   hand-written entry on ``cuda`` on the same inputs, bit for bit (a
+   ``frontend <name>: binds=... vector_wall_s=... cuda_wall_s=...
+   ratio=... bits=equal`` line each, the card synchronised at both ends
+   of each wall).  The sizes are ``FRONTEND_SIZES``'s, the entry's of
+   ``SIZES`` first: the first whose ``vector`` run, projected from (a)'s
+   time a block, fits ``FRONTEND_BUDGET_S`` runs, since the ``vector``
+   lowering walks the grid a block at a time from the host (bfs: one
+   level, or ``build_suite(1)``'s graph); a cut size's line says so;
 4. the hot-path kernels (matmul, rmsnorm, flash attention) at
    granite-3-2b's widths (``HOT``): each call goes through
    ``repro_torch.kernels.ops.<fn>`` with tensors on the card and
@@ -225,6 +241,30 @@ VARIANTS = {"histogram_contiguous": ("histogram", {"layout": "contiguous"})}
 #: heads, d_ff 8192), over two sequences of train_4k's 4096 tokens
 #: (src/repro/configs/registry.py:59); decode as attend_decode, one new
 #: token for each of 32 sequences over a 4096-token cache
+#: phase 3d (b): each corpus kernel's sizes, largest first.  The first is
+#: the entry's size in SIZES (bfs, pathfinder and needle_nw at Rodinia
+#: 3.1's; vecadd, reverse and stencil1d at the textbook sizes); the
+#: others cut the problem (pathfinder its rows, the rest their length) and
+#: keep the block, DEG and PENALTY.  The first size whose vector run,
+#: projected from phase 3d (a)'s time per block, fits FRONTEND_BUDGET_S
+#: runs: the vector lowering walks the grid one block at a time from the
+#: host.  bfs's projection is of one level, and below its full size it
+#: falls back to build_suite(1)'s graph
+FRONTEND_SIZES = {
+    "vecadd": [SIZES["vecadd"]] + [{"n": 1 << k, "block": 128}
+                                   for k in (22, 20, 18, 16)],
+    "reverse": [SIZES["reverse"]],
+    "stencil1d": [SIZES["stencil1d"]] + [{"n": 1 << k, "block": 128}
+                                         for k in (22, 20, 18, 16)],
+    "bfs_frontier": [SIZES["bfs_frontier"], {"n": 64, "deg": 4}],
+    "pathfinder": [SIZES["pathfinder"]]
+    + [{"cols": 100_000, "rows": r} for r in (30, 10, 4)]
+    + [{"cols": 16_384, "rows": 4}],
+    "needle_nw": [SIZES["needle_nw"]] + [{"n": n, "penalty": 10}
+                                         for n in (1024, 512, 256, 128)],
+}
+FRONTEND_BUDGET_S = 30.0
+
 #: the conformance phase's backends on the card (phase 3c); the loop
 #: family stays off it: a pass takes 96 s on a CPU and would be
 #: launch-bound here
@@ -895,6 +935,10 @@ def conformance_phase(dev) -> None:
             for mode, bs in rep.legs().items():
                 legs.setdefault(mode, [])
                 legs[mode] += [b for b in bs if b not in legs[mode]]
+            legs.setdefault("frontend", [])
+            if backend not in legs["frontend"] and any(
+                    c.mode == "frontend" for c in rep.cells):
+                legs["frontend"].append(backend)
             ran = {k: v - before[k] for k, v in counts().items()}
             passed = sum(c.status == "pass" for c in rep.cells)
             mine = {s.kernel.name for s in cuda_suite.entry_steps(
@@ -938,6 +982,149 @@ def conformance_phase(dev) -> None:
         if cov[fw] < base["backends"][fw]:
             raise AssertionError(f"coverage {fw}: {cov[fw]} below the "
                                  f"baseline's {base['backends'][fw]}")
+
+
+def frontend_binds(name: str, size: dict, entry, source: str) -> dict:
+    """The corpus source's binds for the entry built from ``size``: its
+    ``#define`` macros (vecadd's scalar ``n``) set to the entry's
+    parameters, ``BLOCK`` and ``BD`` to the entry's block.  Raises unless
+    every macro bound is one the source defines."""
+    from repro_torch.core.dim3 import Dim3
+    from repro_torch.frontend.lexer import macro_names
+
+    block = Dim3.of(entry.block).size
+    binds = {"vecadd": lambda: {"n": size["n"]},
+             "reverse": lambda: {"BD": block},
+             "stencil1d": lambda: {"NN": size["n"], "BLOCK": block},
+             "bfs_frontier": lambda: {"N": size["n"], "DEG": size["deg"]},
+             "pathfinder": lambda: {"COLS": size["cols"], "BLOCK": block},
+             "needle_nw": lambda: {"N": size["n"],
+                                   "PENALTY": size["penalty"]}}[name]()
+    macros = macro_names(source)
+    stray = set(binds) - macros - ({"n"} if name == "vecadd" else set())
+    if stray:
+        raise AssertionError(f"frontend {name}: {sorted(stray)} are not "
+                             f"macros of the source ({sorted(macros)})")
+    return binds
+
+
+def frontend_block_runs(name: str, size: dict, entry) -> int:
+    """The blocks the vector lowering walks for ``entry`` (for bfs, in
+    one level): the grid times the chain's launches."""
+    from repro_torch.core.dim3 import Dim3
+
+    launches = (size["rows"] - 1 if name == "pathfinder"
+                else 2 * size["n"] - 1 if name == "needle_nw" else 1)
+    return Dim3.of(entry.grid).size * launches
+
+
+def frontend_phase(dev, cuda_suite, lower_cuda) -> None:
+    """Phase 3d: the frontend's corpus translated and run on the card.
+
+    (a) each corpus twin on ``vector`` at ``build_suite(1)``'s sizes, bit
+    for bit the hand-written entry on ``vector`` and on ``cuda``, whose
+    kernel must have launched; (b) each twin at the largest size of
+    ``FRONTEND_SIZES`` that fits ``FRONTEND_BUDGET_S``, its macros bound
+    to the entry's parameters, on ``vector`` beside the hand-written
+    entry on ``cuda`` on the same inputs, bit for bit.  Every wall has
+    the card synchronised at both ends; a ``vector`` run must launch no
+    suite kernel.  Raises on any disagreement."""
+    from repro_torch.core.dim3 import Dim3
+    from repro_torch.frontend import suite as fsuite
+
+    def vector_run(entry, args):
+        for kern in lower_cuda.KERNELS.values():
+            kern.launches = 0
+        stats = cuda_suite.ChainStats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = cuda_suite.run_entry(entry, "vector", args=args,
+                                      with_reference=False, device=dev,
+                                      chain_stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ran = {n: k.launches for n, k in lower_cuda.KERNELS.items()
+               if k.launches}
+        if ran:
+            raise AssertionError(f"{entry.name}/vector launched {ran}")
+        return out, wall, stats
+
+    def bits(out):
+        return {k: to_numpy(v).tobytes() for k, v in out.items()}
+
+    def flat(args):
+        return {k: v.reshape(-1) if v.ndim > 1 else v
+                for k, v in args.items()}
+
+    def same(name, what, got, want):
+        bad = sorted(k for k in want if want[k] != got.get(k))
+        if bad or set(got) != set(want):
+            raise AssertionError(f"frontend {name}: twin differs from "
+                                 f"{what} on {bad}")
+
+    per_block = {}
+    for name in fsuite.CORPUS:
+        base = fsuite._bases()[name]
+        twin = fsuite.frontend_twin(name)
+        kernels = [s.kernel.name for s in cuda_suite.entry_steps(base)]
+        args = base.make_args(np.random.default_rng(SEED))
+        tw_out, tw_wall, st = vector_run(twin, flat(args))
+        hv_out, hv_wall, _ = vector_run(base, args)
+        hc_out, hc_wall, launched = drive(cuda_suite, lower_cuda, base,
+                                          args, dev, kernels)
+        tw = bits(tw_out)
+        same(name, "the hand-written entry on vector", tw, bits(hv_out))
+        same(name, "the hand-written entry on cuda", tw, bits(hc_out))
+        if min(launched.values()) == 0:
+            raise AssertionError(f"frontend {name}: cuda launched "
+                                 f"{launched}")
+        runs = Dim3.of(base.grid).size * max(1, st.launches)
+        per_block[name] = tw_wall / runs
+        print(f"frontend_gate {name}: vector=equal cuda=equal "
+              f"launches={launched} twin_vector_wall_s={tw_wall} "
+              f"hand_vector_wall_s={hv_wall} cuda_wall_s={hc_wall} "
+              f"block_runs={runs} us_per_block={per_block[name] * 1e6}")
+
+    rng = np.random.default_rng(SEED)
+    for name, sizes in FRONTEND_SIZES.items():
+        make = getattr(cuda_suite, f"entry_{name}")
+        size, cut = None, ""
+        for cand in sizes:
+            entry = make(**cand)
+            runs = frontend_block_runs(name, cand, entry)
+            projected = runs * per_block[name]
+            if projected <= FRONTEND_BUDGET_S:
+                size = cand
+                break
+            if name == "bfs_frontier":
+                size = sizes[-1]
+                entry = make(**size)
+                cut = (f" scale=1 (one level of {cand} projected "
+                       f"{projected} s for {runs} blocks > "
+                       f"{FRONTEND_BUDGET_S} s)")
+                break
+            if not cut:
+                cut = (f" cut_from={cand} (projected {projected} s for "
+                       f"{runs} blocks > {FRONTEND_BUDGET_S} s)")
+        if size is None:
+            raise AssertionError(f"frontend {name}: no size of "
+                                 f"{sizes} fits {FRONTEND_BUDGET_S} s")
+        binds = frontend_binds(name, size, entry, fsuite.corpus_source(name))
+        twin = fsuite.frontend_twin(name, binds, base=entry)
+        kernels = [s.kernel.name for s in cuda_suite.entry_steps(entry)]
+        args = entry.make_args(rng)
+        tw_out, tw_wall, st = vector_run(twin, flat(args))
+        hc_out, hc_wall, launched = drive(cuda_suite, lower_cuda, entry,
+                                          args, dev, kernels)
+        same(name, "the cuda backend's kernel", bits(tw_out), bits(hc_out))
+        if min(launched.values()) == 0:
+            raise AssertionError(f"frontend {name}: cuda launched "
+                                 f"{launched}")
+        del tw_out, hc_out
+        print(f"frontend {name}: binds={binds} size={size}{cut} "
+              f"vector_wall_s={tw_wall} cuda_wall_s={hc_wall} "
+              f"ratio={tw_wall / hc_wall} launches={launched} "
+              f"vector_launches={st.launches} bits=equal")
 
 
 def main() -> int:
@@ -1158,6 +1345,9 @@ def main() -> int:
 
     # ---- phase 3c: the conformance matrix and Table II on the card ------
     conformance_phase(dev)
+
+    # ---- phase 3d: the frontend's corpus translated, on the card --------
+    frontend_phase(dev, cuda_suite, lower_cuda)
 
     # ---- phase 4: the hot-path kernels at granite-3-2b's widths ---------
     rows.update(hot_phase(hot_host, dev, cuda_suite.matmul_tol))

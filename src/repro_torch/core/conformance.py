@@ -16,7 +16,10 @@ under every lowering, and they must agree.
   device, the stop flag polled every k iterations) and a ``graph`` leg
   (iterations captured once and replayed), each bit for bit the same
   backend's host cell outside ``nondeterministic_shard`` and
-  ``iteration_state``;
+  ``iteration_state``.  The kernels with a ``.cu`` source in the
+  frontend's corpus add a ``frontend`` leg on ``FRONTEND_BACKENDS``: the
+  source translated by :mod:`repro_torch.frontend` owes FULL bit identity
+  to the same backend's hand-written host cell;
 * :func:`report_to_json` gives the machine-readable matrix, and the CLI
   (``python -m repro_torch.core.conformance --json out.json``) exits 1 on
   any disagreement.  ``--inject-disagreement`` registers a deliberately
@@ -37,8 +40,8 @@ asked for (``run_entry``'s rule).  On the CPU the graph leg runs on
 
 f64 cells run under :func:`repro_torch.x64.enable_x64`.  What the port
 does not have yet makes no cell and is listed in the report's meta under
-``not_ported``: the ``optimized`` leg, the ``frontend`` leg and the
-``shard`` backends with their device counts.
+``not_ported``: the ``optimized`` leg and the ``shard`` backends with
+their device counts.
 """
 from __future__ import annotations
 
@@ -64,6 +67,8 @@ from repro_torch.core.cuda_suite import SuiteEntry, run_entry
 from repro_torch.core.dim3 import Dim3
 from repro_torch.core.kernel import UnsupportedKernel
 from repro_torch.core.memory import host_array, resolve_device
+from repro_torch.frontend.suite import CORPUS as FRONTEND_CORPUS
+from repro_torch.frontend.suite import frontend_twin
 from repro_torch.x64 import enable_x64
 
 #: oracle tolerance floor per dtype tag (a case's own ``tol`` can widen it)
@@ -90,10 +95,17 @@ GRAPH_MODE_BACKENDS = ("loop", "vector")
 #: ... and on a CUDA device, where the capture is a torch.cuda.CUDAGraph
 CARD_GRAPH_MODE_BACKENDS = ("cuda",)
 
+#: backends that sweep the CUDA-C frontend leg: kernels with a ``.cu``
+#: corpus source (repro_torch/frontend/corpus) re-run as their
+#: *translated* twin and owe FULL bit-identity to the same backend's
+#: hand-written host cell - the executable form of "ingests CUDA source
+#: without changing semantics".  ``cuda`` refuses a translated kernel (it
+#: has no hand-written kernel), so it sweeps no such cell
+FRONTEND_BACKENDS = ("loop", "vector")
+
 #: the reference's legs and backends with no port yet, by ROADMAP item
 NOT_PORTED = {
     "optimized": "ROADMAP 1.9 (barrier-fission optimizer)",
-    "frontend": "ROADMAP 1.10 (CUDA-C frontend)",
     "shard": "ROADMAP 1.12 (shard)",
     "shard_vector": "ROADMAP 1.12 (shard)",
     "devices": "ROADMAP 1.12 (shard: forced device counts)",
@@ -121,7 +133,10 @@ class Cell:
 
     ``mode`` is the replay axis: ``"host"`` (the per-iteration host-hop
     baseline), ``"device_resident"`` (on-device updates, k-batched stop
-    polls) or ``"graph"`` (captured once, replayed).  ``devices`` stays
+    polls), ``"graph"`` (captured once, replayed), or ``"frontend"`` (the
+    kernel's ``.cu`` corpus source translated by
+    :mod:`repro_torch.frontend`, owing full bit-identity to the
+    hand-written host cell).  ``devices`` stays
     ``None``: it is the reference's shard axis, not ported.
     """
 
@@ -490,7 +505,44 @@ def _points(case: ConformanceCase, entries: dict[str, SuiteEntry],
     if base.chain is not None:
         for mode in ("device_resident", "graph"):
             points.append((mode, base_tag, base.grid, base.block, 1, mode))
+    if case.name in FRONTEND_CORPUS:
+        # the frontend leg: the kernel's .cu source, translated, owes
+        # FULL bit-identity to the hand-written host cell
+        points.append(("frontend", base_tag, base.grid, base.block, 1,
+                       "frontend"))
     return points
+
+
+def run_frontend_cell(case: ConformanceCase, backend: str, tag: str, grid,
+                      block, host_bits: dict | None, *,
+                      device=None) -> Cell:
+    """The ``frontend`` cell of a corpus case: its translated twin run on
+    ``backend``, held bit for bit against ``host_bits``, the same
+    backend's hand-written host cell (no anchor when that cell did not
+    run).  An :class:`UnsupportedKernel` makes an ``unsupport`` cell."""
+    cell = Cell(kernel=case.name, backend=backend,
+                grid=tuple(Dim3.of(grid)), block=tuple(Dim3.of(block)),
+                dtype=tag, grain=1, devices=None, status="pass",
+                mode="frontend")
+    try:
+        twin = frontend_twin(case.name)
+        out, _ = run_entry(twin, backend, with_reference=False,
+                           device=device)
+    except UnsupportedKernel as e:
+        cell.status = "unsupport"
+        cell.detail = str(e).splitlines()[0]
+        return cell
+    if host_bits is not None:
+        got = _bits(out)
+        cell.anchor = f"{backend}/host"
+        cell.bit_required = True
+        cell.bit_identical = got == host_bits
+        if not cell.bit_identical:
+            diff = [k for k in got if got[k] != host_bits.get(k)]
+            cell.status = "fail"
+            cell.detail = (f"ingested .cu bits differ from hand-written "
+                           f"twin on {diff}")
+    return cell
 
 
 def run_matrix(cases: list[ConformanceCase] | None = None,
@@ -511,7 +563,8 @@ def run_matrix(cases: list[ConformanceCase] | None = None,
                      "geometry": GEOMETRY_BACKENDS,
                      "dtype": DTYPE_BACKENDS,
                      "device_resident": DEVICE_MODE_BACKENDS,
-                     "graph": graph_mode_backends(dev)}
+                     "graph": graph_mode_backends(dev),
+                     "frontend": FRONTEND_BACKENDS}
 
     cells: list[Cell] = []
     for case in cases:
@@ -538,6 +591,11 @@ def run_matrix(cases: list[ConformanceCase] | None = None,
         for backend in backends:
             for axis, tag, grid, block, grain, mode in points:
                 if axis != "base" and backend not in axis_backends[axis]:
+                    continue
+                if mode == "frontend":
+                    cells.append(run_frontend_cell(
+                        case, backend, tag, grid, block,
+                        host_bits.get(backend), device=dev))
                     continue
                 entry = entries[tag]
                 cell, out = run_cell(entry, case, backend, tag, grid, block,

@@ -37,6 +37,7 @@ from repro_torch.core.conformance import (
     run_cell,
     run_matrix,
 )
+from repro_torch.core.kernel import UnsupportedKernel
 
 CPU = "cpu"
 CASES = {c.name: c for c in build_cases()}
@@ -223,20 +224,23 @@ def test_cuda_refuses_geometry_and_dtype_as_unsupport_cells():
 def test_chain_cases_grow_mode_cells():
     """A chain case sweeps device_resident cells on loop, vector and cuda
     and graph cells on loop and vector (the CPU's graph backends), each
-    bit-anchored on the same backend's host-hop run."""
+    bit-anchored on the same backend's host-hop run; bfs, a corpus kernel
+    of the frontend, adds its frontend cells on loop and vector."""
     rep = run_matrix(cases=[CASES["bfs_frontier"]],
                      backends=("loop", "vector", "cuda"), variants=True,
                      device=CPU)
     by_mode = {}
     for c in rep.cells:
         by_mode.setdefault(c.mode, []).append(c)
-    assert set(by_mode) == {"host", "device_resident", "graph"}
+    assert set(by_mode) == {"host", "device_resident", "graph", "frontend"}
     assert not rep.disagreements
     assert {c.backend for c in by_mode["device_resident"]} == {
         "loop", "vector", "cuda"}
     assert {c.backend for c in by_mode["graph"]} == set(
         conformance.GRAPH_MODE_BACKENDS)
-    for mode in ("device_resident", "graph"):
+    assert {c.backend for c in by_mode["frontend"]} == set(
+        conformance.FRONTEND_BACKENDS)
+    for mode in ("device_resident", "graph", "frontend"):
         for c in by_mode[mode]:
             assert c.anchor == f"{c.backend}/host"
             assert c.bit_required and c.bit_identical, c.label()
@@ -246,9 +250,11 @@ def test_chain_cases_grow_mode_cells():
 
 
 def test_single_launch_cases_have_no_replay_mode_cells():
+    # vecadd's one cell of another mode is its frontend twin's, on vector
     rep = run_matrix(cases=[CASES["vecadd"]], backends=("vector", "cuda"),
                      variants=True, device=CPU)
-    assert {c.mode for c in rep.cells} == {"host"}
+    assert {c.mode for c in rep.cells} == {"host", "frontend"}
+    assert [c.backend for c in rep.cells if c.mode != "host"] == ["vector"]
     assert rep.legs() == {"device_resident": [], "graph": []}
 
 
@@ -264,7 +270,7 @@ def test_mode_axis_in_matrix_json():
                      variants=True, device=CPU)
     js = report_to_json(rep)
     modes = {c["mode"] for c in js["cells"]}
-    assert modes == {"host", "device_resident", "graph"}
+    assert modes == {"host", "device_resident", "graph", "frontend"}
     labeled = [c for c in rep.cells if c.mode == "graph"]
     assert labeled and "mode=graph" in labeled[0].label()
 
@@ -324,16 +330,76 @@ def test_matrix_report_structure():
 
 
 def test_not_ported_legs_are_listed_and_make_no_cell():
+    # the frontend leg is ported (ROADMAP 1.10): pathfinder, a corpus
+    # kernel, makes its cell; only the optimizer and shard stay listed
     rep = run_matrix(cases=[CASES["pathfinder"]], backends=("vector",),
                      variants=True, device=CPU)
     meta = report_to_json(rep)["meta"]
     assert meta["not_ported"] == NOT_PORTED
+    assert set(NOT_PORTED) == {"optimized", "shard", "shard_vector",
+                               "devices"}
     assert NOT_PORTED["optimized"].startswith("ROADMAP 1.9")
-    assert NOT_PORTED["frontend"].startswith("ROADMAP 1.10")
     for name in ("shard", "shard_vector", "devices"):
         assert NOT_PORTED[name].startswith("ROADMAP 1.12")
-    assert not {c.mode for c in rep.cells} & {"optimized", "frontend"}
+    assert "optimized" not in {c.mode for c in rep.cells}
+    (front,) = [c for c in rep.cells if c.mode == "frontend"]
+    assert front.status == "pass" and front.bit_identical
     assert not {"shard", "shard_vector"} & set(backend_names())
+
+
+# --- the frontend leg --------------------------------------------------------
+def test_frontend_leg_covers_the_corpus_on_loop_and_vector():
+    """Each corpus kernel's translated twin makes one cell per backend of
+    FRONTEND_BACKENDS, which cuda is not in (it refuses a translated
+    kernel); the full CPU matrix over the five backends has 331 cells."""
+    assert conformance.FRONTEND_BACKENDS == ("loop", "vector")
+    axis = {"grain": conformance.VARIANT_BACKENDS,
+            "geometry": conformance.GEOMETRY_BACKENDS,
+            "dtype": conformance.DTYPE_BACKENDS,
+            "device_resident": conformance.DEVICE_MODE_BACKENDS,
+            "graph": conformance.graph_mode_backends(CPU),
+            "frontend": conformance.FRONTEND_BACKENDS}
+    cells, front = 0, set()
+    for case in CASES.values():
+        entries = {tag: case.make(tag) for tag in case.dtypes}
+        for p in conformance._points(case, entries, variants=True):
+            for b in backend_names():
+                if p[0] == "base" or b in axis[p[0]]:
+                    cells += 1
+                    if p[0] == "frontend":
+                        front.add((case.name, b))
+    assert front == {(n, b) for n in conformance.FRONTEND_CORPUS
+                     for b in ("loop", "vector")}
+    assert cells == 331
+
+
+def test_frontend_cell_detects_a_mistranslation(monkeypatch):
+    """A twin whose source binds needle_nw's PENALTY to 3 fails its cell
+    against the hand-written host bits; the host cell still passes."""
+    real = conformance.frontend_twin
+    monkeypatch.setattr(conformance, "frontend_twin",
+                        lambda name: real(name, {"PENALTY": 3}))
+    rep = run_matrix(cases=[CASES["needle_nw"]], backends=("vector",),
+                     variants=False, device=CPU)
+    assert [c.status for c in rep.cells] == ["pass"]
+    rep = run_matrix(cases=[CASES["needle_nw"]], backends=("vector",),
+                     variants=True, device=CPU)
+    (bad,) = [c for c in rep.cells if c.mode == "frontend"]
+    assert bad.status == "fail" and bad.bit_identical is False
+    assert "ingested .cu bits differ" in bad.detail and "score" in bad.detail
+    assert all(c.status == "pass" for c in rep.cells if c is not bad)
+
+
+def test_frontend_cell_is_unsupport_when_translation_refuses(monkeypatch):
+    def refuse(name):
+        raise UnsupportedKernel("line 3: out of subset")
+
+    monkeypatch.setattr(conformance, "frontend_twin", refuse)
+    (cell,) = [c for c in run_matrix(cases=[CASES["reverse"]],
+                                     backends=("loop",), variants=True,
+                                     device=CPU).cells
+               if c.mode == "frontend"]
+    assert cell.status == "unsupport" and cell.detail == "line 3: out of subset"
 
 
 def test_matrix_detects_disagreement():

@@ -40,11 +40,13 @@ import pytest
 from repro.core import conformance as jconf
 from repro.core import cuda_suite as jsuite
 from repro.core.kernel import UnsupportedKernel as JUnsupportedKernel
+from repro.frontend import suite as jfsuite
 from repro_torch.core import conformance
 from test_torch_suite import BIT_EXACT
 from test_torch_x64 import JAX_X64
 
 CASES = {c.name: c for c in conformance.build_cases()}
+FRONTEND_CORPUS = conformance.FRONTEND_CORPUS
 JCASES = {c.name: c for c in jconf.build_cases()}
 #: chains whose buffers hold integer values in every dtype variant
 INTEGER_VALUED = ("pathfinder", "needle_nw")
@@ -118,7 +120,8 @@ def test_cuda_base_point_agrees_with_the_reference_pallas(point):
 
 def test_the_points_are_the_reference_matrix_points():
     """The port sweeps the reference's geometry, dtype and grain points
-    (the reference adds its optimized and frontend legs, not ported)."""
+    and its frontend leg (the reference adds its optimized leg, not
+    ported)."""
     assert list(CASES) == list(JCASES)
     for name, case in CASES.items():
         jcase = JCASES[name]
@@ -132,3 +135,36 @@ def test_the_points_are_the_reference_matrix_points():
                 assert grid in jconf.grid_variants(base.grid)
             if tag != jcase.dtypes[0]:
                 assert grid == entry.grid
+
+
+@pytest.mark.parametrize("backend", conformance.FRONTEND_BACKENDS)
+@pytest.mark.parametrize("name", FRONTEND_CORPUS)
+def test_frontend_cell_agrees_with_the_reference(name, backend):
+    """The frontend leg's cell at each corpus case: the port's status
+    against the one the reference's matrix gives (its translated twin
+    bit for bit the same backend's hand-written host cell), on the same
+    backends, both with the inputs of ``np.random.default_rng(42)``."""
+    assert jconf.FRONTEND_BACKENDS == conformance.FRONTEND_BACKENDS
+    assert jconf._frontend_corpus() == FRONTEND_CORPUS
+    case = CASES[name]
+    entry = case.make(case.dtypes[0])
+    host, out = conformance.run_cell(entry, case, backend, case.dtypes[0],
+                                     entry.grid, entry.block, 1,
+                                     device="cpu")
+    cell = conformance.run_frontend_cell(case, backend, case.dtypes[0],
+                                         entry.grid, entry.block,
+                                         conformance._bits(out),
+                                         device="cpu")
+    jentry = JCASES[name].make(case.dtypes[0])
+    try:
+        theirs, _ = jsuite.run_entry(jfsuite.frontend_twin(name), backend,
+                                     with_reference=False)
+        base, _ = jsuite.run_entry(jentry, backend, with_reference=False)
+        status = ("pass" if jconf._bits(theirs, ()) == jconf._bits(base, ())
+                  else "fail")
+    except JUnsupportedKernel:
+        status = "unsupport"
+    assert host.status == "pass"
+    assert (cell.status, status) == ("pass", "pass"), cell.detail
+    assert cell.mode == "frontend" and cell.anchor == f"{backend}/host"
+    assert cell.bit_required and cell.bit_identical

@@ -15,8 +15,10 @@ import pytest
 
 from test_torch_conformance_parity import CASES, _check, _id, _points
 
+#: the replay legs (the frontend leg's points, also not host, are held
+#: against the reference in tests/test_torch_conformance_parity.py)
 LEG_POINTS = [(name, *p) for name in CASES for p in _points(name)
-              if p[-1] != "host"]
+              if p[-1] in ("device_resident", "graph")]
 LOOP_POINTS = [(name, *p) for name in ("vecadd", "scan_block", "needle_nw")
                for p in _points(name) if p[0] in ("base", "grain")]
 

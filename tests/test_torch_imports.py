@@ -118,6 +118,47 @@ def test_conformance_and_the_coverage_scripts_stand_alone():
     assert res.stdout.strip().endswith("ok")
 
 
+#: the frontend's modules (the reference's ``repro.frontend``, copied or
+#: translated to torch), the gate's ``__main__`` among them
+FRONTEND = ("frontend/__init__.py", "frontend/__main__.py",
+            "frontend/lexer.py", "frontend/parser.py", "frontend/runtime.py",
+            "frontend/suite.py", "frontend/translate.py")
+
+
+def test_the_frontend_stands_alone():
+    # its seven modules are scanned above (the lexer and parser, which
+    # import no JAX in the reference either, are the port's own copies),
+    # and translate, run the corpus's twins and gate with JAX and the
+    # reference blocked
+    scanned = {p.relative_to(PORT).as_posix() for p in FILES
+               if PORT in p.parents}
+    assert set(FRONTEND) <= scanned
+    assert {p.relative_to(PORT).as_posix()
+            for p in (PORT / "frontend").glob("*.py")} == set(FRONTEND)
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "from repro_torch.frontend import TranslatedKernel, translate\n"
+        "from repro_torch.frontend import lexer, parser, runtime, suite\n"
+        "from repro_torch.frontend.__main__ import main\n"
+        "tk = translate(suite.corpus_source('stencil1d'))\n"
+        "assert isinstance(tk, TranslatedKernel) and len(tk.sources) == 2\n"
+        "assert main(['--kernels', 'reverse', 'pathfinder', '--device',\n"
+        "             'cpu']) == 0\n"
+        "assert main(['--kernels', 'needle_nw', '--backends', 'vector',\n"
+        "             '--inject', '--device', 'cpu']) == 1\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n")
+    env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 #: the hot-path kernels' sources, each with the Pallas kernel it replaces
 HOT_PATH = {"flash_attention.cu": "src/repro/kernels/flash_attention.py:34",
             "flash_attention_tc.cu":
