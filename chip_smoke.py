@@ -100,7 +100,8 @@ Phases, each printing its own lines:
 3c. the conformance matrix (``repro_torch.core.conformance``): all 23
    cases with every variant (grain 3, the Dim3 refactorizations, the
    f32/f64/i32 dtypes, a chain's device-resident leg, and its graph leg,
-   which runs on ``cuda`` on the card) on ``CONFORMANCE_BACKENDS`` at
+   which runs on ``cuda`` on the card, and every case's optimized leg,
+   which runs on ``vector``) on ``CONFORMANCE_BACKENDS`` at
    ``build_suite(1)``'s sizes, case by case with every launch count set
    to 0 before the phase; a ``conformance <backend>`` line each with its
    cells by status and its seconds, a ``conformance legs`` line naming
@@ -125,6 +126,24 @@ Phases, each printing its own lines:
    time a block, fits ``FRONTEND_BUDGET_S`` runs, since the ``vector``
    lowering walks the grid a block at a time from the host (bfs: one
    level, or ``build_suite(1)``'s graph); a cut size's line says so;
+3e. kernelcheck and the barrier-fission optimizer
+   (``repro_torch.core.analyze`` / ``optimize``): (a) every entry of
+   ``build_suite(1)`` analyzed with its buffers on the card, every report
+   clean (a ``kernelcheck <kernel>: clean stages= fused_pairs= seconds=``
+   line each) and the card's fusion artifacts equal to the CPU's in the
+   same run; (b) each entry whose optimizer plan is not trivial on
+   ``vector`` on the card, base and ``optimize=True`` in turns, best of
+   ``OPT_TURNS`` each, bit for bit (``optimize <name>: stages=a->b
+   vector_base_s= vector_opt_s= ratio= bits=equal``); (c) the sixteen
+   single launches of ``SIZES`` on ``cuda`` with ``sanitize=True,
+   optimize=True`` - the derived kernel keeps its hand-written kernel -
+   and the seven chains at ``build_suite(1)``, each twice (the first
+   launch analysed, the second memoized), counted as in phase 3 and bit
+   for bit the plain ``cuda`` run (``sanitize_optimize <name>:
+   launches= first_wall_s= memoized_wall_s= bits=equal``).  An entry
+   whose analysis, projected from one analysed block, would pass
+   ``SANITIZE_BUDGET_S`` runs at ``build_suite(1)``'s size, and its line
+   says so;
 4. the hot-path kernels (matmul, rmsnorm, flash attention) at
    granite-3-2b's widths (``HOT``): each call goes through
    ``repro_torch.kernels.ops.<fn>`` with tensors on the card and
@@ -160,6 +179,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -264,6 +284,11 @@ FRONTEND_SIZES = {
                                          for n in (1024, 512, 256, 128)],
 }
 FRONTEND_BUDGET_S = 30.0
+#: phase 3e: the analysis wall above which an entry's sanitized and
+#: optimized cuda launch runs at build_suite(1)'s size, and the turns of
+#: base and optimized vector runs whose best is kept
+SANITIZE_BUDGET_S = 30.0
+OPT_TURNS = 3
 
 #: the conformance phase's backends on the card (phase 3c); the loop
 #: family stays off it: a pass takes 96 s on a CPU and would be
@@ -935,10 +960,11 @@ def conformance_phase(dev) -> None:
             for mode, bs in rep.legs().items():
                 legs.setdefault(mode, [])
                 legs[mode] += [b for b in bs if b not in legs[mode]]
-            legs.setdefault("frontend", [])
-            if backend not in legs["frontend"] and any(
-                    c.mode == "frontend" for c in rep.cells):
-                legs["frontend"].append(backend)
+            for mode in ("optimized", "frontend"):
+                legs.setdefault(mode, [])
+                if backend not in legs[mode] and any(
+                        c.mode == mode for c in rep.cells):
+                    legs[mode].append(backend)
             ran = {k: v - before[k] for k, v in counts().items()}
             passed = sum(c.status == "pass" for c in rep.cells)
             mine = {s.kernel.name for s in cuda_suite.entry_steps(
@@ -1125,6 +1151,165 @@ def frontend_phase(dev, cuda_suite, lower_cuda) -> None:
               f"vector_wall_s={tw_wall} cuda_wall_s={hc_wall} "
               f"ratio={tw_wall / hc_wall} launches={launched} "
               f"vector_launches={st.launches} bits=equal")
+
+
+def kernelcheck_phase(dev, cuda_suite, lower_cuda, ents, host_args) -> None:
+    """Phase 3e: kernelcheck and the barrier-fission optimizer on the card.
+
+    (a) every entry of ``build_suite(1)`` analyzed (reports and fusion
+    artifacts) with its buffers on the card: every report clean, and
+    ``fusion_to_json`` of the card's artifacts equal to the same call on
+    the CPU in this run; (b) each entry whose plan is not trivial on
+    ``vector`` on the card, base and ``optimize=True`` in turns, best of
+    ``OPT_TURNS`` each, bit for bit; (c) the sixteen single-launch entries
+    of ``SIZES`` on ``cuda`` with ``sanitize=True, optimize=True``, twice
+    (the first launch analysed, the second memoized), each launch counted
+    and bit for bit the plain ``cuda`` launch, and the seven chains the
+    same way at ``build_suite(1)`` (``CUPBOP_SANITIZE=1`` and
+    ``run_entry(optimize=True)``).  An entry whose analysis, projected
+    from one analysed block, would take more than ``SANITIZE_BUDGET_S``
+    runs at ``build_suite(1)``'s size instead, and its line says so.
+    Raises on any finding, disagreement or kernel left unlaunched."""
+    from repro_torch import carry
+    from repro_torch.core import analyze, api, optimize
+
+    def sync_wall(fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def analysis(entry):
+        return (analyze.analyze_entry(entry, device=dev),
+                analyze.fusion_entry(entry, device=dev))
+
+    def bits(out):
+        return {k: to_numpy(v).tobytes() for k, v in out.items()}
+
+    def counts():
+        return {n: k.launches for n, k in lower_cuda.KERNELS.items()}
+
+    # (a) the analyzer on the card, held against the CPU's artifacts
+    small = cuda_suite.build_suite(1)
+    arts_dev, arts_cpu = [], []
+    for entry in small:
+        for kern in lower_cuda.KERNELS.values():
+            kern.launches = 0
+        (reports, arts), secs = sync_wall(analysis, entry)
+        if any(counts().values()):
+            raise AssertionError(f"kernelcheck {entry.name}: the analysis "
+                                 f"launched {counts()}")
+        arts_dev += arts
+        arts_cpu += analyze.fusion_entry(entry, device="cpu")
+        for report, art in zip(reports, arts, strict=True):
+            if not report.clean:
+                raise AssertionError("\n".join(str(f)
+                                                for f in report.findings))
+            fused = optimize.plan_from_artifact(art).n_fused_pairs
+            print(f"kernelcheck {report.kernel}: clean "
+                  f"stages={art['n_stages']} fused_pairs={fused} "
+                  f"entry={entry.name} seconds={secs}")
+    if analyze.fusion_to_json(arts_dev) != analyze.fusion_to_json(arts_cpu):
+        raise AssertionError("kernelcheck: the card's fusion artifacts "
+                             "differ from the CPU's")
+    summary = analyze.fusion_to_json(arts_dev)["summary"]
+    print(f"kernelcheck fusion_to_json: equal to the cpu's "
+          f"kernels={summary['n_kernels']} "
+          f"adjacent_mergeable={summary['n_adjacent_mergeable']}/"
+          f"{summary['n_adjacent_pairs']}")
+
+    # (b) the optimizer on vector, where its plan is not trivial
+    for entry in small:
+        plans = {a["kernel"]: optimize.plan_from_artifact(a)
+                 for a in arts_dev if a["kernel"] in
+                 {s.kernel.name for s in cuda_suite.entry_steps(entry)}}
+        if all(p.trivial for p in plans.values()):
+            continue
+        kw = dict(args=entry.make_args(np.random.default_rng(SEED)),
+                  with_reference=False, device=dev)
+        want = bits(cuda_suite.run_entry(entry, "vector", **kw)[0])
+        # the first optimized run pays the analysis, outside the turns
+        got = bits(cuda_suite.run_entry(entry, "vector", optimize=True,
+                                        **kw)[0])
+        walls = {None: [], True: []}
+        for turn in range(OPT_TURNS):
+            for opt in ((None, True) if turn % 2 == 0 else (True, None)):
+                (out, _), wall = sync_wall(cuda_suite.run_entry, entry,
+                                           "vector", optimize=opt, **kw)
+                walls[opt].append(wall)
+                if bits(out) != want:
+                    raise AssertionError(f"optimize {entry.name}: bits "
+                                         f"differ (optimize={opt})")
+        if got != want:
+            raise AssertionError(f"optimize {entry.name}: bits differ")
+        stages = " ".join(
+            f"{k}:{p.n_stages}->{p.n_stages - p.n_fused_pairs}"
+            for k, p in plans.items())
+        base_s, opt_s = min(walls[None]), min(walls[True])
+        print(f"optimize {entry.name}: stages={stages} "
+              f"vector_base_s={base_s} vector_opt_s={opt_s} "
+              f"ratio={opt_s / base_s} bits=equal")
+
+    # (c) the Hopper kernels under sanitize=True, optimize=True
+    big = [(n, e, host_args[n]) for n, e in ents.items()
+           if e.chain is None and n not in VARIANTS]
+    chains = [(e.name, e, e.make_args(np.random.default_rng(SEED)))
+              for e in small if e.chain is not None]
+    small_by_name = {e.name: e for e in small}
+    for name, entry, args in big + chains:
+        kernels = [s.kernel.name for s in cuda_suite.entry_steps(entry)]
+        note = "" if entry.chain is None else " scale=1 (a chain)"
+        if entry.chain is None:
+            bufs = carry.from_reference(args, const=entry.const, device=dev)
+            _, probe = sync_wall(
+                analyze.analyze_kernel, entry.kernel, grid=entry.grid,
+                block=entry.block, args=bufs, dyn_shared=entry.dyn_shared,
+                sample_blocks=1)
+            projected = 2 * 3 * probe      # sanitize and optimize, 3 blocks
+            if projected > SANITIZE_BUDGET_S:
+                note = (f" scale=1 (projected {projected} s > "
+                        f"{SANITIZE_BUDGET_S} s)")
+                entry = small_by_name[entry.name]
+                args = entry.make_args(np.random.default_rng(SEED))
+            del bufs
+        plain, _, plain_n = drive(cuda_suite, lower_cuda, entry, args, dev,
+                                  kernels)
+        want = bits(plain)
+        del plain
+        walls, launched = [], []
+        for _ in range(2):
+            for kern in lower_cuda.KERNELS.values():
+                kern.launches = 0
+            if entry.chain is None:
+                bufs = carry.from_reference(args, const=entry.const,
+                                            device=dev)
+                out, wall = sync_wall(
+                    api.launch, entry.kernel, grid=entry.grid,
+                    block=entry.block, args=bufs,
+                    dyn_shared=entry.dyn_shared, backend="cuda",
+                    sanitize=True, optimize=True)
+            else:
+                os.environ["CUPBOP_SANITIZE"] = "1"
+                try:
+                    (out, _), wall = sync_wall(
+                        cuda_suite.run_entry, entry, "cuda", args=args,
+                        with_reference=False, device=dev, optimize=True)
+                finally:
+                    del os.environ["CUPBOP_SANITIZE"]
+            ran = {k: lower_cuda.KERNELS[k].launches for k in kernels}
+            if ran != plain_n:
+                raise AssertionError(f"sanitize+optimize {name}: kernels "
+                                     f"counted {ran}, plain {plain_n}")
+            if bits(out) != want:
+                raise AssertionError(f"sanitize+optimize {name}: bits "
+                                     f"differ from the plain cuda launch")
+            walls.append(wall)
+            launched.append(ran)
+            del out
+        print(f"sanitize_optimize {name}:{note} launches={launched[0]} "
+              f"first_wall_s={walls[0]} memoized_wall_s={walls[1]} "
+              f"bits=equal")
 
 
 def main() -> int:
@@ -1348,6 +1533,9 @@ def main() -> int:
 
     # ---- phase 3d: the frontend's corpus translated, on the card --------
     frontend_phase(dev, cuda_suite, lower_cuda)
+
+    # ---- phase 3e: kernelcheck and the optimizer on the card ------------
+    kernelcheck_phase(dev, cuda_suite, lower_cuda, ents, host_args)
 
     # ---- phase 4: the hot-path kernels at granite-3-2b's widths ---------
     rows.update(hot_phase(hot_host, dev, cuda_suite.matmul_tol))

@@ -21,10 +21,16 @@ stream's heap) and returns the stream.
 :func:`supported` and :func:`coverage` probe a kernel through
 :func:`launch`: a cell and a row of the paper's Table II.
 
+``sanitize=True`` (or ``CUPBOP_SANITIZE=1``) runs kernelcheck
+(:mod:`repro_torch.core.analyze`) on the launch first and raises
+``SanitizerError`` on findings; ``optimize=True`` (or
+``CUPBOP_OPTIMIZE=1``) swaps in the barrier-fission optimizer's derived
+kernel (:mod:`repro_torch.core.optimize`).  An explicit ``False`` wins
+over the environment.
+
 Not yet ported, and refused rather than ignored: the reference's on-disk
 compile cache (``enable_disk_cache``, ``CUPBOP_CACHE_DIR``),
-``launch_batch``, ``sanitize=``/``optimize=`` (and their environment
-switches), and ``devices=``/``shard_axis=``.  Each raises
+``launch_batch``, and ``devices=``/``shard_axis=``.  Each raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
@@ -55,17 +61,13 @@ __all__ = [
 #: options of the reference's launch path that the port does not have yet,
 #: with the ROADMAP item that brings each
 NOT_PORTED = {
-    "sanitize": "ROADMAP 1.9 (kernelcheck)",
-    "optimize": "ROADMAP 1.9 (barrier-fission optimizer)",
     "devices": "ROADMAP 1.12 (shard)",
     "shard_axis": "ROADMAP 1.12 (shard)",
     "disk cache": "ROADMAP 1.8 (compile cache)",
     "launch_batch": "ROADMAP 1.11 (serving)",
 }
 #: the reference's environment switches for the options above
-_NOT_PORTED_ENV = {"CUPBOP_SANITIZE": "sanitize",
-                   "CUPBOP_OPTIMIZE": "optimize",
-                   "CUPBOP_CACHE_DIR": "disk cache"}
+_NOT_PORTED_ENV = {"CUPBOP_CACHE_DIR": "disk cache"}
 
 # The cache lives ON each kernel (a private dict attached to the
 # KernelDef), so entries die with their kernel; the WeakSet enumerates
@@ -212,10 +214,47 @@ def _entry_for(kernel: KernelDef, grid: Dim3, block: Dim3, args: dict,
     return entry, leaves
 
 
+# analyze (and optimize, which imports it) is imported where it is used:
+# it runs as a ``python -m`` gate, which this package's import must not
+# pre-load
+
+
+def _sanitize_enabled(sanitize) -> bool:
+    """Explicit ``sanitize=`` wins; otherwise ``CUPBOP_SANITIZE``."""
+    if sanitize is not None:
+        return bool(sanitize)
+    return os.environ.get("CUPBOP_SANITIZE", "0") not in ("", "0")
+
+
+def _optimize_enabled(optimize) -> bool:
+    """Explicit ``optimize=`` wins; otherwise ``CUPBOP_OPTIMIZE``."""
+    if optimize is not None:
+        return bool(optimize)
+    return os.environ.get("CUPBOP_OPTIMIZE", "0") not in ("", "0")
+
+
+def _optimized(kernel: KernelDef, grid: Dim3, block: Dim3, args: dict,
+               dyn_shared, optimize) -> KernelDef:
+    """The kernel a launch runs: the optimizer's derived kernel (memoized
+    per geometry and shapes) when ``optimize`` resolves true."""
+    if not _optimize_enabled(optimize):
+        return kernel
+    from repro_torch.core import optimize as optimize_mod
+    return optimize_mod.optimize_launch(kernel, grid=grid, block=block,
+                                        args=args, dyn_shared=dyn_shared)
+
+
 def _launch(kernel: KernelDef, grid: Dim3, block: Dim3, args: dict,
             backend: str, grain, dyn_shared, interpret: bool,
-            pool) -> dict:
+            pool, sanitize=None, optimize=None) -> dict:
     _refuse()        # the reference's environment switches
+    if _sanitize_enabled(sanitize):
+        # kernelcheck gate on the BASE kernel (finding stage indices match
+        # the author's source); clean verdicts are memoized on the kernel
+        from repro_torch.core import analyze as analyze_mod
+        analyze_mod.sanitize_launch(kernel, grid=grid, block=block,
+                                    args=args, dyn_shared=dyn_shared)
+    kernel = _optimized(kernel, grid, block, args, dyn_shared, optimize)
     entry, leaves = _entry_for(kernel, grid, block, args, backend, grain,
                                dyn_shared, interpret, pool)
     out = entry(*leaves)
@@ -230,10 +269,14 @@ def compiled(kernel: KernelDef, *, grid, block, args: dict,
              pool: int | None = None, devices=None, shard_axis=None,
              optimize=None) -> CompiledKernel:
     """Resolve (or fetch) the launch specialization without running it:
-    the ``cudaModuleGetFunction`` analogue."""
-    _refuse(devices=devices, shard_axis=shard_axis, optimize=optimize)
-    entry, _ = _entry_for(kernel, Dim3.of(grid), Dim3.of(block), args,
-                          backend, grain, dyn_shared, interpret, pool)
+    the ``cudaModuleGetFunction`` analogue.  ``optimize=True`` resolves
+    the barrier-fission optimizer's derived kernel's specialization
+    instead (its own cache, never the base kernel's)."""
+    _refuse(devices=devices, shard_axis=shard_axis)
+    grid, block = Dim3.of(grid), Dim3.of(block)
+    kernel = _optimized(kernel, grid, block, args, dyn_shared, optimize)
+    entry, _ = _entry_for(kernel, grid, block, args, backend, grain,
+                          dyn_shared, interpret, pool)
     return entry
 
 
@@ -262,6 +305,8 @@ class LaunchConfig:
     grain: int | str = 1
     interpret: bool = True
     pool: int | None = None
+    sanitize: bool | None = None
+    optimize: bool | None = None
 
     @classmethod
     def from_chevron(cls, kernel: KernelDef, config: tuple) -> "LaunchConfig":
@@ -276,9 +321,11 @@ class LaunchConfig:
                    dyn_shared=dyn_shared, stream=stream)
 
     def on(self, **overrides) -> "LaunchConfig":
-        """Re-bind execution options: backend, grain, interpret, pool."""
+        """Re-bind execution options: backend, grain, interpret, pool,
+        sanitize, optimize."""
         _refuse(**{k: v for k, v in overrides.items() if k in NOT_PORTED})
-        allowed = {"backend", "grain", "interpret", "pool"}
+        allowed = {"backend", "grain", "interpret", "pool", "sanitize",
+                   "optimize"}
         bad = set(overrides) - allowed - set(NOT_PORTED)
         if bad:
             raise TypeError(f"LaunchConfig.on() got unexpected options "
@@ -293,11 +340,13 @@ class LaunchConfig:
                 self.kernel, grid=self.grid, block=self.block,
                 backend=self.backend, grain=self.grain,
                 dyn_shared=self.dyn_shared, args=merged or None,
-                interpret=self.interpret, pool=self.pool)
+                interpret=self.interpret, pool=self.pool,
+                optimize=self.optimize)
             return self.stream
         return _launch(self.kernel, self.grid, self.block, merged,
                        self.backend, self.grain, self.dyn_shared,
-                       self.interpret, self.pool)
+                       self.interpret, self.pool, self.sanitize,
+                       self.optimize)
 
 
 def launch(kernel: KernelDef, *, grid, block, args: dict,
@@ -310,12 +359,16 @@ def launch(kernel: KernelDef, *, grid, block, args: dict,
     ``args`` maps global-buffer names to tensors (or ``DeviceBuffer``/
     ``ConstArray`` handles); returns the dict with the kernel's written
     buffers replaced.  ``grain`` may be an int, "average" or "aggressive"
-    (paper SIV-A; ``pool`` = worker count).
+    (paper SIV-A; ``pool`` = worker count).  ``sanitize=True`` (or
+    ``CUPBOP_SANITIZE=1``) runs kernelcheck on the launch first and raises
+    ``SanitizerError`` on findings; ``optimize=True`` (or
+    ``CUPBOP_OPTIMIZE=1``) runs the barrier-fission optimizer's derived
+    kernel - the same bits from fewer stages (on ``cuda``, the same
+    hand-written kernel).
     """
-    _refuse(devices=devices, shard_axis=shard_axis, sanitize=sanitize,
-            optimize=optimize)
+    _refuse(devices=devices, shard_axis=shard_axis)
     return _launch(kernel, Dim3.of(grid), Dim3.of(block), args, backend,
-                   grain, dyn_shared, interpret, pool)
+                   grain, dyn_shared, interpret, pool, sanitize, optimize)
 
 
 def supported(kernel: KernelDef, backend: str, *, grid=4, block=64,

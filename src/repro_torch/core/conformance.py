@@ -16,7 +16,11 @@ under every lowering, and they must agree.
   device, the stop flag polled every k iterations) and a ``graph`` leg
   (iterations captured once and replayed), each bit for bit the same
   backend's host cell outside ``nondeterministic_shard`` and
-  ``iteration_state``.  The kernels with a ``.cu`` source in the
+  ``iteration_state``.  Every kernel, plain or chain, adds an
+  ``optimized`` leg on ``OPTIMIZED_BACKENDS``: the host replay with the
+  barrier-fission optimizer on (``optimize=True``), owing FULL bit
+  identity to the same backend's host cell.  The kernels with a ``.cu``
+  source in the
   frontend's corpus add a ``frontend`` leg on ``FRONTEND_BACKENDS``: the
   source translated by :mod:`repro_torch.frontend` owes FULL bit identity
   to the same backend's hand-written host cell;
@@ -40,8 +44,7 @@ asked for (``run_entry``'s rule).  On the CPU the graph leg runs on
 
 f64 cells run under :func:`repro_torch.x64.enable_x64`.  What the port
 does not have yet makes no cell and is listed in the report's meta under
-``not_ported``: the ``optimized`` leg and the ``shard`` backends with
-their device counts.
+``not_ported``: the ``shard`` backends with their device counts.
 """
 from __future__ import annotations
 
@@ -95,6 +98,14 @@ GRAPH_MODE_BACKENDS = ("loop", "vector")
 #: ... and on a CUDA device, where the capture is a torch.cuda.CUDAGraph
 CARD_GRAPH_MODE_BACKENDS = ("cuda",)
 
+#: backends that sweep the barrier-fission optimizer leg: every kernel
+#: re-runs with ``optimize=True`` and owes FULL bit identity to the same
+#: backend's unoptimized host cell - fusion is pure stage composition, so
+#: any bit drift means the optimizer broke semantics (core/optimize.py).
+#: ``cuda`` keeps its hand-written kernel under ``optimize`` and sweeps no
+#: such cell
+OPTIMIZED_BACKENDS = ("loop", "vector")
+
 #: backends that sweep the CUDA-C frontend leg: kernels with a ``.cu``
 #: corpus source (repro_torch/frontend/corpus) re-run as their
 #: *translated* twin and owe FULL bit-identity to the same backend's
@@ -105,7 +116,6 @@ FRONTEND_BACKENDS = ("loop", "vector")
 
 #: the reference's legs and backends with no port yet, by ROADMAP item
 NOT_PORTED = {
-    "optimized": "ROADMAP 1.9 (barrier-fission optimizer)",
     "shard": "ROADMAP 1.12 (shard)",
     "shard_vector": "ROADMAP 1.12 (shard)",
     "devices": "ROADMAP 1.12 (shard: forced device counts)",
@@ -133,7 +143,9 @@ class Cell:
 
     ``mode`` is the replay axis: ``"host"`` (the per-iteration host-hop
     baseline), ``"device_resident"`` (on-device updates, k-batched stop
-    polls), ``"graph"`` (captured once, replayed), or ``"frontend"`` (the
+    polls), ``"graph"`` (captured once, replayed), ``"optimized"`` (the
+    host replay with the barrier-fission optimizer on, owing full
+    bit-identity to the unoptimized host cell), or ``"frontend"`` (the
     kernel's ``.cu`` corpus source translated by
     :mod:`repro_torch.frontend`, owing full bit-identity to the
     hand-written host cell).  ``devices`` stays
@@ -451,8 +463,10 @@ def _bits(out, exclude: tuple[str, ...] = ()) -> dict[str, bytes]:
             if k not in exclude}
 
 
-#: Cell.mode -> run_entry's chain_mode
-_CHAIN_MODE = {"host": "host", "device_resident": "device", "graph": "graph"}
+#: Cell.mode -> run_entry's chain_mode ("optimized" replays the host path
+#: with the barrier-fission optimizer on)
+_CHAIN_MODE = {"host": "host", "device_resident": "device", "graph": "graph",
+               "optimized": "host"}
 
 
 def run_cell(entry: SuiteEntry, case: ConformanceCase, backend: str,
@@ -470,7 +484,9 @@ def run_cell(entry: SuiteEntry, case: ConformanceCase, backend: str,
         with ctx:
             out, want = run_entry(entry, backend, grain=grain,
                                   chain_mode=_CHAIN_MODE[mode],
-                                  device=device, **geo)
+                                  device=device,
+                                  optimize=True if mode == "optimized"
+                                  else None, **geo)
     except UnsupportedKernel as e:
         cell.status = "unsupport"
         cell.detail = str(e).splitlines()[0]
@@ -505,6 +521,11 @@ def _points(case: ConformanceCase, entries: dict[str, SuiteEntry],
     if base.chain is not None:
         for mode in ("device_resident", "graph"):
             points.append((mode, base_tag, base.grid, base.block, 1, mode))
+    # the barrier-fission leg: every kernel (plain and chain) re-runs with
+    # optimize=True and owes FULL bit identity to the same backend's
+    # unoptimized host cell
+    points.append(("optimized", base_tag, base.grid, base.block, 1,
+                   "optimized"))
     if case.name in FRONTEND_CORPUS:
         # the frontend leg: the kernel's .cu source, translated, owes
         # FULL bit-identity to the hand-written host cell
@@ -564,6 +585,7 @@ def run_matrix(cases: list[ConformanceCase] | None = None,
                      "dtype": DTYPE_BACKENDS,
                      "device_resident": DEVICE_MODE_BACKENDS,
                      "graph": graph_mode_backends(dev),
+                     "optimized": OPTIMIZED_BACKENDS,
                      "frontend": FRONTEND_BACKENDS}
 
     cells: list[Cell] = []
@@ -608,11 +630,13 @@ def run_matrix(cases: list[ConformanceCase] | None = None,
                 if mode != "host":
                     # the replay legs owe the SAME backend's host-hop bits;
                     # stop-poll-cadence scratch (iteration_state) is
-                    # excluded, oracle outputs never
+                    # excluded, oracle outputs never; the optimized leg
+                    # runs the host-hop cadence, so it owes every bit
                     base_bits = host_bits.get(backend)
                     if base_bits is None:
                         continue
-                    skip = (tuple(entry.nondeterministic_shard)
+                    skip = (() if mode == "optimized" else
+                            tuple(entry.nondeterministic_shard)
                             + tuple(entry.iteration_state))
                     got = _bits(out, skip)
                     ref = {k: v for k, v in base_bits.items()

@@ -1211,7 +1211,8 @@ def run_entry(entry: SuiteEntry, backend: str = "loop", *, rng=None,
               block=None, with_reference: bool = True,
               chain_mode: str = "host",
               chain_stats: ChainStats | None = None,
-              check_every: int | None = None, device=None):
+              check_every: int | None = None, device=None,
+              optimize: bool | None = None):
     """Execute a suite entry end to end under one backend.
 
     A plain entry is one launch, at ``grid``/``block`` when given and at
@@ -1232,7 +1233,10 @@ def run_entry(entry: SuiteEntry, backend: str = "loop", *, rng=None,
     ``"graph"`` the graph-captured replay over a
     :class:`~repro_torch.core.streams.Stream` (on the card a
     ``torch.cuda.CUDAGraph``).  A plain entry takes only ``"host"``.
-    ``chain_stats`` collects a chain's replay counters.
+    ``chain_stats`` collects a chain's replay counters.  ``optimize``
+    reaches every launch (a plain entry's, each chain step's, in every
+    ``chain_mode``): ``True`` runs the barrier-fission optimizer's derived
+    kernels.
     """
     if entry.chain is None:
         if chain_mode != "host":
@@ -1251,7 +1255,7 @@ def run_entry(entry: SuiteEntry, backend: str = "loop", *, rng=None,
                                else np.random.default_rng(42))
     want = entry.reference(args) if with_reference else None
     bufs = carry.from_reference(args, const=entry.const, device=device)
-    kw = dict(backend=backend, grain=grain, pool=pool)
+    kw = dict(backend=backend, grain=grain, pool=pool, optimize=optimize)
     if entry.chain is None:
         return launch(entry.kernel,
                       grid=entry.grid if grid is None else grid,

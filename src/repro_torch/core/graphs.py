@@ -184,8 +184,23 @@ class Graph:
     def add_kernel(self, stream, kernel: KernelDef, *, grid, block,
                    backend: str = "vector", grain=1,
                    dyn_shared: int | None = None, interpret: bool = True,
-                   pool: int | None = None) -> GraphNode:
+                   pool: int | None = None,
+                   optimize: bool | None = None) -> GraphNode:
         grid, block = Dim3.of(grid), Dim3.of(block)
+        if api._optimize_enabled(optimize):
+            # barrier fission happens at CAPTURE time: the node stores the
+            # derived kernel, so every replay runs the fused stages.  The
+            # analysis needs concrete buffer values; a kernel whose inputs
+            # are first produced inside the graph (not yet on the heap) is
+            # captured unoptimized rather than analyzed on garbage.
+            needed = set(kernel.writes) | set(
+                kernel.reads if kernel.reads is not None
+                else stream.buffers)
+            if needed <= set(stream.buffers):
+                kernel = api._optimized(
+                    kernel, grid, block,
+                    {n: stream.buffers[n] for n in sorted(needed)},
+                    dyn_shared, True)
         heap_names = set(stream.buffers) | self.written()
         if kernel.reads is not None:
             missing = set(kernel.reads) - heap_names

@@ -17,6 +17,11 @@ array, and torch raises where JAX does not:
 Tuple indices (``score.at[i, j]``, ``s.at[ty + 1, tx + 1]``) follow the
 same rules per axis.  Every function returns a new tensor and leaves its
 input untouched, as JAX's functional updates do.
+
+An array that records its own accesses (kernelcheck's
+:class:`~repro_torch.core.analyze.TrackedArray`) takes part by duck
+typing: ``take`` reaches its ``__getitem__`` with the wrapped and clamped
+index, and ``put`` hands the whole scatter to its ``tracked_put``.
 """
 from __future__ import annotations
 
@@ -44,13 +49,23 @@ def take(arr: torch.Tensor, *idx) -> torch.Tensor:
     return arr[tuple(parts)]
 
 
-def put(arr: torch.Tensor, idx, val, op: str = "set") -> torch.Tensor:
+def put(arr: torch.Tensor, idx, val, op: str = "set", *,
+        drop: bool = True) -> torch.Tensor:
     """``arr.at[idx].<op>(val, mode="drop")`` with JAX scatter rules.
 
     ``idx`` is one index (int or tensor) or a tuple of them; ``op`` is
     ``set``, ``add``, ``max`` or ``min``.  ``val`` broadcasts to the
     indexed shape and is cast to ``arr``'s dtype.
+
+    An out-of-range update is always dropped.  ``drop`` says whether the
+    author asked for that (JAX's ``mode="drop"``, the default here) or
+    wrote a plain ``.at[idx].<op>(val)``; the result is the same, but
+    kernelcheck reports a dropped position of the second kind as an
+    ``oob-write``.
     """
+    tracked_put = getattr(arr, "tracked_put", None)
+    if tracked_put is not None:
+        return tracked_put(idx, val, op, drop=drop)
     parts = idx if isinstance(idx, tuple) else (idx,)
     k = len(parts)
     if k > arr.dim():

@@ -85,10 +85,17 @@ def run_block(kernel: KernelDef, bid: int, *, block, grid, glob,
     chunk = check(kernel, block, allow_fission=allow_fission,
                   allow_warp=allow_warp)
     shared = kernel.init_shared(dyn_shared, _device(glob))
+    # barrier-fission optimizer (core/optimize.py): shared buffers proven
+    # dead after a stage leave the carried state, so later stage loops do
+    # not thread them through
+    drop = dict(getattr(kernel, "drop_shared", ()) or ())
     priv = None
     for si, stage in enumerate(kernel.stages):
         priv, shared, glob = _stage_loop(stage, si, kernel, bid, block, grid,
                                          chunk, priv, shared, glob)
+        dead = drop.get(si)
+        if dead:
+            shared = {n: v for n, v in shared.items() if n not in dead}
     return glob
 
 

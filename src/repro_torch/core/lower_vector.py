@@ -35,9 +35,16 @@ def run_block(kernel: KernelDef, bid: int, *, block, grid, glob,
               tid=torch.arange(block.size, dtype=torch.int32, device=device),
               block_dim=block.size, grid_dim=grid.size, backend="vector",
               uses_warp=True, block_dim3=block, grid_dim3=grid)
+    # barrier-fission optimizer: shared buffers proven dead after a stage
+    # leave the carried state (core/optimize.py drop_shared)
+    drop = dict(getattr(kernel, "drop_shared", ()) or ())
     for si, stage in enumerate(kernel.stages):
         st = stage(ctx, st)
         check_priv_chunk(st.priv, block.size, kernel.name, si)
+        dead = drop.get(si)
+        if dead:
+            st = st._replace(shared={n: v for n, v in st.shared.items()
+                                     if n not in dead})
     return st.glob
 
 

@@ -413,9 +413,12 @@ class Stream:
         land on the heap, and handles bound to buffers the kernel declares
         in ``donates`` are re-bound to the heap's tensor after the launch
         (the CUDA in-place view).
+
+        ``optimize=True`` (or ``CUPBOP_OPTIMIZE=1``) launches the
+        barrier-fission optimizer's derived kernel; under capture the
+        graph node stores it (:meth:`Graph.add_kernel`).
         """
-        api._refuse(devices=devices, shard_axis=shard_axis,
-                    optimize=optimize)
+        api._refuse(devices=devices, shard_axis=shard_axis)
         grid, block = Dim3.of(grid), Dim3.of(block)
         handles = {n: v for n, v in (args or {}).items()
                    if isinstance(v, memory_mod.DeviceBuffer)}
@@ -437,7 +440,7 @@ class Stream:
             self._capture.add_kernel(
                 self, kernel, grid=grid, block=block, backend=backend,
                 grain=grain, dyn_shared=dyn_shared, interpret=interpret,
-                pool=pool)
+                pool=pool, optimize=optimize)
             return
         if args:
             missing = [n for n in args if n not in self.buffers]
@@ -459,7 +462,7 @@ class Stream:
             new = api.launch(kernel, grid=grid, block=block, args=buf_args,
                              backend=backend, grain=grain,
                              dyn_shared=dyn_shared, interpret=interpret,
-                             pool=pool)
+                             pool=pool, optimize=optimize)
             graphs_mod.write_back(self.buffers,
                                   {n: new[n] for n in kernel.writes})
         memory_mod.rebind_outputs(kernel, handles,

@@ -514,7 +514,12 @@ class _Translator:
                                f"subset (use = / += / -=)")
         if self.mask is not None:
             idx = f"_rt.where(ctx, {self.mask}, {idx}, {OOB})"
-        self.emit(f'{buf} = _put({buf}, {idx}, {args}, "{op}")')
+            self.emit(f'{buf} = _put({buf}, {idx}, {args}, "{op}")')
+        else:
+            # an unmasked store asks for no drop (JAX's plain .at[i]):
+            # kernelcheck reports its out-of-range positions
+            self.emit(f'{buf} = _put({buf}, {idx}, {args}, "{op}", '
+                      f'drop=False)')
         if is_shared:
             self.stage_shared_written.add(buf)
         else:

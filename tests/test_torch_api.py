@@ -141,11 +141,9 @@ def test_grain_policies_give_the_same_result():
 
 
 @pytest.mark.parametrize("call", [
-    lambda k, a: api.launch(k, grid=1, block=32, args=a, sanitize=True),
-    lambda k, a: api.launch(k, grid=1, block=32, args=a, optimize=True),
     lambda k, a: api.launch(k, grid=1, block=32, args=a, devices=2),
     lambda k, a: api.compiled(k, grid=1, block=32, args=a, shard_axis="x"),
-    lambda k, a: k[1, 32].on(optimize=False)(a),
+    lambda k, a: k[1, 32].on(shard_axis="x")(a),
     lambda k, a: api.launch_batch(k, grid=1, block=32, args_list=[a]),
     lambda k, a: api.enable_disk_cache("/nonexistent")])
 def test_options_not_ported_yet_raise(call):
@@ -153,13 +151,109 @@ def test_options_not_ported_yet_raise(call):
         call(_add_one(), {"x": torch.zeros(32, dtype=torch.int32)})
 
 
-@pytest.mark.parametrize("var", ["CUPBOP_SANITIZE", "CUPBOP_OPTIMIZE",
-                                 "CUPBOP_CACHE_DIR"])
+@pytest.mark.parametrize("var", ["CUPBOP_CACHE_DIR"])
 def test_reference_environment_switches_are_refused(monkeypatch, var):
     monkeypatch.setenv(var, "1")
     k = _add_one()
     with pytest.raises(NotImplementedError, match=var):
         k[1, 32](x=torch.zeros(32, dtype=torch.int32))
+
+
+def _fusable():
+    """Two stages that touch only their own thread's elements: kernelcheck
+    proves the barrier between them removable."""
+    from repro_torch.core import index
+
+    def double(ctx, st):
+        gid = ctx.bid * ctx.block_dim + ctx.tid
+        y = index.put(st.glob["y"], gid, index.take(st.glob["x"], gid) * 2)
+        return st.set_glob(y=y)
+
+    def bump(ctx, st):
+        gid = ctx.bid * ctx.block_dim + ctx.tid
+        y = st.glob["y"]
+        return st.set_glob(y=index.put(y, gid, index.take(y, gid) + 1))
+
+    return KernelDef("fusable", (double, bump), writes=("y",),
+                     reads=("x", "y"))
+
+
+def _surface(how: str, k, args: dict, **opts) -> dict:
+    """One launch of ``k`` over ``args`` (grid 2 x 32) through ``how``."""
+    from repro_torch.core.streams import Stream
+
+    if how == "launch":
+        return api.launch(k, grid=2, block=32, args=args, **opts)
+    if how == "chevrons":
+        return k[2, 32].on(**opts)(args)
+    if how == "compiled":
+        entry = api.compiled(k, grid=2, block=32, args=args, **opts)
+        leaves, _ = packing.pack(args)
+        return entry(*leaves)
+    s = Stream(dict(args))
+    if how == "stream":
+        s.launch(k, grid=2, block=32, **opts)
+    else:                                   # a graph captured, replayed
+        s.begin_capture()
+        s.launch(k, grid=2, block=32, **opts)
+        s.end_capture().instantiate(s.buffers).launch(s)
+    s.synchronize()
+    return dict(s.buffers)
+
+
+SURFACES = ("launch", "chevrons", "compiled", "stream", "graph")
+
+
+@pytest.mark.parametrize("how", SURFACES)
+def test_optimize_on_every_launch_surface(how, monkeypatch):
+    """``optimize=True`` (and ``CUPBOP_OPTIMIZE=1``) swap in the derived
+    kernel on launch, the chevrons, compiled, Stream.launch and a graph's
+    capture; the bits are the base kernel's."""
+    from repro_torch.core.optimize import OptimizedKernel
+
+    args = {"x": torch.arange(64.0), "y": torch.zeros(64)}
+    want = _surface(how, _fusable(), args)["y"]
+    assert want.tolist() == [2.0 * i + 1 for i in range(64)]
+    for opts, env in (({"optimize": True}, None), ({}, "1")):
+        k = _fusable()
+        if env:
+            monkeypatch.setenv("CUPBOP_OPTIMIZE", env)
+        got = _surface(how, k, args, **opts)["y"]
+        assert torch.equal(got, want)
+        derived = list(getattr(k, "_optimize_derived", {}).values())
+        assert len(derived) == 1 and isinstance(derived[0], OptimizedKernel)
+        assert len(derived[0].stages) == 1
+    k = _fusable()
+    _surface(how, k, args, optimize=False)
+    assert not getattr(k, "_optimize_derived", {})
+
+
+@pytest.mark.parametrize("how", ["launch", "chevrons"])
+def test_sanitize_on_the_launch_surfaces(how, monkeypatch):
+    from repro_torch.core.analyze import SanitizerError, planted_race
+
+    kernel, _, _, args = planted_race()
+    for opts, env in (({"sanitize": True}, None), ({}, "1")):
+        if env:
+            monkeypatch.setenv("CUPBOP_SANITIZE", env)
+        with pytest.raises(SanitizerError, match="shared-race"):
+            _surface(how, kernel, args, **opts)
+    _surface(how, kernel, args, sanitize=False)
+
+
+def test_graph_captures_unoptimized_where_inputs_are_not_yet_on_the_heap():
+    from repro_torch.core.streams import Stream
+
+    s = Stream({"x": torch.arange(64.0)})
+    graph = s.begin_capture()
+    s.memcpy_h2d("y", np.zeros(64, np.float32))   # y comes from the graph
+    s.launch(_fusable(), grid=2, block=32, optimize=True)
+    s.end_capture()
+    (node,) = [n for n in graph.nodes if n.kind == "kernel"]
+    assert len(node.kernel.stages) == 2
+    graph.instantiate(s.buffers).launch(s)
+    s.synchronize()
+    assert s.buffers["y"].tolist() == [2.0 * i + 1 for i in range(64)]
 
 
 def test_chevrons_validate_their_slots():

@@ -225,14 +225,16 @@ def test_chain_cases_grow_mode_cells():
     """A chain case sweeps device_resident cells on loop, vector and cuda
     and graph cells on loop and vector (the CPU's graph backends), each
     bit-anchored on the same backend's host-hop run; bfs, a corpus kernel
-    of the frontend, adds its frontend cells on loop and vector."""
+    of the frontend, adds its frontend cells on loop and vector, and, as
+    every kernel, its optimized cells there."""
     rep = run_matrix(cases=[CASES["bfs_frontier"]],
                      backends=("loop", "vector", "cuda"), variants=True,
                      device=CPU)
     by_mode = {}
     for c in rep.cells:
         by_mode.setdefault(c.mode, []).append(c)
-    assert set(by_mode) == {"host", "device_resident", "graph", "frontend"}
+    assert set(by_mode) == {"host", "device_resident", "graph", "frontend",
+                            "optimized"}
     assert not rep.disagreements
     assert {c.backend for c in by_mode["device_resident"]} == {
         "loop", "vector", "cuda"}
@@ -240,7 +242,9 @@ def test_chain_cases_grow_mode_cells():
         conformance.GRAPH_MODE_BACKENDS)
     assert {c.backend for c in by_mode["frontend"]} == set(
         conformance.FRONTEND_BACKENDS)
-    for mode in ("device_resident", "graph", "frontend"):
+    assert [c.backend for c in by_mode["optimized"]] == list(
+        conformance.OPTIMIZED_BACKENDS)
+    for mode in ("device_resident", "graph", "frontend", "optimized"):
         for c in by_mode[mode]:
             assert c.anchor == f"{c.backend}/host"
             assert c.bit_required and c.bit_identical, c.label()
@@ -250,11 +254,13 @@ def test_chain_cases_grow_mode_cells():
 
 
 def test_single_launch_cases_have_no_replay_mode_cells():
-    # vecadd's one cell of another mode is its frontend twin's, on vector
+    # vecadd's cells of other modes are its optimized run and its
+    # frontend twin's, on vector; cuda sweeps neither
     rep = run_matrix(cases=[CASES["vecadd"]], backends=("vector", "cuda"),
                      variants=True, device=CPU)
-    assert {c.mode for c in rep.cells} == {"host", "frontend"}
-    assert [c.backend for c in rep.cells if c.mode != "host"] == ["vector"]
+    assert {c.mode for c in rep.cells} == {"host", "optimized", "frontend"}
+    assert [(c.backend, c.mode) for c in rep.cells if c.mode != "host"] == [
+        ("vector", "optimized"), ("vector", "frontend")]
     assert rep.legs() == {"device_resident": [], "graph": []}
 
 
@@ -270,7 +276,8 @@ def test_mode_axis_in_matrix_json():
                      variants=True, device=CPU)
     js = report_to_json(rep)
     modes = {c["mode"] for c in js["cells"]}
-    assert modes == {"host", "device_resident", "graph", "frontend"}
+    assert modes == {"host", "device_resident", "graph", "optimized",
+                     "frontend"}
     labeled = [c for c in rep.cells if c.mode == "graph"]
     assert labeled and "mode=graph" in labeled[0].label()
 
@@ -330,20 +337,20 @@ def test_matrix_report_structure():
 
 
 def test_not_ported_legs_are_listed_and_make_no_cell():
-    # the frontend leg is ported (ROADMAP 1.10): pathfinder, a corpus
-    # kernel, makes its cell; only the optimizer and shard stay listed
+    # the frontend leg (ROADMAP 1.10) and the optimized leg (ROADMAP 1.9)
+    # are ported: pathfinder, a corpus kernel, makes a cell of each; only
+    # the shard backends stay listed
     rep = run_matrix(cases=[CASES["pathfinder"]], backends=("vector",),
                      variants=True, device=CPU)
     meta = report_to_json(rep)["meta"]
     assert meta["not_ported"] == NOT_PORTED
-    assert set(NOT_PORTED) == {"optimized", "shard", "shard_vector",
-                               "devices"}
-    assert NOT_PORTED["optimized"].startswith("ROADMAP 1.9")
+    assert set(NOT_PORTED) == {"shard", "shard_vector", "devices"}
     for name in ("shard", "shard_vector", "devices"):
         assert NOT_PORTED[name].startswith("ROADMAP 1.12")
-    assert "optimized" not in {c.mode for c in rep.cells}
-    (front,) = [c for c in rep.cells if c.mode == "frontend"]
-    assert front.status == "pass" and front.bit_identical
+    for mode in ("frontend", "optimized"):
+        (cell,) = [c for c in rep.cells if c.mode == mode]
+        assert cell.status == "pass" and cell.bit_identical
+        assert cell.anchor == "vector/host" and cell.bit_required
     assert not {"shard", "shard_vector"} & set(backend_names())
 
 
@@ -351,15 +358,19 @@ def test_not_ported_legs_are_listed_and_make_no_cell():
 def test_frontend_leg_covers_the_corpus_on_loop_and_vector():
     """Each corpus kernel's translated twin makes one cell per backend of
     FRONTEND_BACKENDS, which cuda is not in (it refuses a translated
-    kernel); the full CPU matrix over the five backends has 331 cells."""
+    kernel), and every kernel an optimized cell per backend of
+    OPTIMIZED_BACKENDS; the full CPU matrix over the five backends has
+    377 cells, 46 of them optimized."""
     assert conformance.FRONTEND_BACKENDS == ("loop", "vector")
+    assert conformance.OPTIMIZED_BACKENDS == ("loop", "vector")
     axis = {"grain": conformance.VARIANT_BACKENDS,
             "geometry": conformance.GEOMETRY_BACKENDS,
             "dtype": conformance.DTYPE_BACKENDS,
             "device_resident": conformance.DEVICE_MODE_BACKENDS,
             "graph": conformance.graph_mode_backends(CPU),
+            "optimized": conformance.OPTIMIZED_BACKENDS,
             "frontend": conformance.FRONTEND_BACKENDS}
-    cells, front = 0, set()
+    cells, front, optimized = 0, set(), set()
     for case in CASES.values():
         entries = {tag: case.make(tag) for tag in case.dtypes}
         for p in conformance._points(case, entries, variants=True):
@@ -368,9 +379,12 @@ def test_frontend_leg_covers_the_corpus_on_loop_and_vector():
                     cells += 1
                     if p[0] == "frontend":
                         front.add((case.name, b))
+                    if p[0] == "optimized":
+                        optimized.add((case.name, b))
     assert front == {(n, b) for n in conformance.FRONTEND_CORPUS
                      for b in ("loop", "vector")}
-    assert cells == 331
+    assert optimized == {(n, b) for n in CASES for b in ("loop", "vector")}
+    assert cells == 377
 
 
 def test_frontend_cell_detects_a_mistranslation(monkeypatch):

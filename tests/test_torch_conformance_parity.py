@@ -21,7 +21,15 @@ through their own ``run_entry``:
   scan_block and needle_nw at grains 1 and 3 on ``loop`` against the
   reference's ``loop``;
 * in ``tests/test_torch_coverage_parity.py``, ``api.supported`` /
-  ``api.coverage`` against the reference's.
+  ``api.coverage`` against the reference's;
+* here too, every case's ``optimized`` point on ``vector`` (the host
+  replay with the barrier-fission optimizer on) against the reference's
+  ``optimized`` cell on its ``vector``, except softmax_row's and
+  srad_step's: the reference's optimizer cannot analyze those two under
+  this JAX (``OPTIMIZED_CAVEAT``, ROADMAP "Reference caveats"), and the
+  port's runs of them are held by their own bit identity in
+  ``tests/test_torch_analyze_parity.py``, ``tests/test_torch_optimize.py``
+  and ``tests/test_torch_optimize_chains.py``.
 
 The chains file shares this one's helpers; the split keeps each file
 under a minute and a half of CPU time.
@@ -50,6 +58,13 @@ FRONTEND_CORPUS = conformance.FRONTEND_CORPUS
 JCASES = {c.name: c for c in jconf.build_cases()}
 #: chains whose buffers hold integer values in every dtype variant
 INTEGER_VALUED = ("pathfinder", "needle_nw")
+#: cases whose optimized cell the reference cannot run under this JAX
+OPTIMIZED_CAVEAT = {
+    "softmax_row": "the reference's analyzer hits __jax_array__, which "
+                   "JAX 0.9 refuses during abstractification",
+    "srad_step": "the reference's analyzer hits __jax_array__, which "
+                 "JAX 0.9 refuses during abstractification",
+}
 
 
 def _points(name: str) -> list[tuple]:
@@ -78,7 +93,8 @@ def _reference(name, backend, tag, grid, block, grain, mode):
         try:
             out, want = jsuite.run_entry(entry, backend, grain=grain,
                                          chain_mode=jconf._CHAIN_MODE[mode],
-                                         **geo)
+                                         optimize=True if mode == "optimized"
+                                         else None, **geo)
         except JUnsupportedKernel:
             return "unsupport", None
         out = {k: np.asarray(v) for k, v in out.items()}
@@ -118,10 +134,21 @@ def test_cuda_base_point_agrees_with_the_reference_pallas(point):
     _check(point, "cuda", "pallas")
 
 
+OPTIMIZED_POINTS = [(name, *p) for name in CASES for p in _points(name)
+                    if p[-1] == "optimized" and name not in OPTIMIZED_CAVEAT]
+
+
+@pytest.mark.parametrize("point", OPTIMIZED_POINTS, ids=_id)
+def test_optimized_point_agrees_with_the_reference(point):
+    _check(point, "vector", "vector")
+
+
 def test_the_points_are_the_reference_matrix_points():
-    """The port sweeps the reference's geometry, dtype and grain points
-    and its frontend leg (the reference adds its optimized leg, not
-    ported)."""
+    """The port sweeps the reference's geometry, dtype and grain points,
+    its optimized leg (one point a case, at the base geometry, on the
+    reference's backends) and its frontend leg."""
+    assert jconf.OPTIMIZED_BACKENDS == conformance.OPTIMIZED_BACKENDS
+    assert len(OPTIMIZED_POINTS) + len(OPTIMIZED_CAVEAT) == len(CASES)
     assert list(CASES) == list(JCASES)
     for name, case in CASES.items():
         jcase = JCASES[name]
@@ -135,6 +162,9 @@ def test_the_points_are_the_reference_matrix_points():
                 assert grid in jconf.grid_variants(base.grid)
             if tag != jcase.dtypes[0]:
                 assert grid == entry.grid
+            if mode == "optimized":
+                assert (tag, grid, grain) == (jcase.dtypes[0], base.grid, 1)
+        assert [p[-1] for p in _points(name)].count("optimized") == 1
 
 
 @pytest.mark.parametrize("backend", conformance.FRONTEND_BACKENDS)

@@ -118,6 +118,36 @@ def test_conformance_and_the_coverage_scripts_stand_alone():
     assert res.stdout.strip().endswith("ok")
 
 
+def test_kernelcheck_and_the_optimizer_stand_alone():
+    # analyze.py and optimize.py are scanned above, and analyze, gate,
+    # plan and launch with JAX and the reference blocked
+    scanned = {p.relative_to(PORT).as_posix() for p in FILES
+               if PORT in p.parents}
+    assert {"core/analyze.py", "core/optimize.py"} <= scanned
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "from repro_torch.core import analyze, cuda_suite, optimize\n"
+        "assert analyze.main(['--kernels', 'pixel_pipeline,softmax_row',\n"
+        "                     '--device', 'cpu']) == 0\n"
+        "assert analyze.main(['--kernels', 'vecadd', '--inject-race',\n"
+        "                     '--device', 'cpu']) == 1\n"
+        "e = cuda_suite.entry_pixel_pipeline()\n"
+        "out, _ = cuda_suite.run_entry(e, 'vector', device='cpu',\n"
+        "                              optimize=True)\n"
+        "derived = list(e.kernel._optimize_derived.values())\n"
+        "assert isinstance(derived[0], optimize.OptimizedKernel)\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n")
+    env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 #: the frontend's modules (the reference's ``repro.frontend``, copied or
 #: translated to torch), the gate's ``__main__`` among them
 FRONTEND = ("frontend/__init__.py", "frontend/__main__.py",
