@@ -144,6 +144,21 @@ Phases, each printing its own lines:
    whose analysis, projected from one analysed block, would pass
    ``SANITIZE_BUDGET_S`` runs at ``build_suite(1)``'s size, and its line
    says so;
+3f. the serving tier and the on-disk compile cache
+   (``repro_torch.serve``, ``repro_torch.core.compile_cache``): (a) a
+   ``KernelService`` on ``cuda`` over the sixteen single launches of
+   ``SIZES``, ``SERVE_ROWS`` input sets an endpoint queued twice before
+   the worker starts, every result bit for bit its independent launch and
+   its set's oracle, every request in a full batch, each kernel's count
+   grown by its rows (a ``serve cuda <entry>`` line each: dispatches,
+   p50/p99 latency, a warm batch's and a plain launch's wall a request;
+   then ``serve stats`` with ``ServiceStats.to_json()``); (b)
+   ``launch_batch`` on ``vector`` for vecadd, softmax_row and
+   reduce_shared, bit for bit their launches; (c) the single launches of
+   ``build_suite(1)`` on ``cuda`` with the disk cache on, then the same
+   in a fresh interpreter (this script with ``--disk-child``) over that
+   cache with an empty build directory: every launch a disk hit, no
+   nvcc, no build time, the same bits (a ``disk_cache`` line);
 4. the hot-path kernels (matmul, rmsnorm, flash attention) at
    granite-3-2b's widths (``HOT``): each call goes through
    ``repro_torch.kernels.ops.<fn>`` with tensors on the card and
@@ -184,6 +199,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -289,6 +305,10 @@ FRONTEND_BUDGET_S = 30.0
 #: base and optimized vector runs whose best is kept
 SANITIZE_BUDGET_S = 30.0
 OPT_TURNS = 3
+#: phase 3f: the distinct input sets (and the batch) an endpoint, and
+#: the turns whose best wall is kept
+SERVE_ROWS = 8
+SERVE_TURNS = 3
 
 #: the conformance phase's backends on the card (phase 3c); the loop
 #: family stays off it: a pass takes 96 s on a CPU and would be
@@ -1153,6 +1173,16 @@ def frontend_phase(dev, cuda_suite, lower_cuda) -> None:
               f"vector_launches={st.launches} bits=equal")
 
 
+def sync_wall(fn, *args, **kw):
+    """``fn(*args, **kw)`` and its wall time, the card synchronised at
+    both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def kernelcheck_phase(dev, cuda_suite, lower_cuda, ents, host_args) -> None:
     """Phase 3e: kernelcheck and the barrier-fission optimizer on the card.
 
@@ -1172,13 +1202,6 @@ def kernelcheck_phase(dev, cuda_suite, lower_cuda, ents, host_args) -> None:
     Raises on any finding, disagreement or kernel left unlaunched."""
     from repro_torch import carry
     from repro_torch.core import analyze, api, optimize
-
-    def sync_wall(fn, *args, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
 
     def analysis(entry):
         return (analyze.analyze_entry(entry, device=dev),
@@ -1310,6 +1333,263 @@ def kernelcheck_phase(dev, cuda_suite, lower_cuda, ents, host_args) -> None:
         print(f"sanitize_optimize {name}:{note} launches={launched[0]} "
               f"first_wall_s={walls[0]} memoized_wall_s={walls[1]} "
               f"bits=equal")
+
+
+def serve_phase(dev, cuda_suite, lower_cuda, ents, host_args, wants,
+                build_seconds: float) -> None:
+    """Phase 3f: the serving tier and the on-disk compile cache.
+
+    (a) a ``KernelService`` on ``cuda`` over the sixteen single-launch
+    entries of ``SIZES``: ``SERVE_ROWS`` distinct input sets an endpoint
+    (the first phase 3's, set ``i`` drawn from a generator seeded with
+    ``[SEED, i]``), queued as two waves of one request each (the second
+    wave in the other order) before the worker starts.  Each set's
+    independent ``api.launch`` on ``cuda`` is held against the oracle as
+    in phase 3; every served result must be bit for bit its set's
+    independent launch; no request may fail or fall through to a single
+    dispatch, every dispatch must hold ``SERVE_ROWS`` requests, and each
+    kernel's launch count must grow by its rows.  A ``serve cuda`` line
+    an endpoint gives its dispatches, p50/p99 latency, and the wall a
+    request of a warm batch entry (the rows' launches back to back) beside
+    that of one plain ``api.launch`` on the same stream, best of
+    ``SERVE_TURNS``; then the service's ``stats.to_json()`` with the wall
+    of the 256 requests and of making the inputs (the new sets drawn,
+    their oracles run and copied to the card on a thread a core).
+    (b) ``launch_batch`` on ``vector`` at ``build_suite(1)`` for vecadd,
+    softmax_row and reduce_shared, each row bit for bit its independent
+    ``vector`` launch.
+    (c) the disk cache across a process boundary: this process stores a
+    record for each single-launch entry of ``build_suite(1)`` on ``cuda``
+    (and the library), then a fresh interpreter (this script with
+    ``--disk-child``) with ``CUPBOP_CACHE_DIR`` set and an empty build
+    directory of its own relaunches them: every launch a disk hit, no
+    nvcc (its ``_nvcc`` raises), no build time, every buffer the bits
+    this process wrote.  A ``disk_cache`` line gives the counts, this
+    process's build seconds and the child's first-launch wall."""
+    import shutil
+    import tempfile
+
+    from repro_torch import carry
+    from repro_torch.core import _native, api
+    from repro_torch.serve import KernelService
+
+    t_phase = time.perf_counter()
+    # (a) the service on cuda at the main path's sizes; the host's draws,
+    # oracles and copies of the new input sets run on a thread each core
+    names = [n for n, e in ents.items()
+             if e.chain is None and n not in VARIANTS]
+
+    def draw(n, i):
+        host = ents[n].make_args(np.random.default_rng([SEED, i]))
+        want = ents[n].reference(host)
+        return carry.from_reference(host, const=ents[n].const,
+                                    device=dev), want
+
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        drawn = {(n, i): pool.submit(draw, n, i) for n in names
+                 for i in range(1, SERVE_ROWS)}
+        drawn = {k: f.result() for k, f in drawn.items()}
+    bufs = {n: [carry.from_reference(host_args[n], const=ents[n].const,
+                                     device=dev)]
+            + [drawn[n, i][0] for i in range(1, SERVE_ROWS)] for n in names}
+    oracle = {(n, 0): wants[n] for n in names}
+    oracle.update((k, want) for k, (_, want) in drawn.items())
+    del drawn
+    inputs_s = time.perf_counter() - t_phase
+
+    def single(n, b):
+        e = ents[n]
+        return api.launch(e.kernel, grid=e.grid, block=e.block, args=b,
+                          dyn_shared=e.dyn_shared, backend="cuda")
+
+    def singles(n, rows):
+        return [single(n, b) for b in rows]
+
+    solo = {n: singles(n, bufs[n]) for n in names}
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        for f in [pool.submit(check_oracle, n, ents[n], solo[n][i],
+                              oracle[n, i])
+                  for n in names for i in range(SERVE_ROWS)]:
+            f.result()
+    del oracle
+    waves = (range(SERVE_ROWS), range(SERVE_ROWS - 1, -1, -1))
+    svc = KernelService(backend="cuda", max_batch=SERVE_ROWS,
+                        autostart=False, device=dev,
+                        max_queue=2 * SERVE_ROWS * len(names),
+                        default_timeout_s=600.0)
+    try:
+        for n in names:
+            svc.register_entry(ents[n])
+        tickets = [(n, i, svc.submit(n, bufs[n][i]))
+                   for wave in waves for n in names for i in wave]
+        for kern in lower_cuda.KERNELS.values():
+            kern.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.start()
+        served = [(n, i, t.result(timeout=600)) for n, i, t in tickets]
+        serve_s = time.perf_counter() - t0
+        counts = {k: v.launches for k, v in lower_cuda.KERNELS.items()}
+    finally:
+        svc.close()
+    stats = svc.stats()
+    if stats.failed or stats.completed != len(tickets):
+        raise AssertionError(f"serve: {stats.failed} failed, "
+                             f"{stats.completed} of {len(tickets)} done")
+    if stats.batched_requests != len(tickets) or \
+            set(stats.batch_occupancy) != {SERVE_ROWS}:
+        raise AssertionError(
+            f"serve: {stats.batched_requests} of {len(tickets)} requests "
+            f"batched, occupancy {stats.batch_occupancy}: a batch fell "
+            f"through to single dispatches")
+    for n in names:
+        kname = lower_cuda.kernel_for(ents[n].kernel).name
+        ran = counts.pop(kname)
+        if ran != 2 * SERVE_ROWS:
+            raise AssertionError(f"serve {n}: {kname} launched {ran} "
+                                 f"times, its rows {2 * SERVE_ROWS}")
+    if any(counts.values()):
+        raise AssertionError(f"serve: other kernels launched: {counts}")
+    for n, i, out in served:
+        for k in ents[n].kernel.writes:
+            if not torch.equal(out[k], solo[n][i][k]):
+                raise AssertionError(f"serve {n}: request {i}'s {k} is not "
+                                     f"its independent launch's bits")
+    del served, tickets
+    for n in names:
+        e, rows = ents[n], bufs[n]
+        batch_s = min(sync_wall(
+            api.launch_batch, e.kernel, grid=e.grid, block=e.block,
+            args_list=rows, dyn_shared=e.dyn_shared, backend="cuda")[1]
+            for _ in range(SERVE_TURNS))
+        plain_s = min(sync_wall(singles, n, rows)[1]
+                      for _ in range(SERVE_TURNS))
+        lat = stats.kernels[n]
+        print(f"serve cuda {n}: dispatches=2 rows={SERVE_ROWS} "
+              f"p50_ms={lat['p50_ms']} p99_ms={lat['p99_ms']} "
+              f"batch_ms_per_request={batch_s / SERVE_ROWS * 1e3} "
+              f"single_ms_per_request={plain_s / SERVE_ROWS * 1e3} "
+              f"ratio={batch_s / plain_s} bits=equal oracle=match")
+    print(f"serve stats: requests={len(waves) * SERVE_ROWS * len(names)} "
+          f"wall_s={serve_s} inputs_s={inputs_s} " + json.dumps(
+              stats.to_json()))
+    del bufs, solo
+    api.cache_clear()
+    torch.cuda.empty_cache()
+
+    # (b) launch_batch on vector, rows bit for bit their launches
+    for e in cuda_suite.build_suite(1):
+        if e.name not in ("vecadd", "softmax_row", "reduce_shared"):
+            continue
+        brng = np.random.default_rng(SEED)
+        rows = [carry.from_reference(e.make_args(brng), device=dev)
+                for _ in range(4)]
+        kw = dict(grid=e.grid, block=e.block, dyn_shared=e.dyn_shared,
+                  backend="vector")
+        got, batch_s = sync_wall(api.launch_batch, e.kernel,
+                                 args_list=rows, **kw)
+        for a, out in zip(rows, got):
+            want = api.launch(e.kernel, args=a, **kw)
+            for k in e.kernel.writes:
+                if not torch.equal(out[k], want[k]):
+                    raise AssertionError(f"launch_batch vector {e.name}: "
+                                         f"{k} differs from its launch")
+        print(f"launch_batch vector {e.name}: rows=4 wall_s={batch_s} "
+              f"bits=equal")
+
+    # (c) the disk cache across a process boundary
+    tmp = Path(tempfile.mkdtemp(prefix="cupbop_cache_"))
+    try:
+        api.cache_clear()
+        api.enable_disk_cache(str(tmp / "cache"))
+        saved = {}
+        try:
+            for e in cuda_suite.build_suite(1):
+                if e.chain is not None:
+                    continue
+                args = carry.from_reference(
+                    e.make_args(np.random.default_rng(SEED)), const=e.const,
+                    device=dev)
+                out = api.launch(e.kernel, grid=e.grid, block=e.block,
+                                 args=args, dyn_shared=e.dyn_shared,
+                                 backend="cuda")
+                saved.update((f"{e.name}/{k}", to_numpy(out[k]))
+                             for k in e.kernel.writes)
+            stored = api.cache_stats()
+        finally:
+            api.disable_disk_cache()
+            api.cache_clear()
+        lib = _native.library().path
+        if stored.disk_stores != stored.misses or \
+                stored.disk_stores != len(names):
+            raise AssertionError(f"disk_cache: {stored}, {len(names)} "
+                                 f"specializations")
+        if (tmp / "cache" / lib.name).read_bytes() != lib.read_bytes():
+            raise AssertionError("disk_cache: the library was not copied")
+        np.savez(tmp / "bits.npz", **saved)
+        env = {**os.environ, "CUPBOP_CACHE_DIR": str(tmp / "cache")}
+        res = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--disk-child",
+             str(tmp / "bits.npz"), str(stored.disk_stores)],
+            env=env, capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            raise AssertionError(f"disk_cache child failed:\n{res.stdout}"
+                                 f"{res.stderr}")
+        child = json.loads(res.stdout.strip().splitlines()[-1])
+        print(f"disk_cache: stores={stored.disk_stores} "
+              f"hits={child['disk_hits']} child_misses={child['misses']} "
+              f"parent_build_s={build_seconds} "
+              f"child_build_s={child['build_seconds']} "
+              f"child_first_launch_s={child['first_launch_s']} "
+              f"child_library={Path(child['library']).name} nvcc=none "
+              f"bits=equal")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 3f: seconds={time.perf_counter() - t_phase}")
+
+
+def disk_child(npz: str, stores: int) -> int:
+    """Phase 3f (c)'s fresh process: with ``CUPBOP_CACHE_DIR`` set by the
+    parent and an empty build directory of its own, relaunch the
+    single-launch entries of ``build_suite(1)`` on ``cuda``; any nvcc run
+    raises.  Prints one JSON line; raises on any disagreement."""
+    import tempfile
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch import carry
+    from repro_torch.core import _native, api, cuda_suite
+
+    _native.BUILD_DIR = Path(tempfile.mkdtemp(prefix="cupbop_build_"))
+
+    def no_nvcc():
+        raise AssertionError("nvcc ran in the child")
+    _native._nvcc = no_nvcc
+    saved = np.load(npz)
+    dev = torch.device("cuda")
+    torch.zeros(1, device=dev)          # the context, outside the wall
+    first = None
+    for e in cuda_suite.build_suite(1):
+        if e.chain is not None:
+            continue
+        args = carry.from_reference(e.make_args(np.random.default_rng(SEED)),
+                                    const=e.const, device=dev)
+        out, wall = sync_wall(api.launch, e.kernel, grid=e.grid,
+                              block=e.block, args=args,
+                              dyn_shared=e.dyn_shared, backend="cuda")
+        first = wall if first is None else first
+        for k in e.kernel.writes:
+            if not np.array_equal(to_numpy(out[k]), saved[f"{e.name}/{k}"]):
+                raise AssertionError(f"disk child {e.name}: {k} differs")
+    s, lib = api.cache_stats(), _native.library()
+    if (s.disk_hits, s.misses, s.disk_stores) != (stores, stores, 0) or \
+            lib.build_seconds != 0 or \
+            lib.path.parent != Path(api._DISK.path):
+        raise AssertionError(f"disk child: {s}, library {lib.path} built "
+                             f"in {lib.build_seconds} s")
+    print(json.dumps({"disk_hits": s.disk_hits, "misses": s.misses,
+                      "build_seconds": lib.build_seconds,
+                      "first_launch_s": first, "library": str(lib.path)}))
+    return 0
 
 
 def main() -> int:
@@ -1537,6 +1817,10 @@ def main() -> int:
     # ---- phase 3e: kernelcheck and the optimizer on the card ------------
     kernelcheck_phase(dev, cuda_suite, lower_cuda, ents, host_args)
 
+    # ---- phase 3f: the serving tier and the disk cache on the card -------
+    serve_phase(dev, cuda_suite, lower_cuda, ents, host_args, wants,
+                lib.build_seconds)
+
     # ---- phase 4: the hot-path kernels at granite-3-2b's widths ---------
     rows.update(hot_phase(hot_host, dev, cuda_suite.matmul_tol))
 
@@ -1552,4 +1836,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--disk-child"] and torch.cuda.is_available():
+        sys.exit(disk_child(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

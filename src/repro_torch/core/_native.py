@@ -7,6 +7,11 @@ the root of the checkout, and loaded with ``ctypes``.  The file name
 carries a hash of the sources and flags, so a stale build is never
 loaded.  The build happens at first use, inside the first launch on the
 card; importing this module builds nothing.
+
+With the on-disk compile cache enabled (:mod:`repro_torch.core
+.compile_cache`), a library missing from ``BUILD_DIR`` is looked for in
+the cache directory before ``nvcc`` runs: a new process over a warm
+cache compiles nothing.
 """
 from __future__ import annotations
 
@@ -63,8 +68,16 @@ def _nvcc() -> str:
                        "toolkit")
 
 
+def _disk_cache():
+    """The on-disk compile cache, when it is enabled (api imports this
+    module, so it is looked up at call time)."""
+    from repro_torch.core import api
+    return api._DISK
+
+
 def build() -> tuple[Path, float, str]:
-    """Compile the sources unless an up-to-date library exists.
+    """Compile the sources unless an up-to-date library exists, in
+    ``BUILD_DIR`` or in the enabled disk cache's directory.
 
     One ``nvcc -c`` per source, all started together, then one link.
     Returns ``(path, seconds spent, nvcc output)``; raises on failure.
@@ -73,6 +86,10 @@ def build() -> tuple[Path, float, str]:
     out = BUILD_DIR / f"libcupbop_{tag}.so"
     if out.exists():
         return out, 0.0, ""
+    disk = _disk_cache()
+    cached = None if disk is None else disk.library(out.name)
+    if cached is not None:
+        return cached, 0.0, ""
     nvcc = _nvcc()
     objdir = BUILD_DIR / f"obj_{tag}_{os.getpid()}"
     objdir.mkdir(parents=True, exist_ok=True)

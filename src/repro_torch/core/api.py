@@ -28,10 +28,19 @@ stream's heap) and returns the stream.
 kernel (:mod:`repro_torch.core.optimize`).  An explicit ``False`` wins
 over the environment.
 
-Not yet ported, and refused rather than ignored: the reference's on-disk
-compile cache (``enable_disk_cache``, ``CUPBOP_CACHE_DIR``),
-``launch_batch``, and ``devices=``/``shard_axis=``.  Each raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+Under the in-memory LRU sits an optional on-disk tier
+(:mod:`repro_torch.core.compile_cache`, the ``cudaModuleLoad`` analogue,
+enabled by ``CUPBOP_CACHE_DIR`` or :func:`enable_disk_cache`): a miss
+looks for the specialization's record there before it builds, and a
+launch of hand-written kernels on the card stores one, so a new process
+loads the compiled library instead of running ``nvcc``.
+
+:func:`launch_batch` runs N compatible launches as one dispatch (the
+serving tier's batcher, :mod:`repro_torch.serve`), in the same LRU.
+
+Not yet ported, and refused rather than ignored: ``devices=`` and
+``shard_axis=``.  Each raises ``NotImplementedError`` naming the ROADMAP
+item that brings it.
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ import os
 import weakref
 from typing import Any
 
+from repro_torch.core import _native, compile_cache
 from repro_torch.core import grain as grain_mod
 from repro_torch.core import memory as memory_mod
 from repro_torch.core import packing
@@ -54,8 +64,9 @@ from repro_torch.core.kernel import (
 
 __all__ = [
     "CacheStats", "LaunchConfig", "cache_clear", "cache_resize",
-    "cache_size", "cache_stats", "compiled", "coverage", "enable_disk_cache",
-    "launch", "launch_batch", "supported",
+    "cache_size", "cache_stats", "compiled", "coverage",
+    "disable_disk_cache", "enable_disk_cache", "launch", "launch_batch",
+    "supported",
 ]
 
 #: options of the reference's launch path that the port does not have yet,
@@ -63,11 +74,7 @@ __all__ = [
 NOT_PORTED = {
     "devices": "ROADMAP 1.12 (shard)",
     "shard_axis": "ROADMAP 1.12 (shard)",
-    "disk cache": "ROADMAP 1.8 (compile cache)",
-    "launch_batch": "ROADMAP 1.11 (serving)",
 }
-#: the reference's environment switches for the options above
-_NOT_PORTED_ENV = {"CUPBOP_CACHE_DIR": "disk cache"}
 
 # The cache lives ON each kernel (a private dict attached to the
 # KernelDef), so entries die with their kernel; the WeakSet enumerates
@@ -76,15 +83,24 @@ _CACHE_ATTR = "_launch_cache"
 _CACHED_KERNELS: "weakref.WeakSet[KernelDef]" = weakref.WeakSet()
 _LRU: "collections.OrderedDict[tuple, None]" = collections.OrderedDict()
 _MAX_ENTRIES = max(1, int(os.environ.get("CUPBOP_CACHE_SIZE", "256")))
+_DISK: "compile_cache.DiskCache | None" = compile_cache.from_env()
 
 
 @dataclasses.dataclass
 class CacheStats:
-    """Counters of the launch cache (reset by ``cache_clear``)."""
+    """Counters of the launch cache (reset by ``cache_clear``).
+
+    ``hits``/``misses`` count in-memory lookups; ``disk_hits`` are misses
+    served by an on-disk record instead of a build; ``disk_stores``
+    count records persisted; ``evictions`` count LRU drops after the
+    cache exceeded its bound.
+    """
 
     hits: int = 0
     misses: int = 0
     evictions: int = 0
+    disk_hits: int = 0
+    disk_stores: int = 0
 
 
 _STATS = CacheStats()
@@ -95,23 +111,6 @@ def _refuse(**opts) -> None:
         if value is not None:
             raise NotImplementedError(
                 f"{name}= is not ported yet: {NOT_PORTED[name]}")
-    for var, name in _NOT_PORTED_ENV.items():
-        if os.environ.get(var, "0") not in ("", "0"):
-            raise NotImplementedError(
-                f"{var} is set, but the {name} is not ported yet: "
-                f"{NOT_PORTED[name]}")
-
-
-def enable_disk_cache(path: str):
-    """The reference's on-disk compile cache; not ported yet."""
-    raise NotImplementedError(
-        f"the disk cache is not ported yet: {NOT_PORTED['disk cache']}")
-
-
-def launch_batch(kernel: KernelDef, **kwargs):
-    """The reference's stacked batch launch; not ported yet."""
-    raise NotImplementedError(
-        f"launch_batch is not ported yet: {NOT_PORTED['launch_batch']}")
 
 
 def _kernel_cache(kernel: KernelDef) -> dict:
@@ -160,6 +159,18 @@ def cache_resize(max_entries: int) -> None:
     _evict_to_bound()
 
 
+def enable_disk_cache(path: str) -> "compile_cache.DiskCache":
+    """Persist compiled launches under ``path`` (cudaModuleLoad analogue)."""
+    global _DISK
+    _DISK = compile_cache.DiskCache(path)
+    return _DISK
+
+
+def disable_disk_cache() -> None:
+    global _DISK
+    _DISK = None
+
+
 def _resolve_grain(kernel: KernelDef, grain, pool, n_blocks: int) -> int:
     if isinstance(grain, str):
         pool = pool or os.cpu_count() or 1
@@ -190,6 +201,7 @@ def _entry_for(kernel: KernelDef, grid: Dim3, block: Dim3, args: dict,
                pool) -> tuple[CompiledKernel, tuple]:
     """Resolve the launch specialization: cache hit or build."""
     grain = _resolve_grain(kernel, grain, pool, grid.size)
+    donated = memory_mod.donated_names(kernel, args)
     args = memory_mod.resolve_launch_args(kernel, args)
     leaves, names = packing.pack(args)     # host prologue (SIII-C.2)
     shapes = tuple((tuple(t.shape), t.dtype, t.device) for t in leaves)
@@ -201,17 +213,50 @@ def _entry_for(kernel: KernelDef, grid: Dim3, block: Dim3, args: dict,
         _LRU.move_to_end((weakref.ref(kernel), key))
         return entry, leaves
     _STATS.misses += 1
-    backend_entry = get_backend(backend)
-    # surface UnsupportedKernel before anything runs (coverage probes)
-    backend_entry.check(kernel, block)
-    entry = CompiledKernel(
-        kernel=kernel, backend=backend, grid=grid, block=block, key=key,
-        fn=_build(kernel, backend, grid, block, grain, dyn_shared,
-                  interpret, names))
+    entry = _compile(kernel, backend, grid, block, grain, dyn_shared,
+                     interpret, names, shapes, key, donated)
     per_kernel[key] = entry
     _LRU[(weakref.ref(kernel), key)] = None
     _evict_to_bound()
     return entry, leaves
+
+
+def _compiled_library(backend_entry, shapes):
+    """The compiled module a launch runs: the hand-written kernels'
+    library for a native backend over buffers on the card; None for an
+    eager lowering or CPU buffers (nothing compiled to keep)."""
+    on_card = any(dev.type == "cuda" for *_, dev in shapes)
+    if backend_entry.supports("native") and on_card:
+        return _native.library().path
+    return None
+
+
+def _compile(kernel: KernelDef, backend: str, grid: Dim3, block: Dim3,
+             grain: int, dyn_shared, interpret: bool, names: tuple,
+             shapes: tuple, key: tuple, donated) -> CompiledKernel:
+    """Cache-miss path: the disk record if there is one, else build (and
+    store a record when the launch runs something compiled)."""
+    backend_entry = get_backend(backend)
+    # surface UnsupportedKernel before anything runs (coverage probes)
+    backend_entry.check(kernel, block)
+    fn = _build(kernel, backend, grid, block, grain, dyn_shared, interpret,
+                names)
+    if _DISK is None:
+        return CompiledKernel(kernel=kernel, backend=backend, grid=grid,
+                              block=block, key=key, fn=fn)
+    akey = compile_cache.artifact_key(
+        kernel.fingerprint(), backend, grid, block, grain, dyn_shared,
+        interpret, names, shapes,
+        donate_idx=tuple(i for i, n in enumerate(names) if n in donated))
+    if _DISK.load(akey) is not None:
+        _STATS.disk_hits += 1
+        return CompiledKernel(kernel=kernel, backend=backend, grid=grid,
+                              block=block, key=key, fn=fn, source="disk")
+    if _DISK.store(akey, _compiled_library(backend_entry, shapes),
+                   fingerprint=kernel.fingerprint(), backend=backend):
+        _STATS.disk_stores += 1
+    return CompiledKernel(kernel=kernel, backend=backend, grid=grid,
+                          block=block, key=key, fn=fn, source="trace")
 
 
 # analyze (and optimize, which imports it) is imported where it is used:
@@ -247,7 +292,6 @@ def _optimized(kernel: KernelDef, grid: Dim3, block: Dim3, args: dict,
 def _launch(kernel: KernelDef, grid: Dim3, block: Dim3, args: dict,
             backend: str, grain, dyn_shared, interpret: bool,
             pool, sanitize=None, optimize=None) -> dict:
-    _refuse()        # the reference's environment switches
     if _sanitize_enabled(sanitize):
         # kernelcheck gate on the BASE kernel (finding stage indices match
         # the author's source); clean verdicts are memoized on the kernel
@@ -369,6 +413,102 @@ def launch(kernel: KernelDef, *, grid, block, args: dict,
     _refuse(devices=devices, shard_axis=shard_axis)
     return _launch(kernel, Dim3.of(grid), Dim3.of(block), args, backend,
                    grain, dyn_shared, interpret, pool, sanitize, optimize)
+
+
+def _build_batch(kernel: KernelDef, backend: str, grid: Dim3, block: Dim3,
+                 grain: int, dyn_shared, interpret: bool, names: tuple):
+    """The entry running a batch of one specialization: rows of leaves
+    in, one result dict per row out.
+
+    The rows run through the per-launch function in turn.  The eager
+    lowerings have no trace to amortise; on ``cuda`` over buffers on the
+    card that is one launch of the hand-written kernel a row, back to back
+    on the current stream.  A CUDA graph of the rows' launches over
+    stacked buffers saves the host's time a launch but copies every row in
+    and out: on the card it lost in sum (``tools/serve_batch_forms.py``,
+    PERF.md).  Each row is the launch it replaces, bit for bit.
+    """
+    one = _build(kernel, backend, grid, block, grain, dyn_shared, interpret,
+                 names)
+    return lambda rows: [one(*leaves) for leaves in rows]
+
+
+def launch_batch(kernel: KernelDef, *, grid, block, args_list: list[dict],
+                 backend: str = "vector", grain: int | str = 1,
+                 dyn_shared: int | None = None, interpret: bool = True,
+                 pool: int | None = None, sanitize=None,
+                 optimize=None) -> list[dict]:
+    """Run N compatible launches of ``kernel`` as one dispatch.
+
+    The serving tier's batcher: every dict in ``args_list`` must bind the
+    same buffers with the same shapes, dtypes and device - request ``i``
+    is row ``i`` of the batch, one entry runs all rows, and one result
+    dict comes back per request, each bit for bit the independent
+    :func:`launch` it replaces.  Batched entries live in the same LRU and
+    :class:`CacheStats` as plain launches (keyed with a ``("batch", n)``
+    component), so a warm batch is a cache hit like any other.
+
+    Handle liveness and const-space enforcement run on every request, and
+    donated handles re-bind to their row's output.  ``sanitize`` and
+    ``optimize`` run on ``args_list[0]``; a batch of one is a plain
+    launch.  A multi-device backend raises :class:`UnsupportedKernel`:
+    stacked batching is single-device.
+    """
+    if not args_list:
+        raise ValueError("launch_batch: args_list must be non-empty")
+    grid, block = Dim3.of(grid), Dim3.of(block)
+    if _sanitize_enabled(sanitize):
+        from repro_torch.core import analyze as analyze_mod
+        analyze_mod.sanitize_launch(kernel, grid=grid, block=block,
+                                    args=args_list[0], dyn_shared=dyn_shared)
+    kernel = _optimized(kernel, grid, block, args_list[0], dyn_shared,
+                        optimize)
+    if len(args_list) == 1:
+        # the passes ran above: suppress the environment's defaults here
+        return [_launch(kernel, grid, block, args_list[0], backend, grain,
+                        dyn_shared, interpret, pool, sanitize=False,
+                        optimize=False)]
+    if get_backend(backend).supports("multi_device"):
+        raise UnsupportedKernel(
+            f"launch_batch: backend {backend!r} shards blocks across "
+            f"devices; stacked request batching is single-device only - "
+            f"dispatch these requests independently")
+    grain = _resolve_grain(kernel, grain, pool, grid.size)
+    rows, names0, shapes0 = [], None, None
+    for i, a in enumerate(args_list):
+        leaves, names = packing.pack(
+            memory_mod.resolve_launch_args(kernel, a))
+        shapes = tuple((tuple(t.shape), t.dtype, t.device) for t in leaves)
+        if i == 0:
+            names0, shapes0 = names, shapes
+        elif (names, shapes) != (names0, shapes0):
+            raise ValueError(
+                f"launch_batch: request {i} does not match the batch "
+                f"specialization (buffer names or shapes/dtypes/devices "
+                f"differ from request 0); only compatible launches stack")
+        rows.append(leaves)
+    n = len(rows)
+    key = ("batch", n, backend, grid, block, grain, dyn_shared, interpret,
+           names0, shapes0)
+    per_kernel = _kernel_cache(kernel)
+    entry = per_kernel.get(key)
+    if entry is not None:
+        _STATS.hits += 1
+        _LRU.move_to_end((weakref.ref(kernel), key))
+    else:
+        _STATS.misses += 1
+        # surface UnsupportedKernel before anything runs
+        get_backend(backend).check(kernel, block)
+        entry = CompiledKernel(
+            kernel=kernel, backend=backend, grid=grid, block=block, key=key,
+            fn=_build_batch(kernel, backend, grid, block, grain, dyn_shared,
+                            interpret, names0))
+        per_kernel[key] = entry
+        _LRU[(weakref.ref(kernel), key)] = None
+        _evict_to_bound()
+    outs = entry(rows)
+    return [memory_mod.rebind_outputs(kernel, a, out)
+            for a, out in zip(args_list, outs)]
 
 
 def supported(kernel: KernelDef, backend: str, *, grid=4, block=64,

@@ -222,3 +222,36 @@ def test_kernel_sources_live_in_the_port():
         assert text.count("Replaces: the TPU kernel") == 1, p.name
         assert "Bound on the H100" in text, p.name
         assert "__constant__ int" not in text and "extern \"C\" int" in text
+
+
+def test_the_serving_tier_and_the_disk_cache_stand_alone(tmp_path):
+    # serve/, launch/ and core/compile_cache.py are scanned above, and
+    # serve, batch and cache with JAX and the reference blocked
+    scanned = {p.relative_to(PORT).as_posix() for p in FILES
+               if PORT in p.parents}
+    assert {"serve/__init__.py", "serve/kernel_service.py",
+            "launch/__init__.py", "launch/serve.py",
+            "core/compile_cache.py"} <= scanned
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "from repro_torch.core import api, compile_cache\n"
+        "from repro_torch.launch import serve\n"
+        "from repro_torch.serve import KernelService, ServiceStats\n"
+        f"api.enable_disk_cache({str(tmp_path)!r})\n"
+        "doc = serve.main(['--device', 'cpu', '--backend', 'vector',\n"
+        "                  '--requests', '8', '--kernels', 'vecadd',\n"
+        "                  'reverse'])\n"
+        "assert doc['completed'] == 16 and doc['failed'] == 0, doc\n"
+        "assert api.cache_stats().disk_stores == 0\n"
+        "assert isinstance(compile_cache.artifact_key(\n"
+        "    'f', 'cuda', (1, 1, 1), (1, 1, 1), 1, None, True, (), ()), str)\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n")
+    env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
