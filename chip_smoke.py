@@ -58,9 +58,19 @@ Phases, each printing its own lines:
    lud_diag's (a tile in one warp's registers, 32 / P tiles a warp of
    P lanes each, no barrier, ``lower_cuda.lud_diag_ctas``), lavamd's
    (a CTA a home box, its width and the neighbours it stages at once
-   from ``lower_cuda.lavamd_cta``) and
+   from ``lower_cuda.lavamd_cta``),
    bfs_frontier's (1024 nodes a CTA of 256 in each of its two passes,
-   ``lower_cuda.bfs_frontier_ctas``).  bfs_frontier's line also gives
+   ``lower_cuda.bfs_frontier_ctas``), needle_nw's (the diagonal's cells
+   on CTAs of ``lower_cuda.needle_nw_cta_threads`` threads,
+   ``lower_cuda.needle_nw_ctas``) and pathfinder's (stencil1d's mapping,
+   ``lower_cuda.pathfinder_ctas``).  needle_nw's and pathfinder's lines
+   also give ``pace_us``: ``PACE_LAUNCHES`` back-to-back in-place
+   launches of the kernel (both launched as programmatic dependents of
+   the work before them) between two CUDA events after a spin that
+   covers their enqueue, over the count, median of ``PACE_RUNS``, with
+   ``enqueue_us``, the host's time a launch, beside it; the window of
+   ``ms`` holds one launch and cannot go below the launch's fixed cost.
+   bfs_frontier's line also gives
    ``levels_ms``, its kernel time summed over the chain's launches, each
    timed at the state its level sees, and ``levels_bound_ms``, their
    bounds summed; the ``levels bfs_frontier`` line before it has each
@@ -226,6 +236,14 @@ EXACT_ENTRIES = ("kmeans", "vecadd", "stencil1d", "stencil2d",
 BF16_OPS_PER_S = 989e12          # H100 SXM dense bfloat16 tensor cores
 SLEEP_CYCLES = 1_000_000         # keeps the card busy while a run enqueues
 RUNS, WARMUP = 25, 3
+#: phase 2's pace_us: back-to-back in-place launches a run (needle_nw on
+#: its longest diagonal, pathfinder on its first row; both idempotent on
+#: fixed inputs), and the runs whose median is kept
+PACE_LAUNCHES = {"needle_nw": 512, "pathfinder": 99}
+PACE_RUNS = 5
+#: the card's clock is at most this (cycles a second), so a spin of
+#: seconds x this many cycles lasts at least that long
+MAX_CLOCK_HZ = 2e9
 
 #: Rodinia 3.1 run-script sizes, then the textbook entries at sizes that
 #: move tens of MB (inputs generated from SEED)
@@ -365,6 +383,43 @@ def time_ms(fn, before=None) -> float:
         if i >= WARMUP:
             times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def pace_us(kern, b, params, grid, block,
+            count) -> tuple[float, float, dict]:
+    """Device time a launch (us) over ``count`` back-to-back in-place
+    launches of the kernel on one stream between two CUDA events, median
+    of ``PACE_RUNS``, the host's enqueue time a launch (us), and the
+    buffers the launches wrote.
+
+    A spin on the card covers the host's enqueue of the whole run (four
+    times its measured length), so the window holds the launches as the
+    card paces them and not as the host issues them.  The launches write
+    copies of ``b``'s written buffers."""
+    work = {**b, **{k: b[k].clone() for k in kern.writes}}
+
+    def run():
+        for _ in range(count):
+            kern.launch_into(work, grid, block, **params)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(4 * enqueue_s * MAX_CLOCK_HZ) + SLEEP_CYCLES
+    times = []
+    for _ in range(PACE_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) * 1e3 / count)
+    return statistics.median(times), enqueue_s / count * 1e6, work
 
 
 def size_of(name: str) -> dict:
@@ -1701,6 +1756,15 @@ def main() -> int:
                 n_ctas, c = lower_cuda.backprop_layer_ctas(params["in_n"],
                                                            grid.x)
                 ctas = f" ctas={n_ctas} ({n_ctas // c} clusters of {c})"
+            elif kname == "needle_nw":
+                n_ctas = lower_cuda.needle_nw_ctas(grid.x, block.x)
+                per = lower_cuda.needle_nw_cta_threads()
+                ctas = f" ctas={n_ctas} ({per} threads each)"
+            elif kname == "pathfinder":
+                n_ctas = lower_cuda.pathfinder_ctas(params["cols"], grid.x,
+                                                    block.x)
+                per = lower_cuda.pathfinder_cta_cols()
+                ctas = f" ctas={n_ctas} ({per} columns each)"
             elif kname == "vecadd":
                 # vecadd_ctas counts the launcher's 16-byte path; buffers
                 # off 16 bytes would take its one-element path instead
@@ -1709,6 +1773,13 @@ def main() -> int:
                                          "16-byte boundary")
                 n_ctas = lower_cuda.vecadd_ctas(params["n"], grid.x, block.x)
                 ctas = f" ctas={n_ctas}"
+            if kname in PACE_LAUNCHES:
+                count = PACE_LAUNCHES[kname]
+                pace, enqueue, work = pace_us(kern, b, params, grid, block,
+                                              count)
+                compare(kname, work, got, kern.writes, entry.tol)
+                ctas += (f" pace_us={pace} pace_launches={count} "
+                         f"enqueue_us={enqueue}")
             print(f"kernel {kname}: kernel_ms={r['ms']} "
                   f"call_ms={r['call_ms']} plain_ms={r['plain_ms']} "
                   f"bound_ms={r['bound_ms']} ({r['bound_by']}) "

@@ -323,21 +323,35 @@ def pathfinder_plain(b, grid: Dim3, block: Dim3, *, cols: int):
 def _pathfinder_check(grid: Dim3, block: Dim3, params: dict):
     _one_dim("pathfinder")(grid, block, params)
     if block.x != PATHFINDER_BLOCK:
-        raise UnsupportedKernel(f"pathfinder: the kernel's shared halo is "
-                                f"sized for {PATHFINDER_BLOCK}-thread "
+        raise UnsupportedKernel(f"pathfinder: the launcher counts the "
+                                f"columns in {PATHFINDER_BLOCK}-thread "
                                 f"blocks, got {block.x}")
+
+
+def pathfinder_cta_cols() -> int:
+    """The columns one CTA of ``csrc/pathfinder.cu`` covers, as its
+    ``pathfinder_cta_cols`` gives them (builds the kernels' library at
+    first use)."""
+    return _native.function("pathfinder_cta_cols", ())()
+
+
+def pathfinder_ctas(cols: int, grid: int, block: int) -> int:
+    """The CTAs of :func:`pathfinder_cta_cols` columns that cover the
+    ``m = min(cols, grid * block)`` columns a logical grid writes."""
+    return -(-min(cols, grid * block) // pathfinder_cta_cols())
 
 
 PATHFINDER = CudaKernel(
     name="pathfinder", symbol="launch_pathfinder",
-    argtypes=(_P,) * 4 + (_I,) * 3 + (_P,),
+    argtypes=(_P,) * 4 + (_I,) * 4 + (_P,),
     buffers={"wall": _I32, "src": _I32, "dst": _I32, "row": _I32},
     writes=("dst",),
     shapes=lambda *, cols: {"src": (cols,), "dst": (cols,), "row": (1,)},
     check=_pathfinder_check, plain=pathfinder_plain,
     cargs=lambda b, grid, block, *, cols: [
         _ptr(b["wall"]), _ptr(b["src"]), _ptr(b["dst"]), _ptr(b["row"]),
-        b["wall"].shape[0], cols, grid.x],
+        b["wall"].shape[0], cols, grid.x,
+        pathfinder_ctas(cols, grid.x, block.x)],
     source="src/repro_torch/csrc/pathfinder.cu")
 
 
@@ -360,9 +374,23 @@ def needle_nw_plain(b, grid: Dim3, block: Dim3, *, n: int, penalty: int):
     return {"score": index.put(score, (i.masked_fill(~valid, n + 1), j), v)}
 
 
+def needle_nw_cta_threads() -> int:
+    """The threads of one CTA of ``csrc/needle_nw.cu``, as its
+    ``needle_nw_cta_threads`` gives them (builds the kernels' library at
+    first use)."""
+    return _native.function("needle_nw_cta_threads", ())()
+
+
+def needle_nw_ctas(grid: int, block: int) -> int:
+    """The CTAs of :func:`needle_nw_cta_threads` threads that hold the
+    ``grid * block`` threads of the logical grid, thread ``t`` in CTA
+    ``t // needle_nw_cta_threads()``."""
+    return -(-grid * block // needle_nw_cta_threads())
+
+
 NEEDLE_NW = CudaKernel(
     name="needle_nw", symbol="launch_needle_nw",
-    argtypes=(_P,) * 3 + (_I,) * 4 + (_P,),
+    argtypes=(_P,) * 3 + (_I,) * 5 + (_P,),
     buffers={"score": _I32, "sim": _I32, "diag": _I32},
     writes=("score",),
     shapes=lambda *, n, penalty: {"score": (n + 1, n + 1), "sim": (n, n),
@@ -370,7 +398,7 @@ NEEDLE_NW = CudaKernel(
     check=_one_dim("needle_nw"), plain=needle_nw_plain,
     cargs=lambda b, grid, block, *, n, penalty: [
         _ptr(b["score"]), _ptr(b["sim"]), _ptr(b["diag"]), n, penalty,
-        grid.x, block.x],
+        grid.x, block.x, needle_nw_ctas(grid.x, block.x)],
     source="src/repro_torch/csrc/needle_nw.cu")
 
 

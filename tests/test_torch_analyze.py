@@ -18,10 +18,11 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
-from repro_torch.core import analyze, api, cuda_suite, index
-from repro_torch.core.analyze import (
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import analyze, api, cuda_suite, index  # noqa: E402
+from repro_torch.core.analyze import (  # noqa: E402
     Finding,
     FusionVerdict,
     SanitizerError,
@@ -30,8 +31,8 @@ from repro_torch.core.analyze import (
     analyze_kernel,
     report_to_json,
 )
-from repro_torch.core.api import launch
-from repro_torch.core.kernel import KernelDef
+from repro_torch.core.api import launch  # noqa: E402
+from repro_torch.core.kernel import KernelDef  # noqa: E402
 
 CPU = "cpu"
 SUITE = cuda_suite.build_suite(scale=1)

@@ -12,10 +12,11 @@ derived kernel keeps it), as often as the plain run and with its bits.
 """
 import numpy as np
 import pytest
-import torch
 
-from repro_torch.core import analyze, cuda_suite, lower_cuda, optimize
-from repro_torch.core.memory import host_array
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import analyze, cuda_suite, lower_cuda, optimize  # noqa: E402
+from repro_torch.core.memory import host_array  # noqa: E402
 
 SUITE = cuda_suite.build_suite(scale=1)
 #: the entries whose optimizer plan is not trivial (tests/test_torch_optimize.py)

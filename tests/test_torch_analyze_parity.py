@@ -25,15 +25,16 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-from repro.core import analyze as janalyze
-from repro.core import cuda_suite as jsuite
-from repro.core import optimize as joptimize
-from repro.core.kernel import KernelDef as JKernelDef
-from repro_torch.core import analyze, cuda_suite, index, optimize
-from repro_torch.core.kernel import KernelDef
-from test_torch_optimize import assert_optimized_bits_identical
+torch = pytest.importorskip("torch")
+
+from repro.core import analyze as janalyze  # noqa: E402
+from repro.core import cuda_suite as jsuite  # noqa: E402
+from repro.core import optimize as joptimize  # noqa: E402
+from repro.core.kernel import KernelDef as JKernelDef  # noqa: E402
+from repro_torch.core import analyze, cuda_suite, index, optimize  # noqa: E402
+from repro_torch.core.kernel import KernelDef  # noqa: E402
+from test_torch_optimize import assert_optimized_bits_identical  # noqa: E402
 
 CPU = "cpu"
 JSUITE = {e.name: e for e in jsuite.build_suite(scale=1)}

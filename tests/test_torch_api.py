@@ -2,16 +2,23 @@
 ``carry``, and the small modules it keeps its own copies of."""
 import numpy as np
 import pytest
-import torch
 
-from repro.core import dim3 as jdim3
-from repro.core import grain as jgrain
-from repro.core import rodinia_io as jio
-from repro_torch import carry
-from repro_torch.core import api, backends, cuda_suite, grain, packing, \
-    rodinia_io
-from repro_torch.core.dim3 import Dim3
-from repro_torch.core.kernel import (
+torch = pytest.importorskip("torch")
+
+from repro.core import dim3 as jdim3  # noqa: E402
+from repro.core import grain as jgrain  # noqa: E402
+from repro.core import rodinia_io as jio  # noqa: E402
+from repro_torch import carry  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    api,
+    backends,
+    cuda_suite,
+    grain,
+    packing,
+    rodinia_io,
+)
+from repro_torch.core.dim3 import Dim3  # noqa: E402
+from repro_torch.core.kernel import (  # noqa: E402
     ChainStats,
     ChainStep,
     KernelDef,
@@ -19,7 +26,7 @@ from repro_torch.core.kernel import (
     Native,
     UnsupportedKernel,
 )
-from repro_torch.core.memory import (
+from repro_torch.core.memory import (  # noqa: E402
     ConstArray,
     CudaError,
     DeviceBuffer,

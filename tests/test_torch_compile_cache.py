@@ -15,12 +15,13 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
-from repro_torch import carry
-from repro_torch.core import _native, api, compile_cache, cuda_suite
-from repro_torch.core.dim3 import Dim3
-from repro_torch.core.kernel import UnsupportedKernel
+torch = pytest.importorskip("torch")
+
+from repro_torch import carry  # noqa: E402
+from repro_torch.core import _native, api, compile_cache, cuda_suite  # noqa: E402
+from repro_torch.core.dim3 import Dim3  # noqa: E402
+from repro_torch.core.kernel import UnsupportedKernel  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -20,15 +20,16 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
-from repro_torch.core import conformance
-from repro_torch.core.backends import (
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import conformance  # noqa: E402
+from repro_torch.core.backends import (  # noqa: E402
     UnknownBackend,
     backend_names,
     unregister_backend,
 )
-from repro_torch.core.conformance import (
+from repro_torch.core.conformance import (  # noqa: E402
     NOT_PORTED,
     Cell,
     build_cases,
@@ -37,7 +38,7 @@ from repro_torch.core.conformance import (
     run_cell,
     run_matrix,
 )
-from repro_torch.core.kernel import UnsupportedKernel
+from repro_torch.core.kernel import UnsupportedKernel  # noqa: E402
 
 CPU = "cpu"
 CASES = {c.name: c for c in build_cases()}

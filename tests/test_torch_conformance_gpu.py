@@ -10,10 +10,11 @@ to), the graph leg of every chain runs on ``cuda`` as a
 point launches nothing.
 """
 import pytest
-import torch
 
-from repro_torch.core import cuda_suite, lower_cuda
-from repro_torch.core.conformance import build_cases, run_cell, run_matrix
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import cuda_suite, lower_cuda  # noqa: E402
+from repro_torch.core.conformance import build_cases, run_cell, run_matrix  # noqa: E402
 
 CASES = {c.name: c for c in build_cases()}
 CHAINS = ("bfs_frontier", "pathfinder", "needle_nw", "srad_step", "nn",

@@ -49,9 +49,11 @@ from repro.core import conformance as jconf
 from repro.core import cuda_suite as jsuite
 from repro.core.kernel import UnsupportedKernel as JUnsupportedKernel
 from repro.frontend import suite as jfsuite
-from repro_torch.core import conformance
-from test_torch_suite import BIT_EXACT
-from test_torch_x64 import JAX_X64
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import conformance  # noqa: E402
+from test_torch_suite import BIT_EXACT  # noqa: E402
+from test_torch_x64 import JAX_X64  # noqa: E402
 
 CASES = {c.name: c for c in conformance.build_cases()}
 FRONTEND_CORPUS = conformance.FRONTEND_CORPUS

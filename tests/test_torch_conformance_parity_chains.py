@@ -13,7 +13,9 @@ sets them out; its helpers run both sides.
 """
 import pytest
 
-from test_torch_conformance_parity import CASES, _check, _id, _points
+torch = pytest.importorskip("torch")
+
+from test_torch_conformance_parity import CASES, _check, _id, _points  # noqa: E402
 
 #: the replay legs (the frontend leg's points, also not host, are held
 #: against the reference in tests/test_torch_conformance_parity.py)

@@ -16,7 +16,8 @@ import os
 import sys
 
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 _BENCH = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "benchmarks")

@@ -18,9 +18,11 @@ import pytest
 from repro.core import api as japi
 from repro.core import cuda_suite as jsuite
 from repro.core.memory import ConstArray as JConstArray
-from repro_torch import carry
-from repro_torch.core import api, backends, cuda_suite
-from repro_torch.core.kernel import UnsupportedKernel
+torch = pytest.importorskip("torch")
+
+from repro_torch import carry  # noqa: E402
+from repro_torch.core import api, backends, cuda_suite  # noqa: E402
+from repro_torch.core.kernel import UnsupportedKernel  # noqa: E402
 #: the port's backend -> the reference's backend in the same column
 COLUMNS = {"loop": "loop", "loop_nowarp": "loop_nowarp", "naive": "naive",
            "vector": "vector", "cuda": "pallas"}

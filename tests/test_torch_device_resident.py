@@ -23,22 +23,23 @@ import functools
 
 import numpy as np
 import pytest
-import torch
 
-from repro.core import cuda_suite as jsuite
-from repro.core import kernel as jkernel
-from repro.core.api import launch as japi_launch
-from repro.core.streams import Stream as JStream
-from repro_torch import carry
-from repro_torch.core import api, cuda_suite, index
-from repro_torch.core.kernel import (
+torch = pytest.importorskip("torch")
+
+from repro.core import cuda_suite as jsuite  # noqa: E402
+from repro.core import kernel as jkernel  # noqa: E402
+from repro.core.api import launch as japi_launch  # noqa: E402
+from repro.core.streams import Stream as JStream  # noqa: E402
+from repro_torch import carry  # noqa: E402
+from repro_torch.core import api, cuda_suite, index  # noqa: E402
+from repro_torch.core.kernel import (  # noqa: E402
     ChainStats,
     ChainStep,
     KernelDef,
     LaunchChain,
     UnsupportedKernel,
 )
-from repro_torch.core.streams import Stream
+from repro_torch.core.streams import Stream  # noqa: E402
 
 CHAINS = ("bfs_frontier", "pathfinder", "needle_nw", "hotspot",
           "srad_step", "nn", "kmeans")

@@ -17,16 +17,17 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
-from repro_torch import enable_x64
-from repro_torch.core.api import launch
-from repro_torch.core.cuda_suite import run_entry
-from repro_torch.core.kernel import UnsupportedKernel
-from repro_torch.frontend import runtime, translate
-from repro_torch.frontend.__main__ import main as gate_main
-from repro_torch.frontend.__main__ import run_gate
-from repro_torch.frontend.suite import (
+torch = pytest.importorskip("torch")
+
+from repro_torch import enable_x64  # noqa: E402
+from repro_torch.core.api import launch  # noqa: E402
+from repro_torch.core.cuda_suite import run_entry  # noqa: E402
+from repro_torch.core.kernel import UnsupportedKernel  # noqa: E402
+from repro_torch.frontend import runtime, translate  # noqa: E402
+from repro_torch.frontend.__main__ import main as gate_main  # noqa: E402
+from repro_torch.frontend.__main__ import run_gate  # noqa: E402
+from repro_torch.frontend.suite import (  # noqa: E402
     CORPUS,
     CORPUS_DIR,
     _bases,

@@ -10,13 +10,14 @@ card adds to); the ``cuda`` backend refuses a translated kernel and
 launches nothing; the gate runs on the card.
 """
 import pytest
-import torch
 
-from repro_torch.core import cuda_suite, lower_cuda
-from repro_torch.core.kernel import UnsupportedKernel
-from repro_torch.core.memory import host_array
-from repro_torch.frontend.__main__ import main as gate_main
-from repro_torch.frontend.suite import CORPUS, _bases, frontend_twin
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import cuda_suite, lower_cuda  # noqa: E402
+from repro_torch.core.kernel import UnsupportedKernel  # noqa: E402
+from repro_torch.core.memory import host_array  # noqa: E402
+from repro_torch.frontend.__main__ import main as gate_main  # noqa: E402
+from repro_torch.frontend.suite import CORPUS, _bases, frontend_twin  # noqa: E402
 
 
 @pytest.fixture

@@ -17,21 +17,22 @@ import warnings
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-from repro.core import api as japi
-from repro.core import cuda_suite as jsuite
-from repro.core.kernel import UnsupportedKernel as JUnsupportedKernel
-from repro.frontend import lexer as jlexer
-from repro.frontend import parser as jparser
-from repro.frontend import suite as jfsuite
-from repro.frontend import translate as jtranslate
-from repro_torch.core import cuda_suite
-from repro_torch.core.api import launch
-from repro_torch.core.kernel import UnsupportedKernel
-from repro_torch.frontend import lexer, parser, translate
-from repro_torch.frontend import suite as fsuite
-from test_torch_frontend import DIAGNOSTICS
+torch = pytest.importorskip("torch")
+
+from repro.core import api as japi  # noqa: E402
+from repro.core import cuda_suite as jsuite  # noqa: E402
+from repro.core.kernel import UnsupportedKernel as JUnsupportedKernel  # noqa: E402
+from repro.frontend import lexer as jlexer  # noqa: E402
+from repro.frontend import parser as jparser  # noqa: E402
+from repro.frontend import suite as jfsuite  # noqa: E402
+from repro.frontend import translate as jtranslate  # noqa: E402
+from repro_torch.core import cuda_suite  # noqa: E402
+from repro_torch.core.api import launch  # noqa: E402
+from repro_torch.core.kernel import UnsupportedKernel  # noqa: E402
+from repro_torch.frontend import lexer, parser, translate  # noqa: E402
+from repro_torch.frontend import suite as fsuite  # noqa: E402
+from test_torch_frontend import DIAGNOSTICS  # noqa: E402
 
 
 def _ast(node):

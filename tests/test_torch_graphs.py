@@ -13,14 +13,15 @@ tensors in place; the card's ``torch.cuda.CUDAGraph`` path is held by the
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-from repro.core import Runtime as JRuntime
-from repro.core import Stream as JStream
-from repro.core import cuda_memcpy_async as jmemcpy_async
-from repro.core import cuda_suite as jsuite
-from repro.core.kernel import KernelDef as JKernelDef
-from repro_torch.core import (
+torch = pytest.importorskip("torch")
+
+from repro.core import Runtime as JRuntime  # noqa: E402
+from repro.core import Stream as JStream  # noqa: E402
+from repro.core import cuda_memcpy_async as jmemcpy_async  # noqa: E402
+from repro.core import cuda_suite as jsuite  # noqa: E402
+from repro.core.kernel import KernelDef as JKernelDef  # noqa: E402
+from repro_torch.core import (  # noqa: E402
     ConstArray,
     Event,
     GraphError,
@@ -33,8 +34,8 @@ from repro_torch.core import (
     cuda_suite,
     index,
 )
-from repro_torch.core.graphs import write_back
-from repro_torch.core.memory import cuda_memcpy_to_symbol
+from repro_torch.core.graphs import write_back  # noqa: E402
+from repro_torch.core.memory import cuda_memcpy_to_symbol  # noqa: E402
 
 RNG = np.random.default_rng(7)
 

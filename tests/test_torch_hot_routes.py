@@ -17,12 +17,13 @@ python -m pytest -q -m gpu tests/test_torch_hot_routes.py``.
 """
 import numpy as np
 import pytest
-import torch
 
-from repro_torch.kernels import flash_attention as tfa
-from repro_torch.kernels import matmul as tmm
-from repro_torch.kernels import ops as tops
-from repro_torch.kernels import ref as tref
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import matmul as tmm  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
 
 DTYPES = ("float32", "bfloat16")
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}

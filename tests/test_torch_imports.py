@@ -1,8 +1,13 @@
 """The port stands alone: no JAX, nothing of the reference package."""
+import os
 import pathlib
 import re
 import subprocess
 import sys
+
+import pytest
+
+pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -255,3 +260,42 @@ def test_the_serving_tier_and_the_disk_cache_stand_alone(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+#: makes ``import torch`` fail in a child interpreter, as in a job that
+#: installs JAX and pytest but no torch
+NO_TORCH = """\
+import importlib.abc
+import sys
+
+
+class _NoTorch(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "torch" or name.startswith("torch."):
+            raise ModuleNotFoundError(f"No module named {name!r}", name=name)
+        return None
+
+
+sys.meta_path.insert(0, _NoTorch())
+"""
+
+
+def test_port_tests_skip_at_collection_without_torch(tmp_path):
+    # every port test file skips where torch cannot be imported, so the
+    # JAX package's tests beside them are still collected, with no error
+    (tmp_path / "sitecustomize.py").write_text(NO_TORCH)
+    files = ["tests/test_core.py", *sorted(
+        p.relative_to(ROOT).as_posix()
+        for p in (ROOT / "tests").glob("test_torch_*.py"))]
+    env = {**os.environ, "PYTHONPATH": f"{tmp_path}:{ROOT / 'src'}",
+           "JAX_PLATFORMS": "cpu", "PYTEST_DISABLE_PLUGIN_AUTOLOAD": "1"}
+    res = subprocess.run(
+        [sys.executable, "-m", "pytest", "--collect-only", "-q",
+         "-p", "no:cacheprovider", *files],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    out = res.stdout + res.stderr
+    assert res.returncode == 0, out
+    assert "error" not in out.splitlines()[-1].lower(), out
+    ids = [line for line in res.stdout.splitlines() if "::" in line]
+    assert any(i.startswith("tests/test_core.py::") for i in ids), out
+    assert not any(i.startswith("tests/test_torch_") for i in ids), out

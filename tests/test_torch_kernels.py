@@ -16,15 +16,16 @@ since the machine with the card has none.
 """
 import numpy as np
 import pytest
-import torch
 
-from repro_torch import carry
-from repro_torch.core import cuda_suite
-from repro_torch.kernels import flash_attention as tfa
-from repro_torch.kernels import matmul as tmm
-from repro_torch.kernels import ops as tops
-from repro_torch.kernels import ref as tref
-from repro_torch.kernels import rmsnorm as trn
+torch = pytest.importorskip("torch")
+
+from repro_torch import carry  # noqa: E402
+from repro_torch.core import cuda_suite  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import matmul as tmm  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import rmsnorm as trn  # noqa: E402
 
 DTYPES = ("float32", "bfloat16")
 #: tests/test_kernels.py's sweeps

@@ -14,13 +14,14 @@ import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
-import torch
 
-from repro.core import Stream as JStream
-from repro.core import cuda_memcpy_async as jmemcpy_async
-from repro.core import cuda_memcpy_d2h as jmemcpy_d2h
-from repro.core import cuda_memcpy_h2d as jmemcpy_h2d
-from repro_torch.core import (
+torch = pytest.importorskip("torch")
+
+from repro.core import Stream as JStream  # noqa: E402
+from repro.core import cuda_memcpy_async as jmemcpy_async  # noqa: E402
+from repro.core import cuda_memcpy_d2h as jmemcpy_d2h  # noqa: E402
+from repro.core import cuda_memcpy_h2d as jmemcpy_h2d  # noqa: E402
+from repro_torch.core import (  # noqa: E402
     CudaError,
     GraphError,
     Stream,
@@ -30,7 +31,7 @@ from repro_torch.core import (
     cuda_memcpy_d2h,
     cuda_memcpy_h2d,
 )
-from repro_torch.core.memory import (
+from repro_torch.core.memory import (  # noqa: E402
     UnsupportedSpace,
     cuda_memcpy_to_symbol,
     host_array,

@@ -11,12 +11,13 @@ import shutil
 
 import numpy as np
 import pytest
-import torch
 
-from repro_torch import carry
-from repro_torch.core import _native, cuda_suite, lower_cuda
-from repro_torch.core.dim3 import Dim3
-from repro_torch.core.kernel import UnsupportedKernel
+torch = pytest.importorskip("torch")
+
+from repro_torch import carry  # noqa: E402
+from repro_torch.core import _native, cuda_suite, lower_cuda  # noqa: E402
+from repro_torch.core.dim3 import Dim3  # noqa: E402
+from repro_torch.core.kernel import UnsupportedKernel  # noqa: E402
 
 #: the port's registry, in the reference's order
 SUITE = {e.name: e for e in cuda_suite.build_suite(1)}
@@ -1080,6 +1081,60 @@ def test_stencil1d_ctas_cover_the_elements(monkeypatch, n, grid, block,
     ctas = lower_cuda.stencil1d_ctas(n, grid, block)
     cta = np.arange(min(n, grid * block), dtype=np.int64) // per
     assert (cta < ctas).all()
+    assert np.array_equal(np.unique(cta), np.arange(ctas))
+
+
+#: (n, grid, block) of needle_nw: the main path's n = 2048 (the chevron's
+#: n / 16 blocks of 16), small and ragged n, grids short of n and wider
+#: than it, and blocks of 1, 48 and 1024
+NEEDLE_NW = ((2048, 128, 16), (16, 1, 16), (48, 3, 16), (100, 7, 16),
+             (100, 4, 16), (64, 64, 1), (48, 1, 48), (2048, 2, 1024))
+
+
+@pytest.mark.parametrize("per", (128, 256, 96))
+@pytest.mark.parametrize("n,grid,block", NEEDLE_NW)
+def test_needle_nw_ctas_give_every_cell_one_thread(monkeypatch, n, grid,
+                                                   block, per):
+    # thread t of the logical grid is thread t % per of CTA t // per, and
+    # keeps cell t of the diagonal: on every diagonal (and one out of
+    # range) each cell the plain version writes has exactly one thread of
+    # the physical grid, no thread writes another, and every CTA holds a
+    # thread of the logical grid
+    monkeypatch.setattr(lower_cuda, "needle_nw_cta_threads", lambda: per)
+    ctas = lower_cuda.needle_nw_ctas(grid, block)
+    t = np.arange(ctas * per)
+    live = t < grid * block
+    assert np.array_equal(np.unique(t[live] // per), np.arange(ctas))
+    for d in (*range(2, 2 * n + 1), 0, 2 * n + 1):
+        lo, hi = max(1, d - n), min(n, d - 1)
+        i = t[live & (t <= hi - lo)] + lo      # row i, column d - i
+        want = np.arange(lo, min(hi, lo + grid * block - 1) + 1)
+        assert np.array_equal(i, want), d
+
+
+#: (cols, grid, block) of pathfinder: the main path's 100,000 columns,
+#: ragged and tiny rows, and grids short of cols (the chevron's block is
+#: always 64, the check's rule)
+PATHFINDER = ((100_000, 1563, 64), (100_003, 1563, 64), (1, 1, 64),
+              (63, 1, 64), (64, 1, 64), (65, 2, 64), (100_000, 7, 64),
+              (4000, 40, 64), (1025, 17, 64))
+
+
+@pytest.mark.parametrize("per", (1024, 512, 2048))
+@pytest.mark.parametrize("cols,grid,block", PATHFINDER)
+def test_pathfinder_ctas_cover_the_columns(monkeypatch, cols, grid, block,
+                                           per):
+    # CTA j covers the columns [j per, (j + 1) per): every column below
+    # m = min(cols, grid block) lies in a CTA of the physical grid, once,
+    # and every CTA holds one.  The columns a CTA covers come from the
+    # kernel's source on the card; here they are the shipped count and
+    # two others
+    monkeypatch.setattr(lower_cuda, "pathfinder_cta_cols", lambda: per)
+    ctas = lower_cuda.pathfinder_ctas(cols, grid, block)
+    m = min(cols, grid * block)
+    owner = np.arange(ctas * per) // per
+    cta = owner[:m]
+    assert ctas * per >= m > (ctas - 1) * per
     assert np.array_equal(np.unique(cta), np.arange(ctas))
 
 

@@ -14,13 +14,14 @@ hand-crafted plans that ask for fusions the verdicts do not prove.  On
 """
 import numpy as np
 import pytest
-import torch
 
-from repro_torch.core import analyze, api, cuda_suite, index, optimize
-from repro_torch.core.cuda_suite import run_entry
-from repro_torch.core.kernel import KernelDef
-from repro_torch.core.memory import host_array
-from repro_torch.core.optimize import (
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import analyze, api, cuda_suite, index, optimize  # noqa: E402
+from repro_torch.core.cuda_suite import run_entry  # noqa: E402
+from repro_torch.core.kernel import KernelDef  # noqa: E402
+from repro_torch.core.memory import host_array  # noqa: E402
+from repro_torch.core.optimize import (  # noqa: E402
     OptimizeError,
     OptPlan,
     OptimizedKernel,

@@ -9,8 +9,10 @@ a file of their own.
 """
 import pytest
 
-from repro_torch.core import cuda_suite
-from test_torch_optimize import assert_optimized_bits_identical
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import cuda_suite  # noqa: E402
+from test_torch_optimize import assert_optimized_bits_identical  # noqa: E402
 
 CHAINS = [e for e in cuda_suite.build_suite(scale=1) if e.chain is not None]
 

@@ -3,13 +3,14 @@
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-from repro.core import atomics as jatomics
-from repro.core import warp as jwarp
-from repro_torch.core import atomics, warp
-from repro_torch.core.cuda_suite import OOB
-from repro_torch.core.kernel import UnsupportedKernel
+torch = pytest.importorskip("torch")
+
+from repro.core import atomics as jatomics  # noqa: E402
+from repro.core import warp as jwarp  # noqa: E402
+from repro_torch.core import atomics, warp  # noqa: E402
+from repro_torch.core.cuda_suite import OOB  # noqa: E402
+from repro_torch.core.kernel import UnsupportedKernel  # noqa: E402
 
 SEEDS = (0, 1, 2)
 

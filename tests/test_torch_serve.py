@@ -20,12 +20,13 @@ import time
 
 import numpy as np
 import pytest
-import torch
 
-from repro_torch import carry
-from repro_torch.core import api, backends, cuda_suite, memory
-from repro_torch.core.kernel import UnsupportedKernel
-from repro_torch.serve import (
+torch = pytest.importorskip("torch")
+
+from repro_torch import carry  # noqa: E402
+from repro_torch.core import api, backends, cuda_suite, memory  # noqa: E402
+from repro_torch.core.kernel import UnsupportedKernel  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
     KernelService,
     ServiceClosed,
     ServiceError,

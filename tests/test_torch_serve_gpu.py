@@ -17,12 +17,13 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
-from repro_torch import carry
-from repro_torch.core import _native, api, cuda_suite, lower_cuda
-from repro_torch.serve import KernelService
-from repro_torch.serve.kernel_service import _bucket
+torch = pytest.importorskip("torch")
+
+from repro_torch import carry  # noqa: E402
+from repro_torch.core import _native, api, cuda_suite, lower_cuda  # noqa: E402
+from repro_torch.serve import KernelService  # noqa: E402
+from repro_torch.serve.kernel_service import _bucket  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 SINGLE = [e.name for e in cuda_suite.build_suite(1) if e.chain is None]

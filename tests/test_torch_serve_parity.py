@@ -17,16 +17,17 @@ Both packages get the same inputs, made with numpy from a seed.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-from repro.core import api as japi
-from repro.core import cuda_suite as jsuite
-from repro.serve import KernelService as JKernelService
-from repro.serve import kernel_service as jks
-from repro_torch import carry
-from repro_torch.core import api, cuda_suite
-from repro_torch.serve import KernelService
-from repro_torch.serve import kernel_service as ks
+torch = pytest.importorskip("torch")
+
+from repro.core import api as japi  # noqa: E402
+from repro.core import cuda_suite as jsuite  # noqa: E402
+from repro.serve import KernelService as JKernelService  # noqa: E402
+from repro.serve import kernel_service as jks  # noqa: E402
+from repro_torch import carry  # noqa: E402
+from repro_torch.core import api, cuda_suite  # noqa: E402
+from repro_torch.serve import KernelService  # noqa: E402
+from repro_torch.serve import kernel_service as ks  # noqa: E402
 
 SINGLE = [e.name for e in cuda_suite.build_suite(1) if e.chain is None]
 ROWS = 2

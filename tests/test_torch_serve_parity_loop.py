@@ -5,7 +5,9 @@ of its own because the port's ``loop`` lowering takes seconds a launch
 at these sizes."""
 import pytest
 
-from test_torch_serve_parity import SINGLE, batch_rows_against_the_reference
+torch = pytest.importorskip("torch")
+
+from test_torch_serve_parity import SINGLE, batch_rows_against_the_reference  # noqa: E402
 
 
 @pytest.mark.parametrize("name", SINGLE)

@@ -14,15 +14,16 @@ refusals.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-from repro.core import Policy as JPolicy
-from repro.core import Runtime as JRuntime
-from repro.core import Stream as JStream
-from repro.core import cuda_memcpy_h2d as jmemcpy_h2d
-from repro.core import cuda_suite as jsuite
-from repro.core.kernel import KernelDef as JKernelDef
-from repro_torch.core import (
+torch = pytest.importorskip("torch")
+
+from repro.core import Policy as JPolicy  # noqa: E402
+from repro.core import Runtime as JRuntime  # noqa: E402
+from repro.core import Stream as JStream  # noqa: E402
+from repro.core import cuda_memcpy_h2d as jmemcpy_h2d  # noqa: E402
+from repro.core import cuda_suite as jsuite  # noqa: E402
+from repro.core.kernel import KernelDef as JKernelDef  # noqa: E402
+from repro_torch.core import (  # noqa: E402
     DeviceBuffer,
     KernelDef,
     Policy,
@@ -32,8 +33,8 @@ from repro_torch.core import (
     cuda_suite,
     index,
 )
-from repro_torch.core.memory import UnsupportedSpace, cuda_memcpy_to_symbol
-from repro_torch.core.streams import heap_device
+from repro_torch.core.memory import UnsupportedSpace, cuda_memcpy_to_symbol  # noqa: E402
+from repro_torch.core.streams import heap_device  # noqa: E402
 
 N, BLOCK = 256, 128
 

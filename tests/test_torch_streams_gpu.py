@@ -12,10 +12,11 @@ import time
 
 import numpy as np
 import pytest
-import torch
 
-from repro_torch import carry
-from repro_torch.core import (
+torch = pytest.importorskip("torch")
+
+from repro_torch import carry  # noqa: E402
+from repro_torch.core import (  # noqa: E402
     KernelDef,
     Runtime,
     Stream,
@@ -25,7 +26,7 @@ from repro_torch.core import (
     index,
     lower_cuda,
 )
-from repro_torch.core.kernel import ChainStats
+from repro_torch.core.kernel import ChainStats  # noqa: E402
 
 CHAINS = ("bfs_frontier", "pathfinder", "needle_nw", "hotspot",
           "srad_step", "nn", "kmeans")

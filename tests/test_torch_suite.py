@@ -26,15 +26,16 @@ import functools
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-from repro.core import api as japi
-from repro.core import cuda_suite as jsuite
-from repro_torch import carry
-from repro_torch.core import _native, cuda_suite, lower_cuda
-from repro_torch.core.api import compiled, launch
-from repro_torch.core.dim3 import Dim3
-from repro_torch.core.kernel import KernelDef, UnsupportedKernel
+torch = pytest.importorskip("torch")
+
+from repro.core import api as japi  # noqa: E402
+from repro.core import cuda_suite as jsuite  # noqa: E402
+from repro_torch import carry  # noqa: E402
+from repro_torch.core import _native, cuda_suite, lower_cuda  # noqa: E402
+from repro_torch.core.api import compiled, launch  # noqa: E402
+from repro_torch.core.dim3 import Dim3  # noqa: E402
+from repro_torch.core.kernel import KernelDef, UnsupportedKernel  # noqa: E402
 
 CHAINS = ("bfs_frontier", "pathfinder", "needle_nw", "hotspot",
           "srad_step", "nn", "kmeans")

@@ -19,16 +19,17 @@ import functools
 import jax
 import numpy as np
 import pytest
-import torch
 
-import repro_torch
-from repro.core import conformance as jconf
-from repro.core import cuda_suite as jsuite
-from repro_torch import carry
-from repro_torch.core import cuda_suite
-from repro_torch.core.kernel import UnsupportedKernel
-from repro_torch.core.memory import cuda_malloc, cuda_memcpy_h2d
-from repro_torch.x64 import canonical_dtype, x64_enabled
+torch = pytest.importorskip("torch")
+
+import repro_torch  # noqa: E402
+from repro.core import conformance as jconf  # noqa: E402
+from repro.core import cuda_suite as jsuite  # noqa: E402
+from repro_torch import carry  # noqa: E402
+from repro_torch.core import cuda_suite  # noqa: E402
+from repro_torch.core.kernel import UnsupportedKernel  # noqa: E402
+from repro_torch.core.memory import cuda_malloc, cuda_memcpy_h2d  # noqa: E402
+from repro_torch.x64 import canonical_dtype, x64_enabled  # noqa: E402
 
 #: JAX's switch: ``jax.enable_x64`` in newer releases (a config state,
 #: which refuses ``bool()``), ``jax.experimental.enable_x64`` in older
