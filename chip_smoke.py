@@ -63,13 +63,23 @@ Phases, each printing its own lines:
    ``lower_cuda.bfs_frontier_ctas``), needle_nw's (the diagonal's cells
    on CTAs of ``lower_cuda.needle_nw_cta_threads`` threads,
    ``lower_cuda.needle_nw_ctas``) and pathfinder's (stencil1d's mapping,
-   ``lower_cuda.pathfinder_ctas``).  needle_nw's and pathfinder's lines
+   ``lower_cuda.pathfinder_ctas``) and nn_reduce's (a warp a logical
+   block on CTAs of ``lower_cuda.nn_reduce_cta_threads`` threads,
+   ``lower_cuda.nn_reduce_ctas``; nn_select's is one warp a logical
+   block).  The lines of needle_nw, pathfinder, nn_reduce and nn_select
    also give ``pace_us``: ``PACE_LAUNCHES`` back-to-back in-place
-   launches of the kernel (both launched as programmatic dependents of
-   the work before them) between two CUDA events after a spin that
-   covers their enqueue, over the count, median of ``PACE_RUNS``, with
-   ``enqueue_us``, the host's time a launch, beside it; the window of
-   ``ms`` holds one launch and cannot go below the launch's fixed cost.
+   launches of the kernel (all four launched as programmatic dependents
+   of the work before them, all idempotent on fixed inputs) between two
+   CUDA events after a spin that covers their enqueue, over the count,
+   median of ``PACE_RUNS``, with ``enqueue_us``, the host's time a
+   launch, beside it; the window of ``ms`` holds one launch and cannot go
+   below the launch's fixed cost.  After the kernels, nn's NaN leg: each
+   nn kernel once more on a copy of its inputs whose ``lat`` holds NaN at
+   record 0, at a record in a lane's third register (t = 77 of block 3)
+   and across block 5, each held bit for bit against its plain version,
+   a NaN matching a NaN in the same place (``NAN_RECORDS``; a ``nan_leg``
+   line each), since under NaN the arg-min tree's result depends on its
+   pairs and their operand order.
    bfs_frontier's line also gives
    ``levels_ms``, its kernel time summed over the chain's launches, each
    timed at the state its level sees, and ``levels_bound_ms``, their
@@ -237,9 +247,11 @@ BF16_OPS_PER_S = 989e12          # H100 SXM dense bfloat16 tensor cores
 SLEEP_CYCLES = 1_000_000         # keeps the card busy while a run enqueues
 RUNS, WARMUP = 25, 3
 #: phase 2's pace_us: back-to-back in-place launches a run (needle_nw on
-#: its longest diagonal, pathfinder on its first row; both idempotent on
-#: fixed inputs), and the runs whose median is kept
-PACE_LAUNCHES = {"needle_nw": 512, "pathfinder": 99}
+#: its longest diagonal, pathfinder on its first row, nn's two kernels on
+#: their first iteration; all idempotent on fixed inputs), and the runs
+#: whose median is kept
+PACE_LAUNCHES = {"needle_nw": 512, "pathfinder": 99, "nn_reduce": 512,
+                 "nn_select": 512}
 PACE_RUNS = 5
 #: the card's clock is at most this (cycles a second), so a spin of
 #: seconds x this many cycles lasts at least that long
@@ -589,6 +601,57 @@ def bound(name: str, b: dict, p: dict, grid, block) -> tuple[float, str]:
     if bytes_ms >= ops_ms:
         return bytes_ms, "bytes"
     return ops_ms, "operations"
+
+
+def nan_records(block: int) -> list:
+    """The records phase 2's NaN leg sets to NaN in ``lat``, for logical
+    blocks of ``block`` records: the first, one in a lane's third register
+    (t = 77 of block 3) and all of block 5."""
+    return [0, 3 * block + min(77, block - 1),
+            *range(5 * block, 6 * block)]
+
+
+def same_bits(g: torch.Tensor, w: torch.Tensor) -> bool:
+    """Equal bit for bit, a NaN matching any NaN in the same place."""
+    if g.shape != w.shape or g.dtype != w.dtype:
+        return False
+    if not g.dtype.is_floating_point:
+        return torch.equal(g, w)
+    gn, wn = torch.isnan(g), torch.isnan(w)
+    return torch.equal(gn, wn) and torch.equal(
+        g[~gn].view(torch.int32), w[~wn].view(torch.int32))
+
+
+def nan_leg(entry, args: dict, cuda_suite, lower_cuda, dev) -> None:
+    """nn's two kernels once each on a copy of the entry's first state
+    with NaN distances (``nan_records``), each against its plain version
+    bit for bit; raises on a difference."""
+    from repro_torch.core.dim3 import Dim3
+
+    b = launch_inputs("nn", args, cuda_suite, dev)
+    steps = cuda_suite.entry_steps(entry)
+    recs = nan_records(Dim3.of(steps[0].block).x)
+    b["lat"] = b["lat"].clone()
+    b["lat"][recs] = float("nan")
+    for j, step in enumerate(steps):
+        if j and step.prepare is not None:
+            b = {**b, **step.prepare(0, b)}
+        kern = lower_cuda.KERNELS[step.kernel.name]
+        grid, block = Dim3.of(step.grid), Dim3.of(step.block)
+        params = lower_cuda.launch_params(step.kernel, step.dyn_shared)
+        got = kern(b, grid=grid, block=block, **params)
+        want = kern.plain(b, grid, block, **params)
+        torch.cuda.synchronize()
+        for k in kern.writes:
+            if not same_bits(got[k], want[k]):
+                raise AssertionError(f"nan_leg {kern.name}: {k} differs "
+                                     f"from plain")
+        nans = {k: int(torch.isnan(got[k]).sum()) for k in kern.writes
+                if got[k].dtype.is_floating_point}
+        print(f"nan_leg {kern.name}: nan_records={len(recs)} (0, "
+              f"{recs[1]}, {recs[2]}..{recs[-1]}) nan_outputs={nans} "
+              f"bits=equal")
+        b = {**b, **got}
 
 
 def compare(name: str, got: dict, want: dict, writes, tol: float) -> float:
@@ -1765,6 +1828,12 @@ def main() -> int:
                                                     block.x)
                 per = lower_cuda.pathfinder_cta_cols()
                 ctas = f" ctas={n_ctas} ({per} columns each)"
+            elif kname == "nn_reduce":
+                n_ctas = lower_cuda.nn_reduce_ctas(grid.x, block.x)
+                per = lower_cuda.nn_reduce_cta_threads()
+                ctas = f" ctas={n_ctas} ({per} threads each)"
+            elif kname == "nn_select":
+                ctas = f" ctas={grid.x} (32 threads each)"
             elif kname == "vecadd":
                 # vecadd_ctas counts the launcher's 16-byte path; buffers
                 # off 16 bytes would take its one-element path instead
@@ -1788,6 +1857,7 @@ def main() -> int:
             b = {**b, **got}        # the state the next step starts from
         del b
     torch.cuda.synchronize()
+    nan_leg(ents["nn"], host_args["nn"], cuda_suite, lower_cuda, dev)
 
     # ---- phase 3: the main path at Rodinia sizes ------------------------
     wants, oracle_s = {}, {}

@@ -869,13 +869,23 @@ SRAD_UPDATE = CudaKernel(
 # --------------------------------------------------------------------------
 # nn_reduce, nn_select
 # --------------------------------------------------------------------------
-def _lexicographic_min(v: torch.Tensor, i: torch.Tensor):
-    """The least (value, index) pair of each row: the minimum value, and
-    the lowest index that holds it.  Any tree of the kernels' pairwise
-    step gives this pair, whatever its order."""
-    m = v.amin(dim=-1, keepdim=True)
-    win = torch.where(v == m, i, _INT_MAX).amin(dim=-1)
-    return m.squeeze(-1), win
+def _argmin_tree(v: torch.Tensor, i: torch.Tensor):
+    """Position 0's pair of each row after the reference's halving tree
+    over the last axis (a power of two wide): for ``off`` from half the
+    width down to 1, position ``t < off`` takes the pair at ``t + off``
+    when its value is less, or equal with a lower index.  Without NaN that
+    is the least (value, index) pair; a NaN on the left is never replaced
+    and one on the right never taken, so with NaN the result depends on
+    where it sits, and only these pairs in this operand order give the
+    kernels' (and the reference's) pair."""
+    off = v.shape[-1] // 2
+    while off >= 1:
+        v1, v2 = v[..., :off], v[..., off:2 * off]
+        i1, i2 = i[..., :off], i[..., off:2 * off]
+        take = (v2 < v1) | ((v2 == v1) & (i2 < i1))
+        v, i = torch.where(take, v2, v1), torch.where(take, i2, i1)
+        off //= 2
+    return v[..., 0], i[..., 0]
 
 
 def nn_reduce_plain(b, grid: Dim3, block: Dim3, *, n: int, nthreads: int):
@@ -887,10 +897,26 @@ def nn_reduce_plain(b, grid: Dim3, block: Dim3, *, n: int, nthreads: int):
     dx, dy = b["lat"][g] - tgt[0], b["lng"][g] - tgt[1]
     d = torch.where((i < n) & (b["taken"][g] == 0), dx * dx + dy * dy,
                     torch.inf)
-    val, win = _lexicographic_min(d.view(nb, bs), g.view(nb, bs))
+    val, win = _argmin_tree(d.view(nb, bs), g.view(nb, bs))
     bid = torch.arange(nb, device=d.device)
     return {"pval": index.put(b["pval"], bid, val),
             "pidx": index.put(b["pidx"], bid, win)}
+
+
+def nn_reduce_cta_threads() -> int:
+    """The threads of one CTA of ``csrc/nn.cu``'s nn_reduce, as its
+    ``nn_reduce_cta_threads`` gives them (builds the kernels' library at
+    first use)."""
+    return _native.function("nn_reduce_cta_threads", ())()
+
+
+def nn_reduce_ctas(grid: int, block: int) -> int:
+    """The CTAs of :func:`nn_reduce_cta_threads` threads that nn_reduce's
+    launcher starts for ``grid`` logical blocks of ``block`` records: a
+    warp a block, or 32/block blocks a warp below 32."""
+    warps = -(-grid * min(block, 32) // 32)
+    per = nn_reduce_cta_threads() // 32
+    return -(-warps // per)
 
 
 def _nn_reduce_check(grid: Dim3, block: Dim3, params: dict):
@@ -917,7 +943,7 @@ NN_REDUCE = CudaKernel(
 def nn_select_plain(b, grid: Dim3, block: Dim3, *, nblocks: int):
     """The least of the partials goes to output slot ``step[0]``, and its
     record is marked taken."""
-    val, win = _lexicographic_min(b["pval"], b["pidx"])
+    val, win = _argmin_tree(b["pval"], b["pidx"])
     step = b["step"][0]
     return {"out_d": index.put(b["out_d"], step, val),
             "out_i": index.put(b["out_i"], step, win),

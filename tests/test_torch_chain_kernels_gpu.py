@@ -1,9 +1,12 @@
-"""needle_nw's and pathfinder's Hopper kernels on the card.
+"""The chain kernels' Hopper kernels on the card: needle_nw, pathfinder,
+nn_reduce and nn_select.
 
-Both run on CTAs other than the chevron's blocks and are launched as
+All four run on CTAs other than the chevron's blocks and are launched as
 programmatic dependents of the work before them on the stream, so each
-test holds the kernel against its plain version bit for bit (both are
-int32) at the edges of its mapping, and the chains, where one launch
+test holds the kernel against its plain version bit for bit at the edges
+of its mapping (int buffers exactly, float ones bit for bit with a NaN
+matching a NaN in the same place: nn's arg-min tree must keep its pairs
+and their operand order under NaN), and the chains, where one launch
 reads what the launch before it wrote, against host mode over their
 whole length, several times.  Every test is marked ``gpu`` and skips
 without a CUDA device; on a machine with one they run with
@@ -11,6 +14,7 @@ without a CUDA device; on a machine with one they run with
 tests/test_torch_chain_kernels_gpu.py``.  The file imports neither JAX
 nor the reference package.
 """
+import functools
 import importlib.util
 import pathlib
 
@@ -36,12 +40,17 @@ def card():
     return torch.device("cuda")
 
 
-def _sizes() -> dict:
+@functools.cache
+def _smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.SIZES
+    return mod
+
+
+def _sizes() -> dict:
+    return _smoke().SIZES
 
 
 def _nw_state(n: int, d: int, seed: int) -> dict:
@@ -133,25 +142,30 @@ def _chain(entry, args, card, mode):
                                   with_reference=False, device=card,
                                   chain_mode=mode, chain_stats=stats)
     torch.cuda.synchronize()
-    launched = lower_cuda.KERNELS[entry.name].launches
+    launched = sum(lower_cuda.KERNELS[k].launches for k in
+                   {s.kernel.name for s in cuda_suite.entry_steps(entry)})
     assert launched == stats.launches > 0, (mode, launched, stats.launches)
     return {k: v.cpu() for k, v in out.items()
-            if k not in entry.iteration_state}
+            if k not in entry.iteration_state and k not in entry.const}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ("device", "graph"))
-@pytest.mark.parametrize("name", ("needle_nw", "pathfinder"))
+@pytest.mark.parametrize("name", ("needle_nw", "pathfinder", "nn"))
 def test_chains_at_full_size_equal_host_mode(card, name, mode):
-    # chip_smoke.py's sizes (4,095 and 99 launches), each launch reading
-    # what the one before wrote: a read ahead of griddepcontrol.wait would
-    # show as a differing cell in some run
+    # chip_smoke.py's sizes (4,095, 99 and 10 launches), each launch
+    # reading what the one before wrote: a read ahead of
+    # griddepcontrol.wait would show as a differing cell in some run
     entry = getattr(cuda_suite, f"entry_{name}")(**_sizes()[name])
     args = entry.make_args(np.random.default_rng(42))
     host = _chain(entry, args, card, "host")
     want = entry.reference(args)
     for k, v in want.items():
-        assert np.array_equal(host[k].numpy(), v), k
+        if v.dtype.kind == "f":
+            np.testing.assert_allclose(host[k].numpy(), v, rtol=entry.tol,
+                                       atol=entry.tol, err_msg=k)
+        else:
+            assert np.array_equal(host[k].numpy(), v), k
     for run in range(CHAIN_RUNS):
         got = _chain(entry, args, card, mode)
         for k, v in host.items():
@@ -178,3 +192,110 @@ def test_needle_nw_batch_rows_equal_their_launches(card):
                            args=row, backend="cuda")
         assert torch.equal(got["score"], alone["score"])
         assert not torch.equal(got["score"], row["score"])
+
+
+def _same_bits(g: torch.Tensor, w: torch.Tensor) -> bool:
+    """Equal bit for bit, a NaN matching any NaN in the same place."""
+    return _smoke().same_bits(g, w)
+
+
+def _nn_reduce_host(n: int, block: int, nan: str, seed: int) -> dict:
+    """nn_reduce's buffers: n records, an eighth of them taken, ``lat``
+    NaN at block 0's first record, at one record of block 2 (t = 77 where
+    the block holds it, a lane's third register; its last record
+    otherwise), across block 1, or nowhere."""
+    r = np.random.default_rng(seed)
+    grid = -(-n // block)
+    lat = r.uniform(0.0, 90.0, n).astype(np.float32)
+    where = {"none": [], "first": [0],
+             "later": [min(n - 1, 2 * block + min(77, block - 1))],
+             "block": list(range(block, min(n, 2 * block)))}[nan]
+    lat[where] = np.nan
+    taken = np.zeros(n, np.int32)
+    taken[r.choice(n, n // 8, replace=False)] = 1
+    return {"lat": lat, "lng": r.uniform(0.0, 180.0, n).astype(np.float32),
+            "target": np.asarray([30.0, 90.0], np.float32), "taken": taken,
+            "pval": np.zeros(grid, np.float32),
+            "pidx": np.zeros(grid, np.int32)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nan", ("none", "first", "later", "block"))
+@pytest.mark.parametrize("n,block", [(64, 16), (1024, 256), (65536, 256),
+                                     (2048, 1024), (1000, 256)])
+def test_nn_reduce_bit_for_bit_on_the_card(card, n, block, nan):
+    # a segment of 16 lanes, one and four registers a lane, the main
+    # path's 256 blocks of 256, 32 registers a lane, and a ragged n whose
+    # last block holds records past n (inf, index n - 1)
+    kern = lower_cuda.KERNELS["nn_reduce"]
+    bufs = carry.from_reference(_nn_reduce_host(n, block, nan, n + block),
+                                device=card)
+    grid = -(-n // block)
+    before = kern.launches
+    got = kern(bufs, grid=grid, block=block, n=n, nthreads=block)
+    want = kern.plain(bufs, Dim3.of(grid), Dim3.of(block), n=n,
+                      nthreads=block)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert torch.equal(got["pidx"], want["pidx"])
+    assert _same_bits(got["pval"], want["pval"])
+    if nan in ("first", "block"):           # a NaN on the left stays
+        assert torch.isnan(got["pval"][0 if nan == "first" else 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", (1, 2))
+@pytest.mark.parametrize("step", (0, 3, -1, -5, 5, 100))
+@pytest.mark.parametrize("nan", ("none", "first", "inner"))
+@pytest.mark.parametrize("nblocks", (1, 4, 256, 1024))
+def test_nn_select_bit_for_bit_on_the_card(card, nblocks, nan, step, grid):
+    # partials tied on three values, NaN at partial 0 (never replaced) or
+    # at partials inside the tree (never taken); step in range, wrapped
+    # once (-1, -5) and dropped (5, 100) against 5 output slots; a grid of
+    # 2 writes the same winner twice
+    r = np.random.default_rng(nblocks * 100 + abs(step))
+    pval = r.choice(np.asarray([1.0, 2.0, 4.0], np.float32), nblocks)
+    if nan == "first":
+        pval[0] = np.nan
+    elif nan == "inner":
+        pval[[nblocks // 2, nblocks - 1]] = np.nan
+    records = nblocks * 64
+    host = {"pval": pval,
+            "pidx": r.permutation(records)[:nblocks].astype(np.int32),
+            "step": np.asarray([step], np.int32),
+            "out_d": np.full(5, -1.0, np.float32),
+            "out_i": np.full(5, -1, np.int32),
+            "taken": np.zeros(records, np.int32)}
+    kern = lower_cuda.KERNELS["nn_select"]
+    bufs = carry.from_reference(host, device=card)
+    before = kern.launches
+    got = kern(bufs, grid=grid, block=nblocks, nblocks=nblocks)
+    want = kern.plain(bufs, Dim3.of(grid), Dim3.of(nblocks), nblocks=nblocks)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    for k in kern.writes:
+        assert _same_bits(got[k], want[k]), k
+    assert int(got["taken"].sum()) == 1
+
+
+@pytest.mark.gpu
+def test_nn_reduce_batch_rows_equal_their_launches(card):
+    # launch_batch runs the rows back to back on one stream, each launch
+    # the programmatic dependent of the row before it, on other buffers
+    entry = cuda_suite.entry_nn(**_sizes()["nn"])
+    rows = [carry.from_reference(
+        _nn_reduce_host(65536, 256, nan, seed), device=card)
+        for seed, nan in enumerate(("none", "first", "later", "block"))]
+    kern = lower_cuda.KERNELS["nn_reduce"]
+    before = kern.launches
+    batch = api.launch_batch(entry.kernel, grid=entry.grid,
+                             block=entry.block, args_list=rows,
+                             backend="cuda")
+    torch.cuda.synchronize()
+    assert kern.launches == before + 4
+    for row, got in zip(rows, batch):
+        alone = api.launch(entry.kernel, grid=entry.grid, block=entry.block,
+                           args=row, backend="cuda")
+        assert torch.equal(got["pidx"], alone["pidx"])
+        assert _same_bits(got["pval"], alone["pval"])
+        assert not torch.equal(got["pidx"], row["pidx"])

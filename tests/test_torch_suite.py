@@ -569,6 +569,110 @@ def test_nn_equal_distances_go_to_the_lowest_record_index(backend):
     np.testing.assert_array_equal(_np(out["out_d"]), want["out_d"])
 
 
+def _nn_reduce_nan_args(n: int, block: int) -> dict:
+    """nn_reduce's buffers with ``lat`` NaN at block 0's first record,
+    across all of block 1, and at one record of block 2 (t = 77 where the
+    block holds it, a lane's third register; its last record otherwise),
+    and an eighth of the records taken."""
+    r = np.random.default_rng(n + block)
+    lat = r.uniform(0.0, 90.0, n).astype(np.float32)
+    lat[[0, 2 * block + min(77, block - 1)]] = np.nan
+    lat[block:2 * block] = np.nan
+    taken = np.zeros(n, np.int32)
+    taken[r.choice(n, n // 8, replace=False)] = 1
+    taken[0] = 0
+    return {"lat": lat, "lng": r.uniform(0.0, 180.0, n).astype(np.float32),
+            "target": np.asarray([30.0, 90.0], np.float32), "taken": taken,
+            "pval": np.zeros(n // block, np.float32),
+            "pidx": np.zeros(n // block, np.int32)}
+
+
+@functools.cache
+def _jax_nn_reduce_nan(n: int, block: int) -> dict:
+    want = japi.launch(jsuite.make_nn_reduce(n, block), grid=n // block,
+                       block=block, backend="loop",
+                       args={k: jnp.asarray(v) for k, v in
+                             _nn_reduce_nan_args(n, block).items()})
+    return {k: np.asarray(v) for k, v in want.items()}
+
+
+@pytest.mark.parametrize("backend", ("cuda", "loop", "vector"))
+@pytest.mark.parametrize("n,block", [(64, 16), (1024, 256)])
+def test_nn_reduce_with_nan_distances_follows_the_reference_tree(
+        n, block, backend):
+    # F6: a NaN on the tree's left is never replaced and one on its right
+    # never taken, so a block's pair depends on where the NaN sits: block
+    # 0 (NaN first) and block 1 (all NaN) keep their first record's NaN,
+    # block 2 drops its NaN.  The port's cuda (its plain version on the
+    # CPU), loop and vector give the reference loop launch's pidx exactly
+    # and its pval with NaN in the same places (np.argmin's first-NaN pick
+    # is no expectation here)
+    args = _nn_reduce_nan_args(n, block)
+    want = _jax_nn_reduce_nan(n, block)
+    assert np.isnan(want["pval"]).tolist() == [True, True, False, False]
+    assert want["pidx"][:2].tolist() == [0, block]
+    got = launch(cuda_suite.make_nn_reduce(n, block), grid=n // block,
+                 block=block, args=carry.from_reference(args, device="cpu"),
+                 backend=backend)
+    _assert_match("nn_reduce", got, want, ("pval", "pidx"))
+
+
+@pytest.mark.parametrize("backend", ("cuda", "loop", "vector"))
+@pytest.mark.parametrize("step", (1, -2, 9))
+def test_nn_select_with_nan_partials_follows_the_reference_tree(step,
+                                                                backend):
+    # 16 partials with NaN on both sides of the tree's pairs and ties on
+    # the value; step in range, wrapped once and dropped
+    r = np.random.default_rng(3)
+    pval = r.choice(np.asarray([1.0, 2.0, 4.0], np.float32), 16)
+    pval[[3, 8, 10]] = np.nan
+    args = {"pval": pval,
+            "pidx": r.permutation(16 * 64)[:16].astype(np.int32),
+            "step": np.asarray([step], np.int32),
+            "out_d": np.zeros(4, np.float32),
+            "out_i": np.zeros(4, np.int32),
+            "taken": np.zeros(16 * 64, np.int32)}
+    want = japi.launch(jsuite.make_nn_select(16), grid=1, block=16,
+                       backend="loop",
+                       args={k: jnp.asarray(v) for k, v in args.items()})
+    got = launch(cuda_suite.make_nn_select(16), grid=1, block=16,
+                 args=carry.from_reference(args, device="cpu"),
+                 backend=backend)
+    _assert_match("nn_select", got, want, ("out_d", "out_i", "taken"))
+
+
+@functools.cache
+def _nn_nan_entry_args():
+    jentry, _ = _entries("nn", n=256, block=64, knn=4)
+    args = jentry.make_args(np.random.default_rng(42))
+    args["lat"][[5, 70]] = np.nan
+    return args
+
+
+@functools.cache
+def _jax_nn_nan_run():
+    jentry, _ = _entries("nn", n=256, block=64, knn=4)
+    out, _ = jsuite.run_entry(jentry, "loop", args=_nn_nan_entry_args(),
+                              with_reference=False)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("backend", ("cuda", "loop", "vector"))
+def test_nn_entry_with_nan_records_equals_the_reference(backend):
+    # F6 through the whole chain: with lat[5] and lat[70] NaN the
+    # reference's kernels pick records 32, 47, 248 and 67; the port's
+    # cuda once gave INT_MAX four times and took nothing
+    _, tentry = _entries("nn", n=256, block=64, knn=4)
+    out, _ = cuda_suite.run_entry(tentry, backend,
+                                  args=_nn_nan_entry_args(),
+                                  with_reference=False, device="cpu")
+    jout = _jax_nn_nan_run()
+    np.testing.assert_array_equal(jout["out_i"], [32, 47, 248, 67])
+    for k in ("out_i", "taken"):
+        np.testing.assert_array_equal(_np(out[k]), jout[k], err_msg=k)
+    _assert_match("nn", out, jout, ("out_d",))
+
+
 KMEANS_RUNS = [({}, 42), ({}, 7), ({"n": 512, "k": 3}, 7),
                ({"n": 2048, "repeat": 3}, 7)]
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""needle_nw's and pathfinder's chains in each mode on one CUDA card.
+"""needle_nw's, pathfinder's and nn's chains in each mode on one CUDA card.
 
     PYTHONPATH=src python tools/chain_modes.py [--turns 3] [--label NAME]
 
-Runs the two chains at ``chip_smoke.py``'s ``SIZES`` (4,095 and 99
+Runs the three chains at ``chip_smoke.py``'s ``SIZES`` (4,095, 99 and 10
 launches) through ``cuda_suite.run_entry(..., backend="cuda")`` in host,
 device and graph mode, as phase 3b does, and prints a line a turn and
 entry with, in microseconds a launch:
@@ -38,7 +38,7 @@ from repro_torch.core.graphs import GraphExec
 from repro_torch.core.kernel import ChainStats, LaunchChain
 
 ROOT = Path(__file__).resolve().parents[1]
-NAMES = ("needle_nw", "pathfinder")
+NAMES = ("needle_nw", "pathfinder", "nn")
 
 
 def chip_smoke():
@@ -60,7 +60,8 @@ def run(entry, args, mode):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return ({k: v.cpu() for k, v in out.items()
-             if k not in entry.iteration_state}, wall, stats)
+             if k not in entry.iteration_state and k not in entry.const},
+            wall, stats)
 
 
 def main() -> int:
