@@ -66,10 +66,14 @@ Phases, each printing its own lines:
    ``lower_cuda.pathfinder_ctas``) and nn_reduce's (a warp a logical
    block on CTAs of ``lower_cuda.nn_reduce_cta_threads`` threads,
    ``lower_cuda.nn_reduce_ctas``; nn_select's is one warp a logical
-   block).  The lines of needle_nw, pathfinder, nn_reduce and nn_select
-   also give ``pace_us``: ``PACE_LAUNCHES`` back-to-back in-place
-   launches of the kernel (all four launched as programmatic dependents
-   of the work before them, all idempotent on fixed inputs) between two
+   block) and kmeans_update's (a lane a cluster,
+   ``lower_cuda.kmeans_update_ctas``) and reverse's (one CTA of
+   ``lower_cuda.reverse_cta_threads`` threads).  The lines of needle_nw,
+   pathfinder, nn_reduce, nn_select, kmeans_update and reverse also give
+   ``pace_us``: ``PACE_LAUNCHES`` back-to-back in-place launches of the
+   kernel (all six launched as programmatic dependents of the work before
+   them, all idempotent on fixed inputs but reverse, which runs an odd
+   count of times where one launch reverses its window) between two
    CUDA events after a spin that covers their enqueue, over the count,
    median of ``PACE_RUNS``, with ``enqueue_us``, the host's time a
    launch, beside it; the window of ``ms`` holds one launch and cannot go
@@ -248,10 +252,12 @@ SLEEP_CYCLES = 1_000_000         # keeps the card busy while a run enqueues
 RUNS, WARMUP = 25, 3
 #: phase 2's pace_us: back-to-back in-place launches a run (needle_nw on
 #: its longest diagonal, pathfinder on its first row, nn's two kernels on
-#: their first iteration; all idempotent on fixed inputs), and the runs
-#: whose median is kept
+#: their first iteration, kmeans_update on the sums of the first; all
+#: idempotent on fixed inputs; reverse, an involution where its extent is
+#: its block, an odd count of times, which equals its one launch), and the
+#: runs whose median is kept
 PACE_LAUNCHES = {"needle_nw": 512, "pathfinder": 99, "nn_reduce": 512,
-                 "nn_select": 512}
+                 "nn_select": 512, "kmeans_update": 512, "reverse": 511}
 PACE_RUNS = 5
 #: the card's clock is at most this (cycles a second), so a spin of
 #: seconds x this many cycles lasts at least that long
@@ -1834,6 +1840,13 @@ def main() -> int:
                 ctas = f" ctas={n_ctas} ({per} threads each)"
             elif kname == "nn_select":
                 ctas = f" ctas={grid.x} (32 threads each)"
+            elif kname == "kmeans_update":
+                n_ctas = lower_cuda.kmeans_update_ctas(params["k"])
+                ctas = (f" ctas={n_ctas} (a lane a cluster, up to "
+                        f"{lower_cuda.kmeans_update_cta_threads()} each)")
+            elif kname == "reverse":
+                ctas = (f" ctas=1 ({lower_cuda.reverse_cta_threads()} "
+                        f"threads)")
             elif kname == "vecadd":
                 # vecadd_ctas counts the launcher's 16-byte path; buffers
                 # off 16 bytes would take its one-element path instead

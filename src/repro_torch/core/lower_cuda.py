@@ -1051,8 +1051,9 @@ KMEANS_ASSIGN = CudaKernel(
 
 
 def kmeans_update_plain(b, grid: Dim3, block: Dim3, *, k: int):
-    """Each cluster's centroid: its sums over its count (IEEE division);
-    an empty cluster keeps its centroid."""
+    """Each cluster's centroid: its sums over its count (IEEE division;
+    over 1 where the count is negative); an empty cluster keeps its
+    centroid."""
     cnt = b["count"]
     safe = cnt.clamp(min=1).to(_F32)
     empty = cnt == 0
@@ -1065,6 +1066,20 @@ def _kmeans_update_check(grid: Dim3, block: Dim3, params: dict):
     if grid.x != params["k"]:
         raise UnsupportedKernel(f"kmeans_update: one block per cluster; "
                                 f"grid {grid.x} != k = {params['k']}")
+
+
+def kmeans_update_cta_threads() -> int:
+    """The threads of the widest CTA of ``csrc/kmeans.cu``'s update, as its
+    ``kmeans_update_cta_threads`` gives them (builds the kernels' library
+    at first use)."""
+    return _native.function("kmeans_update_cta_threads", ())()
+
+
+def kmeans_update_ctas(k: int) -> int:
+    """The CTAs that kmeans_update's launcher starts for ``k`` clusters: a
+    lane a cluster, up to :func:`kmeans_update_cta_threads` lanes a CTA."""
+    warps = -(-k // 32)
+    return -(-warps // (kmeans_update_cta_threads() // 32))
 
 
 KMEANS_UPDATE = CudaKernel(
@@ -1148,6 +1163,13 @@ def _reverse_check(grid: Dim3, block: Dim3, params: dict):
     if ns * _I32.itemsize > _DEFAULT_DYN_SHARED_BYTES:
         raise UnsupportedKernel(f"reverse: dyn_shared {ns} int32 exceeds "
                                 f"{_DEFAULT_DYN_SHARED_BYTES} bytes")
+
+
+def reverse_cta_threads() -> int:
+    """The threads of ``csrc/reverse.cu``'s one CTA, as its
+    ``reverse_cta_threads`` gives them (builds the kernels' library at
+    first use)."""
+    return _native.function("reverse_cta_threads", ())()
 
 
 REVERSE = CudaKernel(

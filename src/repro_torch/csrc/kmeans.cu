@@ -2,8 +2,9 @@
 //   kmeans_assign - each point takes its nearest centroid (ties to the
 //                   lower centre); the point's coordinates and a count go
 //                   to its cluster's sums, and a moved point to `changed`;
-//   kmeans_update - one block per cluster: the centroid becomes its sums
-//                   over its count, and an empty cluster keeps its centroid.
+//   kmeans_update - the centroid of each cluster becomes its sums over its
+//                   count (over 1 where the count is negative), and an
+//                   empty cluster keeps its centroid.
 //
 // Replaces: the TPU kernel src/repro/core/pallas_emit.py:34 (`run`, one
 // pl.pallas_call per launch) applied to make_kmeans_assign and
@@ -46,6 +47,38 @@
 // first update the centroids are not integers, and an FMA would move near
 // ties.  update divides with __fdiv_rn, so the centroids equal NumPy's
 // float32 division.
+//
+// kmeans_update is bound by the launch: it moves 28 k bytes.  The
+// chevron's k blocks of 8 threads, of which thread 0 read count[c] and only
+// then sumx[c] and sumy[c], paid two dependent round trips behind a plain
+// launch after assign.  The design:
+// - a lane a cluster: lane c of warp w takes cluster 32 w + c, in CTAs of
+//   up to kUpdateCtaWarps warps (lower_cuda.kmeans_update_ctas gives the
+//   CTA count); the chevron's grid of k blocks only fixes k;
+// - one round trip: count, sumx and sumy are loaded together before any
+//   is used; an empty cluster stores nothing, so cx and cy are never read;
+// - a programmatic dependent launch (as needle_nw's): the launch and the
+//   CTAs' start overlap assign's tail.  Only index arithmetic runs before
+//   griddepcontrol.wait, since assign adds into sumx, sumy and count by
+//   atomics; each lane signals griddepcontrol.launch_dependents once its
+//   loads are issued.  sumx, sumy and count have no __restrict__, so their
+//   loads do not take the non-coherent path.
+// The reference divides by max(count, 1) and keeps the centroid only where
+// the count is 0, so a negative count divides by 1, as here.
+// assign signals griddepcontrol.launch_dependents once its loads are
+// issued (kAssignTriggers), so that update's CTA may start before assign's
+// have all finished; it changes nothing else in assign.
+// tools/kmeans_update_variants.cu times update beside the kernel it
+// replaced, the mapping launched plainly, CTAs of 1 to 8 warps and an
+// empty kernel of its CTA, and the chain's iteration (four zero fills,
+// assign, update) with and without assign's trigger.  On an NVIDIA H100
+// 80GB HBM3 at 700.00 W, 512 launches back to back at k = 4: this kernel
+// 0.9008 us a launch, the old one 2.2326, this mapping launched plainly
+// 1.9630, CTAs of 1 to 8 warps 0.889-0.901; an empty kernel 0.5592 as a
+// dependent launch and 1.6943 plainly.  An iteration streamed: 14.44 us
+// against the old kernel's 15.89, 14.15 with assign's trigger; replayed as
+// one CUDA graph: 9.73 against 10.11, 9.02 with the trigger.  update 20
+// registers, assign 40 at k = 4 with or without the trigger, no spills.
 #include <cuda_runtime.h>
 
 #define KMEANS_MAX_K 32
@@ -57,6 +90,16 @@ constexpr int kPoints = 4;                 // points a thread
 constexpr int kWarps = kThreads / 32;
 constexpr int kRegK = 8;                   // the largest k held in registers
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kUpdateCtaWarps = 8;         // update's widest CTA
+constexpr bool kAssignTriggers = true;     // assign signals its dependents
+
+__device__ __forceinline__ void wait_for_prerequisites() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;");
+}
 
 __device__ __forceinline__ float dist2(float x, float y, float cx, float cy) {
   const float dx = __fsub_rn(x, cx), dy = __fsub_rn(y, cy);
@@ -125,7 +168,7 @@ __device__ __forceinline__ void flush(const Bufs& b, float (&wx)[kWarps][NB],
 }
 
 // k == K <= kRegK: centroids and per-cluster partials in registers.
-template <int K>
+template <int K, bool kTrigger = kAssignTriggers>
 __global__ void __launch_bounds__(kThreads) assign_regs(Bufs b, long long m) {
   __shared__ float wx[kWarps][K], wy[kWarps][K];
   __shared__ int wn[kWarps][K], wm[kWarps];
@@ -144,6 +187,7 @@ __global__ void __launch_bounds__(kThreads) assign_regs(Bufs b, long long m) {
     const long long i = first + (long long)j * kThreads;
     if (i < m) x[j] = b.px[i], y[j] = b.py[i], old[j] = b.assign[i];
   }
+  if constexpr (kTrigger) launch_dependents();
   int moved = 0;
 #pragma unroll
   for (int j = 0; j < kPoints; ++j) {
@@ -182,6 +226,7 @@ __global__ void __launch_bounds__(kThreads) assign_regs(Bufs b, long long m) {
 
 // kRegK < k <= KMEANS_MAX_K: centroids in __shared__, a bin set per warp
 // filled by shared atomics.
+template <bool kTrigger = kAssignTriggers>
 __global__ void __launch_bounds__(kThreads)
     assign_bins(Bufs b, long long m, int k) {
   __shared__ float ccx[KMEANS_MAX_K], ccy[KMEANS_MAX_K];
@@ -202,6 +247,7 @@ __global__ void __launch_bounds__(kThreads)
     const long long i = first + (long long)j * kThreads;
     if (i < m) x[j] = b.px[i], y[j] = b.py[i], old[j] = b.assign[i];
   }
+  if constexpr (kTrigger) launch_dependents();
   __syncthreads();                // the centroids are in, the bins zeroed
   int moved = 0;
 #pragma unroll
@@ -237,17 +283,33 @@ void launch_assign(const Bufs& b, long long m, int k, int ctas,
   }
 }
 
-__global__ void kmeans_update_kernel(const float* __restrict__ sumx,
-                                     const float* __restrict__ sumy,
-                                     const int* __restrict__ count, float* cx,
-                                     float* cy, int k) {
-  const int c = blockIdx.x;
-  if (threadIdx.x != 0 || c >= k) return;
+// Lane c of the launch takes cluster c; blockDim-agnostic, so
+// tools/kmeans_update_variants.cu can launch it on other CTAs.
+__global__ void kmeans_update_kernel(const float* sumx, const float* sumy,
+                                     const int* count, float* cx, float* cy,
+                                     int k) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= k) return;
+  wait_for_prerequisites();
   const int cnt = count[c];
+  const float sx = sumx[c], sy = sumy[c];
+  launch_dependents();
   if (cnt == 0) return;           // an empty cluster keeps its centroid
-  const float safe = __int2float_rn(cnt);
-  cx[c] = __fdiv_rn(sumx[c], safe);
-  cy[c] = __fdiv_rn(sumy[c], safe);
+  const float safe = __int2float_rn(max(cnt, 1));
+  cx[c] = __fdiv_rn(sx, safe);
+  cy[c] = __fdiv_rn(sy, safe);
+}
+
+// The CTAs of kmeans_update (warps of a lane a cluster, up to
+// kUpdateCtaWarps a CTA) and their threads, for k clusters.
+inline int update_ctas_of(int k) {
+  const int warps = (k + 31) / 32;
+  return (warps + kUpdateCtaWarps - 1) / kUpdateCtaWarps;
+}
+
+inline int update_threads_of(int k) {
+  const int warps = (k + 31) / 32;
+  return 32 * (warps < kUpdateCtaWarps ? warps : kUpdateCtaWarps);
 }
 
 }  // namespace
@@ -274,15 +336,33 @@ extern "C" int launch_kmeans_assign(const float* px, const float* py,
   if (k <= kRegK)
     launch_assign<kRegK>(b, m, k, ctas, s);
   else
-    assign_bins<<<ctas, kThreads, 0, s>>>(b, m, k);
+    assign_bins<kAssignTriggers><<<ctas, kThreads, 0, s>>>(b, m, k);
   return (int)cudaGetLastError();
 }
 
-// grid == k: one block per cluster.
+// The widest CTA of kmeans_update; lower_cuda.kmeans_update_ctas gives
+// the CTA count.
+extern "C" int kmeans_update_cta_threads() { return kUpdateCtaWarps * 32; }
+
+// grid == k: the chevron's one block of `block` threads a cluster, run as a
+// lane a cluster and launched as a programmatic dependent of the work
+// before it on the stream.  A block the chevron could not launch is
+// refused as the chevron would refuse it.
 extern "C" int launch_kmeans_update(const float* sumx, const float* sumy,
                                     const int* count, float* cx, float* cy,
                                     int k, int block, void* stream) {
-  kmeans_update_kernel<<<k, block, 0, (cudaStream_t)stream>>>(
-      sumx, sumy, count, cx, cy, k);
-  return (int)cudaGetLastError();
+  if (k < 1 || block < 1 || block > 1024)
+    return (int)cudaErrorInvalidConfiguration;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(update_ctas_of(k));
+  cfg.blockDim = dim3(update_threads_of(k));
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kmeans_update_kernel, sumx, sumy,
+                                 count, cx, cy, k);
 }

@@ -1,14 +1,16 @@
 """The chain kernels' Hopper kernels on the card: needle_nw, pathfinder,
-nn_reduce and nn_select.
+nn_reduce, nn_select and kmeans_update, and reverse's back-to-back
+launches.
 
-All four run on CTAs other than the chevron's blocks and are launched as
+All six run on CTAs other than the chevron's blocks and are launched as
 programmatic dependents of the work before them on the stream, so each
 test holds the kernel against its plain version bit for bit at the edges
 of its mapping (int buffers exactly, float ones bit for bit with a NaN
 matching a NaN in the same place: nn's arg-min tree must keep its pairs
-and their operand order under NaN), and the chains, where one launch
-reads what the launch before it wrote, against host mode over their
-whole length, several times.  Every test is marked ``gpu`` and skips
+and their operand order under NaN; kmeans_update's as int32 patterns),
+and the chains, where one launch reads what the launch before it wrote,
+against host mode over their whole length, several times, as it does the
+rows of a batch and back-to-back launches on one buffer.  Every test is marked ``gpu`` and skips
 without a CUDA device; on a machine with one they run with
 ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_chain_kernels_gpu.py``.  The file imports neither JAX
@@ -151,9 +153,10 @@ def _chain(entry, args, card, mode):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ("device", "graph"))
-@pytest.mark.parametrize("name", ("needle_nw", "pathfinder", "nn"))
+@pytest.mark.parametrize("name", ("needle_nw", "pathfinder", "nn",
+                                  "kmeans"))
 def test_chains_at_full_size_equal_host_mode(card, name, mode):
-    # chip_smoke.py's sizes (4,095, 99 and 10 launches), each launch
+    # chip_smoke.py's sizes (4,095, 99, 10 and 6 launches), each launch
     # reading what the one before wrote: a read ahead of
     # griddepcontrol.wait would show as a differing cell in some run
     entry = getattr(cuda_suite, f"entry_{name}")(**_sizes()[name])
@@ -299,3 +302,131 @@ def test_nn_reduce_batch_rows_equal_their_launches(card):
         assert torch.equal(got["pidx"], alone["pidx"])
         assert _same_bits(got["pval"], alone["pval"])
         assert not torch.equal(got["pidx"], row["pidx"])
+
+
+#: kmeans_update's counts off the entry's path: zero (the centroid
+#: stays), negative (divided by 1), one, and past 2^24 (the count's float
+#: rounds); its sums: NaN, signed zeros, values whose quotient rounds
+UPDATE_COUNTS = np.asarray([0, -2, 1, 3, -1, 1 << 24, (1 << 24) + 1,
+                            (1 << 25) + 3, -(1 << 25) - 3, 7, 0x7FFFFFFF,
+                            -(1 << 31)], np.int64).astype(np.int32)
+UPDATE_SUMS = np.asarray([6.0, 5.0, 0.0, -0.0, np.nan, 1e30, 16777217.0,
+                          -3.0, 123.25, 1e-30, 2.0, -7.5], np.float32)
+
+
+def _kmeans_update_host(k: int, seed: int) -> dict:
+    """kmeans_update's buffers at k clusters, each count, sum and
+    centroid drawn from the edge values above."""
+    r = np.random.default_rng(seed)
+    return {"sumx": r.choice(UPDATE_SUMS, k),
+            "sumy": r.choice(UPDATE_SUMS, k),
+            "count": r.choice(UPDATE_COUNTS, k),
+            "cx": r.uniform(-100, 100, k).astype(np.float32),
+            "cy": r.choice(UPDATE_SUMS, k)}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", (0, 1, 2))
+@pytest.mark.parametrize("k", (1, 4, 32, 33, 100, 300))
+def test_kmeans_update_bit_for_bit_on_the_card(card, k, seed):
+    # a lane a cluster: one warp, a ragged second warp, four warps, and
+    # two CTAs (300 clusters); cx and cy as int32 patterns
+    kern = lower_cuda.KERNELS["kmeans_update"]
+    bufs = carry.from_reference(_kmeans_update_host(k, k * 10 + seed),
+                                device=card)
+    before = kern.launches
+    got = kern(bufs, grid=k, block=8, k=k)
+    want = kern.plain(bufs, Dim3.of(k), Dim3.of(8), k=k)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    for name in kern.writes:
+        assert torch.equal(_bits(got[name]), _bits(want[name])), name
+
+
+@pytest.mark.gpu
+def test_kmeans_update_divides_a_negative_count_by_one_on_the_card(card):
+    # the reference's rule: max(count, 1) divides, only a zero count keeps
+    # the centroid
+    host = {"sumx": np.float32([6, 5, 9, 10]),
+            "sumy": np.float32([4, 1, 3, 7]),
+            "count": np.int32([-2, 0, 3, 5]),
+            "cx": np.float32([1, 2, 3, 4]), "cy": np.float32([5, 6, 7, 8])}
+    kern = lower_cuda.KERNELS["kmeans_update"]
+    got = kern(carry.from_reference(host, device=card), grid=4, block=8,
+               k=4)
+    torch.cuda.synchronize()
+    assert got["cx"].cpu().tolist() == [6.0, 2.0, 3.0, 2.0]
+    assert np.array_equal(got["cy"].cpu().numpy(),
+                          np.float32([4, 6, 1, 1.4]))
+
+
+@pytest.mark.gpu
+def test_kmeans_update_batch_rows_equal_their_launches(card):
+    # launch_batch runs the rows back to back on one stream, each launch
+    # the programmatic dependent of the row before it, on other buffers
+    k = 33
+    kernel = cuda_suite.make_kmeans_update(k)
+    rows = [carry.from_reference(_kmeans_update_host(k, seed), device=card)
+            for seed in range(4)]
+    kern = lower_cuda.KERNELS["kmeans_update"]
+    before = kern.launches
+    batch = api.launch_batch(kernel, grid=k, block=8, args_list=rows,
+                             backend="cuda")
+    torch.cuda.synchronize()
+    assert kern.launches == before + 4
+    for row, got in zip(rows, batch):
+        alone = api.launch(kernel, grid=k, block=8, args=row, backend="cuda")
+        for name in ("cx", "cy"):
+            assert torch.equal(_bits(got[name]), _bits(alone[name])), name
+        assert not torch.equal(_bits(got["cx"]), _bits(row["cx"]))
+
+
+def _reverse_rows(count: int) -> list[dict]:
+    return [{"d": torch.from_numpy(np.random.default_rng(seed).integers(
+        -50, 50, 1024).astype(np.int32))} for seed in range(count)]
+
+
+@pytest.mark.gpu
+def test_reverse_batch_rows_equal_their_launches(card):
+    # eight rows back to back on one stream, each a programmatic dependent
+    # of the row before it, on other buffers
+    entry = cuda_suite.entry_reverse(n=1024)
+    rows = [carry.from_reference({"d": r["d"].numpy()}, device=card)
+            for r in _reverse_rows(8)]
+    kern = lower_cuda.KERNELS["reverse"]
+    before = kern.launches
+    batch = api.launch_batch(entry.kernel, grid=1, block=1024,
+                             dyn_shared=1024, args_list=rows,
+                             backend="cuda")
+    torch.cuda.synchronize()
+    assert kern.launches == before + 8
+    for row, got in zip(rows, batch):
+        alone = api.launch(entry.kernel, grid=1, block=1024,
+                           dyn_shared=1024, args=row, backend="cuda")
+        assert torch.equal(got["d"], alone["d"])
+        assert torch.equal(got["d"], row["d"].flip(0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block,dyn", ((1024, 1024), (1000, 1028),
+                                       (1000, 1029)))
+def test_reverse_back_to_back_launches_equal_one(card, block, dyn):
+    # 511 launches on one buffer, each the programmatic dependent of the
+    # one before it, which is still writing what it reads: an odd count of
+    # an involution (the zeros below ns - block stay zeros) equals one
+    kern = lower_cuda.KERNELS["reverse"]
+    d = _reverse_rows(1)[0]["d"].to(card)
+    want = kern({"d": d}, grid=1, block=block, n=1024, dyn_shared=dyn)
+    for run in range(CHAIN_RUNS):
+        work = {"d": d.clone()}
+        before = kern.launches
+        for _ in range(511):
+            kern.launch_into(work, Dim3(1), Dim3(block), n=1024,
+                             dyn_shared=dyn)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 511
+        assert torch.equal(work["d"], want["d"]), run

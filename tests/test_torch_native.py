@@ -168,7 +168,7 @@ def test_reverse_takes_its_shared_extent_from_the_launch(card):
 def test_reverse_runs_a_grid_as_passes_of_one_block_on_the_card(card, grid):
     # the reference's blocks reverse the same d one after another; the
     # plain version does so (held to the reference's loop backend on the
-    # CPU), and the kernel runs them as passes of one physical block
+    # CPU), and the kernel computes the passes' closed form in one launch
     entry = cuda_suite.entry_reverse(n=1024)
     d = carry.from_reference(entry.make_args(np.random.default_rng(42)),
                              device=card)["d"]
@@ -181,6 +181,35 @@ def test_reverse_runs_a_grid_as_passes_of_one_block_on_the_card(card, grid):
         want = kern.plain({"d": d.cpu()}, Dim3(grid), Dim3(block), n=1024,
                           dyn_shared=dyn)
         assert torch.equal(got["d"].cpu(), want["d"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("grid", (1, 2, 3, 4))
+@pytest.mark.parametrize("extra", (0, 1, 5, 28, 300, 2100))
+@pytest.mark.parametrize("block", (1, 31, 32, 96, 1000, 1024))
+def test_reverse_closed_form_bit_for_bit_on_the_card(card, block, extra,
+                                                      grid, offset):
+    # the extent ns = block + extra: the window [ns - block, block) whole,
+    # cut at odd and even edges (a middle cell where its length is odd),
+    # or empty; one and two passes and more; d on a 16-byte boundary (the
+    # 16-byte pairs where the window's edges allow, with a tail of
+    # one-int pairs at block 1000, extra 28) and 4 bytes past it (one int
+    # a lane); the cells past the block keep their values
+    host = {"d": torch.from_numpy(np.random.default_rng(block + extra)
+                                  .integers(-50, 50, 1024)
+                                  .astype(np.int32))}
+    bufs = _on_card(host, card, offset)
+    kern = lower_cuda.KERNELS["reverse"]
+    ns = block + extra
+    before = kern.launches
+    with lower_cuda.in_place():
+        kern(bufs, grid=grid, block=block, n=1024, dyn_shared=ns)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = kern.plain(host, Dim3(grid), Dim3(block), n=1024,
+                      dyn_shared=ns)["d"]
+    assert torch.equal(bufs["d"].cpu(), want)
 
 
 @pytest.mark.gpu
@@ -955,6 +984,22 @@ def test_kmeans_assign_ctas_cover_exactly_the_points(monkeypatch, n, grid,
     m = min(n, grid * block)
     assert (np.arange(m) // per < ctas).all()
     assert (ctas - 1) * per < m
+
+
+@pytest.mark.parametrize("per", (256, 32, 128))
+@pytest.mark.parametrize("k", (1, 4, 32, 33, 100, 256, 257, 1000))
+def test_kmeans_update_ctas_give_every_cluster_one_lane(monkeypatch, k,
+                                                        per):
+    # lane c of the launch takes cluster c: CTAs of up to `per` lanes
+    # hold the k clusters, and the last CTA holds one.  The widest CTA
+    # comes from the kernel's source on the card; here it is the shipped
+    # width and two others
+    monkeypatch.setattr(lower_cuda, "kmeans_update_cta_threads",
+                        lambda: per)
+    ctas = lower_cuda.kmeans_update_ctas(k)
+    warps = -(-k // 32)
+    lanes = min(warps, per // 32) * 32          # a CTA's threads
+    assert ctas * lanes >= k > (ctas - 1) * lanes
 
 
 def _kmeans_host(n, k, rng, held=0.5):

@@ -798,6 +798,113 @@ def test_reverse_blocks_reverse_the_same_d_in_turn(grid, block, dyn):
         np.testing.assert_array_equal(_np(got["d"]), args["d"])
 
 
+#: reverse's blocks and the extents past them (ns - B): one thread, a
+#: ragged warp, a warp, three warps, CUDA's widest block; ns = B, and the
+#: window [ns - B, B) cut by 1, 5 and 300 cells, or empty
+REVERSE_BLOCKS = (1, 31, 32, 96, 1024)
+REVERSE_EXTRA = (0, 1, 5, 300, 2100)
+
+
+@pytest.mark.parametrize("grid", (1, 4, 7))
+@pytest.mark.parametrize("extra", REVERSE_EXTRA)
+@pytest.mark.parametrize("block", REVERSE_BLOCKS)
+def test_reverse_grids_of_passes_match_the_reference(block, extra, grid):
+    # one pass, an even and an odd count of them over d[1024]; the cells
+    # at the block and past it keep their values
+    tkernel = cuda_suite.entry_reverse(n=1024).kernel
+    d = np.random.default_rng(block * 10 + extra).integers(
+        -50, 50, 1024).astype(np.int32)
+    ns = block + extra
+    want = japi.launch(jsuite.make_reverse(), grid=grid, block=block,
+                       dyn_shared=ns, args={"d": jnp.asarray(d)},
+                       backend="loop")
+    for backend in ("vector", "loop", "cuda"):
+        got = tkernel[grid, block, ns].on(backend=backend)(
+            d=torch.from_numpy(d))
+        _assert_match("reverse", got, want, ("d",))
+    np.testing.assert_array_equal(np.asarray(want["d"])[block:], d[block:])
+
+
+def _reverse_closed_form(d, block, ns, grid):
+    """``grid`` passes of one block over ``d`` in closed form: zeros
+    below lo = min(ns - block, block), the window [lo, block) reversed in
+    place for an odd count of passes and kept for an even one."""
+    out = d.copy()
+    lo = min(ns - block, block)
+    out[:lo] = 0
+    if grid % 2:
+        out[lo:block] = d[lo:block][::-1]
+    return out
+
+
+@pytest.mark.parametrize("grid", (1, 2, 3, 4, 7))
+@pytest.mark.parametrize("block", (1, 2, 31, 32, 96, 256, 1024))
+def test_reverse_plain_equals_the_closed_form(block, grid):
+    # the rule csrc/reverse.cu computes, held against the plain version,
+    # which runs the passes one by one
+    kern = lower_cuda.KERNELS["reverse"]
+    for extra in (0, 1, 5, 300, 1024, 2100):
+        d = np.random.default_rng(extra).integers(0, 100, 1100).astype(
+            np.int32)
+        ns = block + extra
+        got = kern.plain({"d": torch.from_numpy(d)}, Dim3(grid),
+                         Dim3(block), n=1100, dyn_shared=ns)["d"]
+        np.testing.assert_array_equal(
+            got.numpy(), _reverse_closed_form(d, block, ns, grid),
+            err_msg=f"extra {extra}")
+
+
+def _same_float_bits(got, want, err_msg=""):
+    """float32 arrays equal as int32 bit patterns, a NaN matching a NaN
+    in the same place."""
+    g, w = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    nan = np.isnan(w)
+    np.testing.assert_array_equal(np.isnan(g), nan, err_msg=err_msg)
+    np.testing.assert_array_equal(g.view(np.int32)[~nan],
+                                  w.view(np.int32)[~nan], err_msg=err_msg)
+
+
+#: kmeans_update's buffers off the entry's path: a negative count divides
+#: by 1 and a zero count keeps its centroid (the reference's rule); counts
+#: past 2^24, where the count's float rounds; NaN and signed-zero sums
+KMEANS_UPDATE_CASES = {
+    "negative": {"sumx": [6, 5, 9, 10], "sumy": [4, 1, 3, 7],
+                 "count": [-2, 0, 3, 5], "cx": [1, 2, 3, 4],
+                 "cy": [5, 6, 7, 8]},
+    "large": {"sumx": [16777217, 3e7, -5e9, 7, 1e30, 0],
+              "sumy": [1, -1, 2.5, -7, 3, 1e-30],
+              "count": [1 << 24, (1 << 24) + 1, (1 << 25) + 3,
+                        -(1 << 25) - 3, 0x7FFFFFFF, -(1 << 31)],
+              "cx": [0.5] * 6, "cy": [-0.5] * 6},
+    "nan_and_zeros": {"sumx": [0.0, -0.0, np.nan, -0.0, np.nan, 4],
+                      "sumy": [-0.0, np.nan, 0.0, -0.0, 2, -np.nan],
+                      "count": [1, 3, -1, -4, 0, 2],
+                      "cx": [9, 9, 9, 9, np.nan, 9],
+                      "cy": [-0.0, 1, 1, 1, 1, 1]},
+}
+
+
+@pytest.mark.parametrize("backend", ("vector", "loop", "cuda"))
+@pytest.mark.parametrize("case", tuple(KMEANS_UPDATE_CASES))
+def test_kmeans_update_counts_off_the_path_match_the_reference(case,
+                                                               backend):
+    host = {name: np.asarray(v, np.int32 if name == "count" else np.float32)
+            for name, v in KMEANS_UPDATE_CASES[case].items()}
+    k = host["count"].size
+    want = japi.launch(jsuite.make_kmeans_update(k), grid=k, block=8,
+                       args={n: jnp.asarray(v) for n, v in host.items()},
+                       backend="loop")
+    got = cuda_suite.make_kmeans_update(k)[k, 8].on(backend=backend)(
+        **{n: torch.from_numpy(v) for n, v in host.items()})
+    for name in ("cx", "cy"):
+        _same_float_bits(_np(got[name]), np.asarray(want[name]), name)
+    if case == "negative":
+        np.testing.assert_array_equal(_np(got["cx"]),
+                                      np.float32([6, 2, 3, 2]))
+        np.testing.assert_array_equal(_np(got["cy"]),
+                                      np.float32([4, 6, 1, 1.4]))
+
+
 def test_reverse_wrapper_refuses_a_shared_array_smaller_than_the_block():
     _, tentry = _entries("reverse")
     kern = lower_cuda.KERNELS["reverse"]

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""needle_nw's, pathfinder's and nn's chains in each mode on one CUDA card.
+"""needle_nw's, pathfinder's, nn's and kmeans's chains in each mode on one
+CUDA card.
 
     PYTHONPATH=src python tools/chain_modes.py [--turns 3] [--label NAME]
 
-Runs the three chains at ``chip_smoke.py``'s ``SIZES`` (4,095, 99 and 10
-launches) through ``cuda_suite.run_entry(..., backend="cuda")`` in host,
+Runs the four chains at ``chip_smoke.py``'s ``SIZES`` (4,095, 99, 10 and
+6 launches) through ``cuda_suite.run_entry(..., backend="cuda")`` in host,
 device and graph mode, as phase 3b does, and prints a line a turn and
 entry with, in microseconds a launch:
 
@@ -38,7 +39,7 @@ from repro_torch.core.graphs import GraphExec
 from repro_torch.core.kernel import ChainStats, LaunchChain
 
 ROOT = Path(__file__).resolve().parents[1]
-NAMES = ("needle_nw", "pathfinder", "nn")
+NAMES = ("needle_nw", "pathfinder", "nn", "kmeans")
 
 
 def chip_smoke():
