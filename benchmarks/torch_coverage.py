@@ -16,7 +16,11 @@ model the paper's frameworks:
   vector       - the vectorised lowering
   cuda         - the hand-written Hopper kernels (where the reference
                  has its Pallas emission)
+  shard        - the loop lowering's blocks over a pool of workers
+  shard_vector - the vectorised lowering's blocks over the pool
 
+The shard columns run at the pool the environment gives
+(``CUPBOP_HOST_DEVICES`` host workers on the CPU, the cards on CUDA).
 The paper's headline is CuPBoP 69.6 % against 56.6 % for the best prior
 translator on Rodinia.  The percentages here are over the suite's 23
 kernels, so the ordering is the claim: naive < loop_nowarp < loop ==

@@ -133,7 +133,13 @@ Phases, each printing its own lines:
    (``coverage <backend>: correct= pct=`` beside the paper's 69.6 % and
    56.6 %).  Every passing ``cuda`` cell must have launched each kernel
    of its entry, and each of the 26 kernels of the 23 entries must have
-   launched in the phase;
+   launched in the phase; ``shard_vector`` (the vector lowering's blocks
+   over the pool, one card here) launches none and each of its host cells
+   is bit for bit ``vector``'s.  Then the shard check: the pool on CUDA
+   tensors (``shard pool:``), ``devices=2`` refused on the card's heap,
+   and ``shard_vector`` / ``shard`` at ``devices=1`` bit for bit
+   ``vector`` / ``loop`` on a vecadd of 4 blocks (``shard <backend>
+   devices=1:`` lines), and the phase's seconds (``phase 3c:``);
 3d. the frontend (``repro_torch.frontend``): (a) each of the six corpus
    ``.cu`` kernels translated and run on ``vector`` with its buffers on
    the card at ``build_suite(1)``'s sizes, bit for bit the hand-written
@@ -346,10 +352,11 @@ OPT_TURNS = 3
 SERVE_ROWS = 8
 SERVE_TURNS = 3
 
-#: the conformance phase's backends on the card (phase 3c); the loop
-#: family stays off it: a pass takes 96 s on a CPU and would be
-#: launch-bound here
-CONFORMANCE_BACKENDS = ("vector", "cuda")
+#: the conformance phase's backends on the card (phase 3c), vector before
+#: shard_vector, whose cells are held against vector's bits; the loop
+#: family stays off it, shard with it (its inner lowering is loop): a pass
+#: takes 96 s on a CPU and would be launch-bound here
+CONFORMANCE_BACKENDS = ("vector", "shard_vector", "cuda")
 
 HOT = {
     "rmsnorm": {"rows": 2 * 4096, "d": 2048},
@@ -1071,9 +1078,11 @@ def conformance_phase(dev) -> None:
     """Phase 3c: the conformance matrix over all 23 cases with every
     variant, on ``CONFORMANCE_BACKENDS`` on the card, case by case with the
     card synchronised at both ends of each; then the Table-II rows of those
-    backends (``benchmarks/torch_coverage.py``'s sweep).  Raises on any
-    disagreement, on a passing ``cuda`` cell whose entry's kernels did not
-    each launch, on a ``vector`` cell that launched a kernel, on a suite
+    backends (``benchmarks/torch_coverage.py``'s sweep) and the shard
+    check (:func:`shard_check`).  Raises on any disagreement, on a passing
+    ``cuda`` cell whose entry's kernels did not each launch, on a
+    ``vector`` or ``shard_vector`` cell that launched a kernel, on a
+    ``shard_vector`` host cell not bit for bit ``vector``'s, on a suite
     kernel that launched no time in the phase, and on a Table-II count
     below the committed baseline's."""
     sys.path.insert(0, str(ROOT / "benchmarks"))
@@ -1088,15 +1097,16 @@ def conformance_phase(dev) -> None:
                      cuda_suite.entry_steps(case.make(case.dtypes[0]))}
     for kern in lower_cuda.KERNELS.values():
         kern.launches = 0
-    cells, legs, bad = [], {}, []
+    cells, legs, bad, anchors = [], {}, [], {}
     seconds = dict.fromkeys(CONFORMANCE_BACKENDS, 0.0)
+    t_phase = time.perf_counter()
     for backend in CONFORMANCE_BACKENDS:
         for case in cases:
             before = counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             rep = conformance.run_matrix([case], (backend,), variants=True,
-                                         device=dev)
+                                         device=dev, anchors=anchors)
             torch.cuda.synchronize()
             seconds[backend] += time.perf_counter() - t0
             cells += rep.cells
@@ -1123,6 +1133,14 @@ def conformance_phase(dev) -> None:
     if bad:
         raise AssertionError("conformance disagreements: " + "; ".join(
             f"{c.label()} :: {c.detail}" for c in bad[:20]))
+    held = [c for c in cells if c.backend == "shard_vector"
+            and c.mode == "host"]
+    if not held or not all(c.anchor == "vector" and c.bit_identical
+                           for c in held):
+        raise AssertionError(
+            "conformance shard_vector: host cells not bit for bit vector: "
+            + "; ".join(c.label() for c in held
+                        if not (c.anchor == "vector" and c.bit_identical)))
     launched = counts()
     idle = sorted(k for k in suite_kernels if not launched[k])
     if len(suite_kernels) != 26 or idle:
@@ -1152,6 +1170,54 @@ def conformance_phase(dev) -> None:
         if cov[fw] < base["backends"][fw]:
             raise AssertionError(f"coverage {fw}: {cov[fw]} below the "
                                  f"baseline's {base['backends'][fw]}")
+    shard_check(dev, cuda_suite, lower_cuda, counts)
+    print(f"phase 3c: seconds={time.perf_counter() - t_phase} "
+          f"shard_vector_bit_cells={len(held)}")
+
+
+def shard_check(dev, cuda_suite, lower_cuda, counts) -> None:
+    """The end of phase 3c: the shard backends' pool on CUDA tensors is
+    the machine's cards; ``devices=2`` on the card's heap raises (no shard
+    runs on the CPU in silence); at ``devices=1`` ``shard_vector`` gives
+    ``vector``'s bits and ``shard`` ``loop``'s on a vecadd of a few blocks,
+    launching no hand-written kernel."""
+    from repro_torch.core import api, lower_shard
+
+    n, block = 4 * 128, 128
+    grid = n // block
+    pool = lower_shard.resolve_devices(None, grid, dev)
+    print(f"shard pool: cuda devices={pool} "
+          f"torch.cuda.device_count={torch.cuda.device_count()}")
+    rng = np.random.default_rng(SEED)
+    host = {k: rng.standard_normal(n).astype(np.float32) for k in "ab"}
+    host["c"] = np.zeros(n, np.float32)
+    kernel = cuda_suite.make_vecadd(n)
+
+    def run(backend, **kw):
+        bufs = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        out = api.launch(kernel, grid=grid, block=block, args=bufs,
+                         backend=backend, **kw)
+        return {k: to_numpy(v) for k, v in out.items()}
+
+    try:
+        run("shard_vector", devices=pool + 1)
+    except ValueError as e:
+        print(f"shard devices={pool + 1}: refused ({str(e)[:80]}...)")
+    else:
+        raise AssertionError(f"shard_vector at devices={pool + 1} on the "
+                             f"card's heap ran")
+    before = counts()
+    for backend, inner in (("shard_vector", "vector"), ("shard", "loop")):
+        want, got = run(inner), run(backend, devices=1)
+        same = all(got[k].tobytes() == want[k].tobytes() for k in want)
+        print(f"shard {backend} devices=1: grid={grid} bits="
+              f"{'equal' if same else 'DIFFER'} (against {inner})")
+        if not same:
+            raise AssertionError(f"{backend} at devices=1 differs from "
+                                 f"{inner} on the card")
+    ran = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+    if ran:
+        raise AssertionError(f"shard check launched kernels: {ran}")
 
 
 def frontend_binds(name: str, size: dict, entry, source: str) -> dict:

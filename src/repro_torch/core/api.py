@@ -38,9 +38,11 @@ loads the compiled library instead of running ``nvcc``.
 :func:`launch_batch` runs N compatible launches as one dispatch (the
 serving tier's batcher, :mod:`repro_torch.serve`), in the same LRU.
 
-Not yet ported, and refused rather than ignored: ``devices=`` and
-``shard_axis=``.  Each raises ``NotImplementedError`` naming the ROADMAP
-item that brings it.
+``devices=``/``shard_axis=`` reach the ``multi_device`` backends
+(``shard``, ``shard_vector``: :mod:`repro_torch.core.lower_shard`) only;
+:func:`device_opts` normalizes them away for every other backend, so
+``launch(backend="loop", devices=4)`` shares the plain launch's cache
+entry.
 """
 from __future__ import annotations
 
@@ -61,20 +63,14 @@ from repro_torch.core.kernel import (
     KernelDef,
     UnsupportedKernel,
 )
+from repro_torch.core.lower_shard import DEFAULT_AXIS
 
 __all__ = [
     "CacheStats", "LaunchConfig", "cache_clear", "cache_resize",
-    "cache_size", "cache_stats", "compiled", "coverage",
+    "cache_size", "cache_stats", "compiled", "coverage", "device_opts",
     "disable_disk_cache", "enable_disk_cache", "launch", "launch_batch",
     "supported",
 ]
-
-#: options of the reference's launch path that the port does not have yet,
-#: with the ROADMAP item that brings each
-NOT_PORTED = {
-    "devices": "ROADMAP 1.12 (shard)",
-    "shard_axis": "ROADMAP 1.12 (shard)",
-}
 
 # The cache lives ON each kernel (a private dict attached to the
 # KernelDef), so entries die with their kernel; the WeakSet enumerates
@@ -104,13 +100,6 @@ class CacheStats:
 
 
 _STATS = CacheStats()
-
-
-def _refuse(**opts) -> None:
-    for name, value in opts.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported yet: {NOT_PORTED[name]}")
 
 
 def _kernel_cache(kernel: KernelDef) -> dict:
@@ -184,28 +173,49 @@ def _resolve_grain(kernel: KernelDef, grain, pool, n_blocks: int) -> int:
     return max(1, min(int(grain), n_blocks))
 
 
+def device_opts(backend_entry, devices, shard_axis) -> dict:
+    """Extra keywords for a ``multi_device`` backend's ``run``.
+
+    Only backends tagged ``multi_device`` receive ``devices``/
+    ``shard_axis``; every other backend's ``run`` keeps the plain
+    signature.
+    """
+    if backend_entry.supports("multi_device"):
+        return {"devices": devices, "shard_axis": shard_axis}
+    return {}
+
+
 def _build(kernel: KernelDef, backend: str, grid: Dim3, block: Dim3,
-           grain: int, dyn_shared, interpret: bool, names: tuple):
+           grain: int, dyn_shared, interpret: bool, names: tuple,
+           devices=None, shard_axis: str = DEFAULT_AXIS):
     entry = get_backend(backend)
+    extra = device_opts(entry, devices, shard_axis)
 
     def fn(*leaves):
         glob = packing.unpack(leaves, names)  # kernel prologue (SIII-C.2)
         return entry.run(kernel, grid=grid, block=block, glob=glob,
                          grain=grain, dyn_shared=dyn_shared,
-                         interpret=interpret)
+                         interpret=interpret, **extra)
     return fn
 
 
 def _entry_for(kernel: KernelDef, grid: Dim3, block: Dim3, args: dict,
                backend: str, grain, dyn_shared, interpret: bool,
-               pool) -> tuple[CompiledKernel, tuple]:
+               pool, devices=None, shard_axis: str = DEFAULT_AXIS
+               ) -> tuple[CompiledKernel, tuple]:
     """Resolve the launch specialization: cache hit or build."""
     grain = _resolve_grain(kernel, grain, pool, grid.size)
+    # single-device backends ignore the device options: normalized out of
+    # the key, launch(backend="loop", devices=4) shares the plain entry
+    opts = device_opts(get_backend(backend), devices, shard_axis)
+    devices = opts.get("devices")
+    shard_axis = opts.get("shard_axis", DEFAULT_AXIS)
     donated = memory_mod.donated_names(kernel, args)
     args = memory_mod.resolve_launch_args(kernel, args)
     leaves, names = packing.pack(args)     # host prologue (SIII-C.2)
     shapes = tuple((tuple(t.shape), t.dtype, t.device) for t in leaves)
-    key = (backend, grid, block, grain, dyn_shared, interpret, names, shapes)
+    key = (backend, grid, block, grain, dyn_shared, interpret, names, shapes,
+           devices, shard_axis)
     per_kernel = _kernel_cache(kernel)
     entry = per_kernel.get(key)
     if entry is not None:
@@ -214,7 +224,8 @@ def _entry_for(kernel: KernelDef, grid: Dim3, block: Dim3, args: dict,
         return entry, leaves
     _STATS.misses += 1
     entry = _compile(kernel, backend, grid, block, grain, dyn_shared,
-                     interpret, names, shapes, key, donated)
+                     interpret, names, shapes, key, donated, devices,
+                     shard_axis)
     per_kernel[key] = entry
     _LRU[(weakref.ref(kernel), key)] = None
     _evict_to_bound()
@@ -233,20 +244,21 @@ def _compiled_library(backend_entry, shapes):
 
 def _compile(kernel: KernelDef, backend: str, grid: Dim3, block: Dim3,
              grain: int, dyn_shared, interpret: bool, names: tuple,
-             shapes: tuple, key: tuple, donated) -> CompiledKernel:
+             shapes: tuple, key: tuple, donated, devices=None,
+             shard_axis: str = DEFAULT_AXIS) -> CompiledKernel:
     """Cache-miss path: the disk record if there is one, else build (and
     store a record when the launch runs something compiled)."""
     backend_entry = get_backend(backend)
     # surface UnsupportedKernel before anything runs (coverage probes)
     backend_entry.check(kernel, block)
     fn = _build(kernel, backend, grid, block, grain, dyn_shared, interpret,
-                names)
+                names, devices, shard_axis)
     if _DISK is None:
         return CompiledKernel(kernel=kernel, backend=backend, grid=grid,
                               block=block, key=key, fn=fn)
     akey = compile_cache.artifact_key(
         kernel.fingerprint(), backend, grid, block, grain, dyn_shared,
-        interpret, names, shapes,
+        interpret, names, shapes, devices=devices, shard_axis=shard_axis,
         donate_idx=tuple(i for i, n in enumerate(names) if n in donated))
     if _DISK.load(akey) is not None:
         _STATS.disk_hits += 1
@@ -291,7 +303,8 @@ def _optimized(kernel: KernelDef, grid: Dim3, block: Dim3, args: dict,
 
 def _launch(kernel: KernelDef, grid: Dim3, block: Dim3, args: dict,
             backend: str, grain, dyn_shared, interpret: bool,
-            pool, sanitize=None, optimize=None) -> dict:
+            pool, devices=None, shard_axis: str = DEFAULT_AXIS,
+            sanitize=None, optimize=None) -> dict:
     if _sanitize_enabled(sanitize):
         # kernelcheck gate on the BASE kernel (finding stage indices match
         # the author's source); clean verdicts are memoized on the kernel
@@ -300,7 +313,8 @@ def _launch(kernel: KernelDef, grid: Dim3, block: Dim3, args: dict,
                                     args=args, dyn_shared=dyn_shared)
     kernel = _optimized(kernel, grid, block, args, dyn_shared, optimize)
     entry, leaves = _entry_for(kernel, grid, block, args, backend, grain,
-                               dyn_shared, interpret, pool)
+                               dyn_shared, interpret, pool, devices,
+                               shard_axis)
     out = entry(*leaves)
     # donated handle-bound buffers come back as the SAME handle, re-bound
     # to the kernel's output (the CUDA in-place view)
@@ -310,17 +324,17 @@ def _launch(kernel: KernelDef, grid: Dim3, block: Dim3, args: dict,
 def compiled(kernel: KernelDef, *, grid, block, args: dict,
              backend: str = "vector", grain: int | str = 1,
              dyn_shared: int | None = None, interpret: bool = True,
-             pool: int | None = None, devices=None, shard_axis=None,
+             pool: int | None = None, devices: int | None = None,
+             shard_axis: str = DEFAULT_AXIS,
              optimize=None) -> CompiledKernel:
     """Resolve (or fetch) the launch specialization without running it:
     the ``cudaModuleGetFunction`` analogue.  ``optimize=True`` resolves
     the barrier-fission optimizer's derived kernel's specialization
     instead (its own cache, never the base kernel's)."""
-    _refuse(devices=devices, shard_axis=shard_axis)
     grid, block = Dim3.of(grid), Dim3.of(block)
     kernel = _optimized(kernel, grid, block, args, dyn_shared, optimize)
     entry, _ = _entry_for(kernel, grid, block, args, backend, grain,
-                          dyn_shared, interpret, pool)
+                          dyn_shared, interpret, pool, devices, shard_axis)
     return entry
 
 
@@ -333,6 +347,7 @@ class LaunchConfig:
     CUDA keeps out of the chevrons are set with :meth:`on`::
 
         out = kernel[(gx, gy), (bx, by)].on(backend="cuda")(t=t, p=p)
+        out = kernel[grid, block].on(backend="shard", devices=4)(x=x)
 
     When a ``stream`` occupies the fourth chevron slot the launch is routed
     through ``stream.launch`` (async, hazard-tracked) and returns the
@@ -349,6 +364,8 @@ class LaunchConfig:
     grain: int | str = 1
     interpret: bool = True
     pool: int | None = None
+    devices: int | None = None
+    shard_axis: str = DEFAULT_AXIS
     sanitize: bool | None = None
     optimize: bool | None = None
 
@@ -366,16 +383,15 @@ class LaunchConfig:
 
     def on(self, **overrides) -> "LaunchConfig":
         """Re-bind execution options: backend, grain, interpret, pool,
-        sanitize, optimize."""
-        _refuse(**{k: v for k, v in overrides.items() if k in NOT_PORTED})
-        allowed = {"backend", "grain", "interpret", "pool", "sanitize",
-                   "optimize"}
-        bad = set(overrides) - allowed - set(NOT_PORTED)
+        devices (shard count for multi-device backends; None = the whole
+        pool), shard_axis (its label), sanitize, optimize."""
+        allowed = {"backend", "grain", "interpret", "pool", "devices",
+                   "shard_axis", "sanitize", "optimize"}
+        bad = set(overrides) - allowed
         if bad:
             raise TypeError(f"LaunchConfig.on() got unexpected options "
                             f"{sorted(bad)}; allowed: {sorted(allowed)}")
-        return dataclasses.replace(
-            self, **{k: v for k, v in overrides.items() if k in allowed})
+        return dataclasses.replace(self, **overrides)
 
     def __call__(self, args: dict | None = None, /, **buffers):
         merged = {**(args or {}), **buffers}
@@ -385,34 +401,38 @@ class LaunchConfig:
                 backend=self.backend, grain=self.grain,
                 dyn_shared=self.dyn_shared, args=merged or None,
                 interpret=self.interpret, pool=self.pool,
+                devices=self.devices, shard_axis=self.shard_axis,
                 optimize=self.optimize)
             return self.stream
         return _launch(self.kernel, self.grid, self.block, merged,
                        self.backend, self.grain, self.dyn_shared,
-                       self.interpret, self.pool, self.sanitize,
-                       self.optimize)
+                       self.interpret, self.pool, self.devices,
+                       self.shard_axis, self.sanitize, self.optimize)
 
 
 def launch(kernel: KernelDef, *, grid, block, args: dict,
            backend: str = "vector", grain: int | str = 1,
            dyn_shared: int | None = None, interpret: bool = True,
-           pool: int | None = None, devices=None, shard_axis=None,
+           pool: int | None = None, devices: int | None = None,
+           shard_axis: str = DEFAULT_AXIS,
            sanitize=None, optimize=None) -> dict:
     """Launch ``kernel`` over ``grid`` blocks of ``block`` threads.
 
     ``args`` maps global-buffer names to tensors (or ``DeviceBuffer``/
     ``ConstArray`` handles); returns the dict with the kernel's written
     buffers replaced.  ``grain`` may be an int, "average" or "aggressive"
-    (paper SIV-A; ``pool`` = worker count).  ``sanitize=True`` (or
+    (paper SIV-A; ``pool`` = worker count).  ``devices``/``shard_axis``
+    reach multi-device backends (``shard``, ``shard_vector``) only;
+    single-device backends ignore them.  ``sanitize=True`` (or
     ``CUPBOP_SANITIZE=1``) runs kernelcheck on the launch first and raises
     ``SanitizerError`` on findings; ``optimize=True`` (or
     ``CUPBOP_OPTIMIZE=1``) runs the barrier-fission optimizer's derived
     kernel - the same bits from fewer stages (on ``cuda``, the same
     hand-written kernel).
     """
-    _refuse(devices=devices, shard_axis=shard_axis)
     return _launch(kernel, Dim3.of(grid), Dim3.of(block), args, backend,
-                   grain, dyn_shared, interpret, pool, sanitize, optimize)
+                   grain, dyn_shared, interpret, pool, devices, shard_axis,
+                   sanitize, optimize)
 
 
 def _build_batch(kernel: KernelDef, backend: str, grid: Dim3, block: Dim3,

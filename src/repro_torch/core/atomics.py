@@ -13,16 +13,86 @@ in one vectorised update, so atomics become deterministic scatters:
 The ``cuda`` backend's hand-written kernels use the card's own atomics,
 whose order is not fixed.  Where the reference's order shows in a result,
 the kernel reproduces it (see ``csrc/bfs_frontier.cu``).
+
+**Cross-shard combining.**  The shard backends
+(:mod:`repro_torch.core.lower_shard`) run each shard's block range
+against the *launch-time* value of every written buffer, so two blocks on
+different shards that hit one element each see only their own partial.
+:func:`combine_partials` merges the partials as declared in
+``KernelDef.combines``: ``"sum"`` adds the per-shard deltas back onto the
+launch-time value (exact for cross-block ``atomicAdd`` and for disjoint
+writes into zeroed buffers; a float overwrite of a large prior value
+rounds through ``in + (out - in)``), ``"max"``/``"min"`` reduce the
+partials elementwise, and ``"concat"`` (owned leading-axis rows) is
+assembled by the shard backend itself.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.core import index
 
-#: combine modes accepted in ``KernelDef.combines`` (declarations kept
-#: from the reference; the shard backend that reads them is not ported).
+#: combine modes accepted in ``KernelDef.combines``.  sum/max/min reduce
+#: the partials (:func:`combine_partials`); concat is structural and
+#: handled by the shard backend.
 CROSS_SHARD_COMBINES = ("sum", "max", "min", "concat")
+
+
+def _lowest(t: torch.Tensor):
+    if t.dtype == torch.bool:
+        return False
+    if t.dtype.is_floating_point:
+        return -math.inf
+    return torch.iinfo(t.dtype).min
+
+
+def _highest(t: torch.Tensor):
+    if t.dtype == torch.bool:
+        return True
+    if t.dtype.is_floating_point:
+        return math.inf
+    return torch.iinfo(t.dtype).max
+
+
+def combine_partials(mode: str, before: torch.Tensor,
+                     afters: list[torch.Tensor]) -> torch.Tensor:
+    """Merge one written buffer's per-shard partials.
+
+    ``before`` is the buffer's launch-time value and ``afters[s]`` its
+    value once shard ``s`` ran its block range against ``before``.  The
+    reference reduces inside ``shard_map`` with a collective; with no
+    mesh, this computes what that collective computes on the host
+    platform, folding the shards in order, shard 0 first:
+
+    * ``"sum"``: ``before + (((0 + d_0) + d_1) + ...)`` with
+      ``d_s = afters[s] - before``.  An untouched ``-0.0`` comes back
+      ``+0.0`` and an untouched ``±inf`` NaN (``inf - inf``);
+    * ``"max"``/``"min"``: starting from ``-inf``/``+inf`` (an integer
+      type's extremes), a shard's value replaces the running one only
+      when strictly greater/less, so NaN partials are passed over (all-NaN
+      gives the start value) and a ``±0`` tie keeps the earlier shard's.
+    """
+    if mode == "sum":
+        acc = torch.zeros_like(before)
+        for after in afters:
+            acc = acc + (after - before)
+        return before + acc
+    if mode == "max":
+        acc = torch.full_like(before, _lowest(before))
+        for after in afters:
+            acc = torch.where(after > acc, after, acc)
+        return acc
+    if mode == "min":
+        acc = torch.full_like(before, _highest(before))
+        for after in afters:
+            acc = torch.where(after < acc, after, acc)
+        return acc
+    raise ValueError(
+        f"cross-shard combine mode {mode!r} is not a collective reduction; "
+        f"reducible modes: sum/max/min (concat is assembled by the shard "
+        f"backend from each shard's owned rows, not here)")
 
 
 def _drop_negative(arr, idx):

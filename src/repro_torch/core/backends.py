@@ -12,11 +12,15 @@ paper's Table II):
 * ``"barrier"`` - can split at ``__syncthreads`` (loop fission);
 * ``"warp"``    - supports warp-level shuffles/votes;
 * ``"dim3"``    - accepts multi-dimensional grids/blocks;
-* ``"native"``  - launches hand-written kernels on the card.
+* ``"native"``  - launches hand-written kernels on the card;
+* ``"multi_device"`` - schedules blocks over a pool of workers; the
+  launch path also passes ``devices=``/``shard_axis=`` to its ``run``
+  (:func:`repro_torch.core.api.device_opts`), and backends without the
+  tag keep the plain signature.
 
-The port registers ``loop``, ``loop_nowarp``, ``naive``, ``vector`` and
-``cuda``; the reference's ``pallas``, ``shard`` and ``shard_vector`` have
-no counterpart here (``cuda`` takes ``pallas``'s place).
+The port registers ``loop``, ``loop_nowarp``, ``naive``, ``vector``,
+``cuda``, ``shard`` and ``shard_vector``; ``cuda`` takes the place of the
+reference's ``pallas``.
 """
 from __future__ import annotations
 
@@ -85,7 +89,12 @@ def backend_names() -> tuple[str, ...]:
 
 
 def _register_builtins() -> None:
-    from repro_torch.core import lower_cuda, lower_loop, lower_vector
+    from repro_torch.core import (
+        lower_cuda,
+        lower_loop,
+        lower_shard,
+        lower_vector,
+    )
 
     def loop_variant(**flags):
         def run(kernel, *, grid, block, glob, grain, dyn_shared, interpret):
@@ -111,6 +120,27 @@ def _register_builtins() -> None:
     register_backend("cuda", lower_cuda.run,
                      {"barrier", "warp", "dim3", "native"},
                      check=lower_cuda.check)
+
+    def shard_variant(inner, inner_check):
+        def run(kernel, *, grid, block, glob, grain, dyn_shared, interpret,
+                devices=None, shard_axis=lower_shard.DEFAULT_AXIS):
+            return lower_shard.run(kernel, grid=grid, block=block,
+                                   glob=glob, grain=grain,
+                                   dyn_shared=dyn_shared, devices=devices,
+                                   shard_axis=shard_axis, inner=inner)
+
+        def check(kernel, block):
+            inner_check(kernel, block)
+            lower_shard.combine_modes(kernel)
+        return run, check
+
+    for name, inner, inner_check in (
+            ("shard", "loop", lower_loop.check),
+            ("shard_vector", "vector", _no_check)):
+        run, check = shard_variant(inner, inner_check)
+        register_backend(name, run,
+                         {"barrier", "warp", "dim3", "multi_device"},
+                         check=check)
 
 
 _register_builtins()

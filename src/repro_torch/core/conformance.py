@@ -8,11 +8,16 @@ under every lowering, and they must agree.
   ``Dim3`` factorizations of the same grid (a kernel that reads only
   linearized ids must not see them), grain 3 (fetch loops with a tail),
   and extra dtypes (f32 / f64 / i32) for the dtype-polymorphic kernels;
-* :func:`run_matrix` sweeps backend x geometry x dtype x grain x replay
-  mode.  Every cell is held against the oracle (tolerance by dtype, widened
-  by the case's ``tol``); ``loop_nowarp`` and ``naive`` are the loop
-  lowering restricted, so where they run a kernel they owe ``loop``'s
-  bits.  Chain workloads add a ``device_resident`` leg (update hooks on the
+* :func:`run_matrix` sweeps backend x geometry x dtype x grain x devices x
+  replay mode.  Every cell is held against the oracle (tolerance by dtype,
+  widened by the case's ``tol``); ``loop_nowarp`` and ``naive`` are the
+  loop lowering restricted, so where they run a kernel they owe ``loop``'s
+  bits, and the shard backends owe their inner lowering's (``shard`` ->
+  ``loop``, ``shard_vector`` -> ``vector``) at every device count where
+  the case is ``exact_shard``, outside ``nondeterministic_shard``.  A
+  device count above the pool (:func:`repro_torch.core.lower_shard
+  .pool_size`: ``CUPBOP_HOST_DEVICES`` on the CPU, the cards on CUDA) is
+  a ``skip`` cell.  Chain workloads add a ``device_resident`` leg (update hooks on the
   device, the stop flag polled every k iterations) and a ``graph`` leg
   (iterations captured once and replayed), each bit for bit the same
   backend's host cell outside ``nondeterministic_shard`` and
@@ -42,9 +47,7 @@ asked for (``run_entry``'s rule).  On the CPU the graph leg runs on
 ``CARD_GRAPH_MODE_BACKENDS`` instead, since a CUDA capture refuses the
 ``loop``/``vector`` lowerings' host-scalar copies (that refusal raises).
 
-f64 cells run under :func:`repro_torch.x64.enable_x64`.  What the port
-does not have yet makes no cell and is listed in the report's meta under
-``not_ported``: the ``shard`` backends with their device counts.
+f64 cells run under :func:`repro_torch.x64.enable_x64`.
 """
 from __future__ import annotations
 
@@ -60,7 +63,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core import cuda_suite
+from repro_torch.core import cuda_suite, lower_shard
 from repro_torch.core.backends import (
     backend_names,
     get_backend,
@@ -78,10 +81,12 @@ from repro_torch.x64 import enable_x64
 DTYPE_TOL = {"f32": 2e-5, "f64": 1e-12, "i32": 0.0}
 
 #: which backend a backend must bit-match where it runs a kernel at all
-BIT_ANCHOR = {"loop_nowarp": "loop", "naive": "loop"}
+BIT_ANCHOR = {"shard": "loop", "shard_vector": "vector",
+              "loop_nowarp": "loop", "naive": "loop"}
 
-#: backends that sweep the grain axis (the fetch loops live here)
-VARIANT_BACKENDS = ("loop", "vector")
+#: backends that sweep the grain axis (the fetch loops and the shard
+#: backends' block ranges live here)
+VARIANT_BACKENDS = ("loop", "vector", "shard", "shard_vector")
 
 #: backends that sweep the Dim3 geometry axis
 GEOMETRY_BACKENDS = (*VARIANT_BACKENDS, "cuda")
@@ -90,7 +95,7 @@ GEOMETRY_BACKENDS = (*VARIANT_BACKENDS, "cuda")
 DTYPE_BACKENDS = ("loop", "vector", "cuda")
 
 #: backends that run a chain's device-resident leg
-DEVICE_MODE_BACKENDS = ("loop", "vector", "cuda")
+DEVICE_MODE_BACKENDS = ("loop", "vector", "cuda", "shard", "shard_vector")
 
 #: backends that run a chain's graph leg on the CPU
 GRAPH_MODE_BACKENDS = ("loop", "vector")
@@ -114,13 +119,6 @@ OPTIMIZED_BACKENDS = ("loop", "vector")
 #: has no hand-written kernel), so it sweeps no such cell
 FRONTEND_BACKENDS = ("loop", "vector")
 
-#: the reference's legs and backends with no port yet, by ROADMAP item
-NOT_PORTED = {
-    "shard": "ROADMAP 1.12 (shard)",
-    "shard_vector": "ROADMAP 1.12 (shard)",
-    "devices": "ROADMAP 1.12 (shard: forced device counts)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class ConformanceCase:
@@ -129,12 +127,17 @@ class ConformanceCase:
     ``make(dtype_tag)`` builds the :class:`SuiteEntry` for that dtype; the
     first tag in ``dtypes`` is the suite's natural dtype and returns the
     shared base entry, so launch-cache warmth carries across cells.
+    ``exact_shard`` declares whether the kernel's ``combines`` modes are
+    exact merges (integer, max/min, owned slices, or sums of disjoint
+    writes into zeroed buffers), i.e. whether the shard legs owe their
+    inner lowering's bits.
     """
 
     name: str
     make: Callable[[str], SuiteEntry]
     dtypes: tuple[str, ...] = ("f32",)
     grains: tuple[int, ...] = (1, 3)
+    exact_shard: bool = True
 
 
 @dataclasses.dataclass
@@ -148,8 +151,8 @@ class Cell:
     bit-identity to the unoptimized host cell), or ``"frontend"`` (the
     kernel's ``.cu`` corpus source translated by
     :mod:`repro_torch.frontend`, owing full bit-identity to the
-    hand-written host cell).  ``devices`` stays
-    ``None``: it is the reference's shard axis, not ported.
+    hand-written host cell).  ``devices`` is the shard count of a
+    multi-device backend's cell, ``None`` for every other backend.
     """
 
     kernel: str
@@ -181,6 +184,7 @@ class Report:
     n_kernels: int
     backends: tuple[str, ...]
     device: str = "cpu"
+    device_count: int = 1
 
     @property
     def disagreements(self) -> list[Cell]:
@@ -471,12 +475,14 @@ _CHAIN_MODE = {"host": "host", "device_resident": "device", "graph": "graph",
 
 def run_cell(entry: SuiteEntry, case: ConformanceCase, backend: str,
              tag: str, grid, block, grain: int, mode: str = "host", *,
-             device=None) -> tuple[Cell, dict | None]:
-    """Run one matrix cell on ``device`` (the card unless ``"cpu"``);
-    returns (cell, output buffers, or None for an ``unsupport`` cell)."""
+             device=None, devices: int | None = None
+             ) -> tuple[Cell, dict | None]:
+    """Run one matrix cell on ``device`` (the card unless ``"cpu"``) at
+    ``devices`` shards of a multi-device backend; returns (cell, output
+    buffers, or None for an ``unsupport`` cell)."""
     cell = Cell(kernel=case.name, backend=backend,
                 grid=tuple(Dim3.of(grid)), block=tuple(Dim3.of(block)),
-                dtype=tag, grain=grain, devices=None, status="pass",
+                dtype=tag, grain=grain, devices=devices, status="pass",
                 mode=mode)
     geo = {} if entry.chain is not None else {"grid": grid, "block": block}
     ctx = enable_x64() if tag == "f64" else contextlib.nullcontext()
@@ -484,7 +490,7 @@ def run_cell(entry: SuiteEntry, case: ConformanceCase, backend: str,
         with ctx:
             out, want = run_entry(entry, backend, grain=grain,
                                   chain_mode=_CHAIN_MODE[mode],
-                                  device=device,
+                                  device=device, devices=devices,
                                   optimize=True if mode == "optimized"
                                   else None, **geo)
     except UnsupportedKernel as e:
@@ -568,18 +574,31 @@ def run_frontend_cell(case: ConformanceCase, backend: str, tag: str, grid,
 
 def run_matrix(cases: list[ConformanceCase] | None = None,
                backends: tuple[str, ...] | None = None,
-               variants: bool = True, device=None) -> Report:
+               variants: bool = True, device=None,
+               device_counts: tuple[int, ...] | None = None,
+               anchors: dict | None = None) -> Report:
     """Sweep the conformance matrix on ``device`` and return the report.
 
     Every backend runs each case's base point; the variant points sweep
     the backends of their axis.  With ``variants=False`` only the base
-    cell runs per (kernel, backend).
+    cell runs per (kernel, backend).  Multi-device backends run every
+    point at each of ``device_counts`` (default ``(1,)``, or ``(1, N)``
+    for a pool of N); a count above the pool is a ``skip`` cell.
+
+    A cell is held against its ``BIT_ANCHOR`` when the anchor backend is
+    in ``backends``.  ``anchors``, a dict passed to several calls, keeps
+    the anchor cells' bits between them: a later call holds its cells
+    against the bits an earlier call left there, whether or not the
+    anchor backend is among its own ``backends``.
     """
     cases = build_cases() if cases is None else cases
     backends = tuple(backend_names()) if backends is None else tuple(backends)
     for b in backends:
         get_backend(b)                       # raise eagerly on typos
     dev = resolve_device(device)
+    avail = lower_shard.pool_size(dev)
+    if device_counts is None:
+        device_counts = (1,) if avail == 1 else (1, avail)
     axis_backends = {"grain": VARIANT_BACKENDS,
                      "geometry": GEOMETRY_BACKENDS,
                      "dtype": DTYPE_BACKENDS,
@@ -588,15 +607,19 @@ def run_matrix(cases: list[ConformanceCase] | None = None,
                      "optimized": OPTIMIZED_BACKENDS,
                      "frontend": FRONTEND_BACKENDS}
 
+    anchors = {} if anchors is None else anchors
     cells: list[Cell] = []
     for case in cases:
         entries = {tag: case.make(tag) for tag in case.dtypes}
         points = _points(case, entries, variants)
-        anchors: dict[tuple, dict[str, bytes]] = {}
-        host_bits: dict[str, dict[str, bytes]] = {}
+        host_bits: dict[tuple, dict[str, bytes]] = {}
+
+        def anchor_key(anchor_backend, tag, grid, block, grain):
+            return (case.name, anchor_backend, tag, repr(grid), repr(block),
+                    grain)
 
         def anchor_bits(anchor_backend, tag, grid, block, grain):
-            key = (anchor_backend, tag, repr(grid), repr(block), grain)
+            key = anchor_key(anchor_backend, tag, grid, block, grain)
             if key not in anchors:
                 e = entries[tag]
                 geo = ({} if e.chain is not None
@@ -611,28 +634,39 @@ def run_matrix(cases: list[ConformanceCase] | None = None,
             return anchors[key]
 
         for backend in backends:
-            for axis, tag, grid, block, grain, mode in points:
+            multi = get_backend(backend).supports("multi_device")
+            devs = device_counts if multi else (None,)
+            for (axis, tag, grid, block, grain, mode), d in (
+                    (p, d) for p in points for d in devs):
                 if axis != "base" and backend not in axis_backends[axis]:
+                    continue
+                if d is not None and d > avail:
+                    cells.append(Cell(
+                        kernel=case.name, backend=backend,
+                        grid=tuple(Dim3.of(grid)),
+                        block=tuple(Dim3.of(block)), dtype=tag,
+                        grain=grain, devices=d, status="skip", mode=mode,
+                        detail=f"only {avail} device(s) available"))
                     continue
                 if mode == "frontend":
                     cells.append(run_frontend_cell(
                         case, backend, tag, grid, block,
-                        host_bits.get(backend), device=dev))
+                        host_bits.get((backend, d)), device=dev))
                     continue
                 entry = entries[tag]
                 cell, out = run_cell(entry, case, backend, tag, grid, block,
-                                     grain, mode, device=dev)
+                                     grain, mode, device=dev, devices=d)
                 cells.append(cell)
                 if out is None:
                     continue
                 if axis == "base":
-                    host_bits[backend] = _bits(out)
+                    host_bits[(backend, d)] = _bits(out)
                 if mode != "host":
                     # the replay legs owe the SAME backend's host-hop bits;
                     # stop-poll-cadence scratch (iteration_state) is
                     # excluded, oracle outputs never; the optimized leg
                     # runs the host-hop cadence, so it owes every bit
-                    base_bits = host_bits.get(backend)
+                    base_bits = host_bits.get((backend, d))
                     if base_bits is None:
                         continue
                     skip = (() if mode == "optimized" else
@@ -656,24 +690,26 @@ def run_matrix(cases: list[ConformanceCase] | None = None,
                     # this cell IS someone's anchor: seed the cache so
                     # anchor_bits never re-runs it
                     anchors.setdefault(
-                        (backend, tag, repr(grid), repr(block), grain),
+                        anchor_key(backend, tag, grid, block, grain),
                         _bits(out, entry.nondeterministic_shard))
                 anchor = BIT_ANCHOR.get(backend)
-                if anchor is None or anchor not in backends:
+                if anchor is None or (
+                        anchor not in backends and anchor_key(
+                            anchor, tag, grid, block, grain) not in anchors):
                     continue
                 want = anchor_bits(anchor, tag, grid, block, grain)
                 got = _bits(out, entry.nondeterministic_shard)
                 cell.anchor = anchor
-                cell.bit_required = True
+                cell.bit_required = (not multi) or case.exact_shard
                 cell.bit_identical = got == want
-                if not cell.bit_identical:
+                if cell.bit_required and not cell.bit_identical:
                     diff = [k for k in got if got[k] != want.get(k)]
                     cell.status = "fail"
                     cell.detail = ((cell.detail + " " if cell.detail
                                     else "")
                                    + f"bits differ from {anchor} on {diff}")
     return Report(cells=cells, n_kernels=len(cases), backends=backends,
-                  device=str(dev))
+                  device=str(dev), device_count=avail)
 
 
 def report_to_json(report: Report) -> dict:
@@ -695,7 +731,7 @@ def report_to_json(report: Report) -> dict:
             "torch": torch.__version__,
             "n_cells": len(report.cells),
             "legs": report.legs(),
-            "not_ported": dict(NOT_PORTED),
+            "device_count": report.device_count,
         },
         "kernels": {n: {"rodinia": e.rodinia,
                         "features": list(e.features)}
@@ -737,6 +773,9 @@ def main(argv=None) -> int:
                          "(gate self-test)")
     ap.add_argument("--device", default=None,
                     help="cpu or cuda (default: the card)")
+    ap.add_argument("--devices", nargs="*", type=int, default=None,
+                    help="device counts for multi-device backends "
+                         "(default 1 and the whole pool)")
     args = ap.parse_args(argv)
 
     cases = build_cases()
@@ -755,7 +794,9 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     report = run_matrix(cases=cases, backends=backends,
-                        variants=not args.no_variants, device=args.device)
+                        variants=not args.no_variants, device=args.device,
+                        device_counts=(tuple(args.devices) if args.devices
+                                       else None))
     seconds = time.perf_counter() - t0
 
     summary = report.summary()
@@ -767,7 +808,8 @@ def main(argv=None) -> int:
               f"skip={row.get('skip', 0)}")
     print("legs: " + " ".join(f"{m}={','.join(bs) or '-'}"
                               for m, bs in report.legs().items())
-          + f" device={report.device} seconds={seconds:.1f}")
+          + f" device={report.device} pool={report.device_count}"
+          + f" seconds={seconds:.1f}")
     if args.json:
         with open(args.json, "w") as f:
             json.dump(report_to_json(report), f, indent=2)

@@ -1212,7 +1212,7 @@ def run_entry(entry: SuiteEntry, backend: str = "loop", *, rng=None,
               chain_mode: str = "host",
               chain_stats: ChainStats | None = None,
               check_every: int | None = None, device=None,
-              optimize: bool | None = None):
+              optimize: bool | None = None, devices: int | None = None):
     """Execute a suite entry end to end under one backend.
 
     A plain entry is one launch, at ``grid``/``block`` when given and at
@@ -1236,7 +1236,8 @@ def run_entry(entry: SuiteEntry, backend: str = "loop", *, rng=None,
     ``chain_stats`` collects a chain's replay counters.  ``optimize``
     reaches every launch (a plain entry's, each chain step's, in every
     ``chain_mode``): ``True`` runs the barrier-fission optimizer's derived
-    kernels.
+    kernels.  ``devices`` caps a multi-device backend's shard count in
+    every launch (single-device backends ignore it).
     """
     if entry.chain is None:
         if chain_mode != "host":
@@ -1255,7 +1256,8 @@ def run_entry(entry: SuiteEntry, backend: str = "loop", *, rng=None,
                                else np.random.default_rng(42))
     want = entry.reference(args) if with_reference else None
     bufs = carry.from_reference(args, const=entry.const, device=device)
-    kw = dict(backend=backend, grain=grain, pool=pool, optimize=optimize)
+    kw = dict(backend=backend, grain=grain, pool=pool, optimize=optimize,
+              devices=devices)
     if entry.chain is None:
         return launch(entry.kernel,
                       grid=entry.grid if grid is None else grid,

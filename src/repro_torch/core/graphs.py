@@ -43,6 +43,7 @@ from repro_torch.core import memory as memory_mod
 from repro_torch.core.backends import get_backend
 from repro_torch.core.dim3 import Dim3
 from repro_torch.core.kernel import KernelDef
+from repro_torch.core.lower_shard import DEFAULT_AXIS
 
 
 class GraphError(RuntimeError):
@@ -76,6 +77,8 @@ class GraphNode:
     grain: int = 1
     dyn_shared: int | None = None
     interpret: bool = True
+    devices: int | None = None
+    shard_axis: str = DEFAULT_AXIS
     reads: tuple[str, ...] = ()
     writes: tuple[str, ...] = ()
     # h2d / d2d fields
@@ -184,7 +187,8 @@ class Graph:
     def add_kernel(self, stream, kernel: KernelDef, *, grid, block,
                    backend: str = "vector", grain=1,
                    dyn_shared: int | None = None, interpret: bool = True,
-                   pool: int | None = None,
+                   pool: int | None = None, devices: int | None = None,
+                   shard_axis: str = DEFAULT_AXIS,
                    optimize: bool | None = None) -> GraphNode:
         grid, block = Dim3.of(grid), Dim3.of(block)
         if api._optimize_enabled(optimize):
@@ -222,6 +226,7 @@ class Graph:
             label=f"{kernel.name}[{tuple(grid)},{tuple(block)}]@{backend}",
             kernel=kernel, grid=grid, block=block, backend=backend,
             grain=grain, dyn_shared=dyn_shared, interpret=interpret,
+            devices=devices, shard_axis=shard_axis,
             reads=reads, writes=writes)
         return self._commit(node)
 
@@ -401,7 +406,9 @@ class GraphExec:
                                     block=node.block, glob=dict(glob),
                                     grain=node.grain,
                                     dyn_shared=node.dyn_shared,
-                                    interpret=node.interpret)
+                                    interpret=node.interpret,
+                                    **api.device_opts(entry, node.devices,
+                                                      node.shard_axis))
                 write_back(glob, {b: out[b] for b in node.writes})
             elif node.kind == "h2d":
                 src = host[hi]

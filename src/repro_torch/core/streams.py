@@ -69,6 +69,7 @@ from repro_torch.core import graphs as graphs_mod
 from repro_torch.core import memory as memory_mod
 from repro_torch.core.dim3 import Dim3
 from repro_torch.core.kernel import KernelDef
+from repro_torch.core.lower_shard import DEFAULT_AXIS
 
 
 class Policy(enum.Enum):
@@ -399,7 +400,8 @@ class Stream:
                dyn_shared: int | None = None,
                args: dict[str, Any] | None = None,
                interpret: bool = True, pool: int | None = None,
-               devices=None, shard_axis=None, optimize=None):
+               devices: int | None = None,
+               shard_axis: str = DEFAULT_AXIS, optimize=None):
         """Async launch over the stream's heap.
 
         The kernel sees the full heap (device memory) and writes its
@@ -416,9 +418,10 @@ class Stream:
 
         ``optimize=True`` (or ``CUPBOP_OPTIMIZE=1``) launches the
         barrier-fission optimizer's derived kernel; under capture the
-        graph node stores it (:meth:`Graph.add_kernel`).
+        graph node stores it (:meth:`Graph.add_kernel`).  ``devices``/
+        ``shard_axis`` reach a multi-device backend (``shard``), under
+        capture through the graph node.
         """
-        api._refuse(devices=devices, shard_axis=shard_axis)
         grid, block = Dim3.of(grid), Dim3.of(block)
         handles = {n: v for n, v in (args or {}).items()
                    if isinstance(v, memory_mod.DeviceBuffer)}
@@ -440,7 +443,8 @@ class Stream:
             self._capture.add_kernel(
                 self, kernel, grid=grid, block=block, backend=backend,
                 grain=grain, dyn_shared=dyn_shared, interpret=interpret,
-                pool=pool, optimize=optimize)
+                pool=pool, devices=devices, shard_axis=shard_axis,
+                optimize=optimize)
             return
         if args:
             missing = [n for n in args if n not in self.buffers]
@@ -462,7 +466,8 @@ class Stream:
             new = api.launch(kernel, grid=grid, block=block, args=buf_args,
                              backend=backend, grain=grain,
                              dyn_shared=dyn_shared, interpret=interpret,
-                             pool=pool, optimize=optimize)
+                             pool=pool, devices=devices,
+                             shard_axis=shard_axis, optimize=optimize)
             graphs_mod.write_back(self.buffers,
                                   {n: new[n] for n in kernel.writes})
         memory_mod.rebind_outputs(kernel, handles,

@@ -104,7 +104,8 @@ def test_packing_round_trip_in_sorted_name_order():
 
 def test_backend_registry_holds_the_ported_backends():
     assert backends.backend_names() == ("loop", "loop_nowarp", "naive",
-                                        "vector", "cuda")
+                                        "vector", "cuda", "shard",
+                                        "shard_vector")
     assert backends.get_backend("cuda").supports("native")
     assert not backends.get_backend("naive").supports("barrier")
     with pytest.raises(backends.UnknownBackend):
@@ -148,19 +149,34 @@ def test_grain_policies_give_the_same_result():
 
 
 @pytest.mark.parametrize("call", [
-    lambda k, a: api.launch(k, grid=1, block=32, args=a, devices=2),
-    lambda k, a: api.compiled(k, grid=1, block=32, args=a, shard_axis="x"),
-    lambda k, a: k[1, 32].on(shard_axis="x")(a)])
-def test_options_not_ported_yet_raise(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(_add_one(), {"x": torch.zeros(32, dtype=torch.int32)})
+    lambda k, a, **kw: api.launch(k, grid=2, block=32, args=a, devices=2,
+                                  **kw),
+    lambda k, a, **kw: api.compiled(k, grid=2, block=32, args=a,
+                                    shard_axis="x", **kw)(
+        *packing.pack(a)[0]),
+    lambda k, a, **kw: k[2, 32].on(shard_axis="x", **kw)(a)])
+def test_options_not_ported_yet_raise(call, monkeypatch):
+    """The options the port once refused (``devices=``, ``shard_axis=``)
+    are lifted on launch, compiled and LaunchConfig.on: a single-device
+    backend ignores them, the shard backends take them, and both give
+    the plain launch's result."""
+    monkeypatch.setenv("CUPBOP_HOST_DEVICES", "2")
+    x = torch.arange(64, dtype=torch.int32)
+    want = api.launch(_add_one(), grid=2, block=32, args={"x": x})["x"]
+    for kw in ({}, {"backend": "shard"}, {"backend": "shard_vector"}):
+        got = call(_add_one(), {"x": x.clone()}, **kw)["x"]
+        assert torch.equal(got, want), kw
 
 
 def test_only_the_shard_options_are_refused():
-    assert set(api.NOT_PORTED) == {"devices", "shard_axis"}
-    assert all(v.startswith("ROADMAP 1.12") for v in api.NOT_PORTED.values())
-    assert {"launch_batch", "enable_disk_cache",
-            "disable_disk_cache"} <= set(api.__all__)
+    """Nothing is refused any more: the refusal table is gone, and
+    device_opts passes the options to multi-device backends only."""
+    assert not hasattr(api, "NOT_PORTED") and not hasattr(api, "_refuse")
+    assert {"launch_batch", "enable_disk_cache", "disable_disk_cache",
+            "device_opts"} <= set(api.__all__)
+    assert api.device_opts(backends.get_backend("shard"), 2, "x") == {
+        "devices": 2, "shard_axis": "x"}
+    assert api.device_opts(backends.get_backend("loop"), 2, "x") == {}
 
 
 def _fusable():

@@ -8,7 +8,7 @@ grain-3 tail, f32/f64/i32 under the port's x64 switch), the replay legs
 of the chains, the report, and the gate's self-tests.  ``cuda``'s
 refusals of geometries and dtypes its wrappers were not written for are
 ``unsupport`` cells, named here case by case.  The full variant sweep on
-all five backends runs through the CLI (``python -m
+all seven backends runs through the CLI (``python -m
 repro_torch.core.conformance --device cpu``), not here; the cross-framework
 column against the reference is ``tests/test_torch_conformance_parity.py``.
 """
@@ -30,7 +30,6 @@ from repro_torch.core.backends import (  # noqa: E402
     unregister_backend,
 )
 from repro_torch.core.conformance import (  # noqa: E402
-    NOT_PORTED,
     Cell,
     build_cases,
     grid_variants,
@@ -337,22 +336,60 @@ def test_matrix_report_structure():
     json.dumps(js, allow_nan=False)       # RFC 8259: no Infinity/NaN
 
 
-def test_not_ported_legs_are_listed_and_make_no_cell():
-    # the frontend leg (ROADMAP 1.10) and the optimized leg (ROADMAP 1.9)
-    # are ported: pathfinder, a corpus kernel, makes a cell of each; only
-    # the shard backends stay listed
-    rep = run_matrix(cases=[CASES["pathfinder"]], backends=("vector",),
-                     variants=True, device=CPU)
+def test_not_ported_legs_are_listed_and_make_no_cell(monkeypatch):
+    """Every leg of the reference is ported, the shard legs last: nothing
+    is listed as not ported, and pathfinder, a corpus chain, makes its
+    frontend and optimized cells on vector and its shard_vector cells at
+    each device count - bit for bit vector at 1 and 2 host workers, and a
+    skip cell at 4, above the pool of 2."""
+    monkeypatch.setenv("CUPBOP_HOST_DEVICES", "2")
+    rep = run_matrix(cases=[CASES["pathfinder"]],
+                     backends=("vector", "shard_vector"), variants=True,
+                     device=CPU, device_counts=(1, 2, 4))
     meta = report_to_json(rep)["meta"]
-    assert meta["not_ported"] == NOT_PORTED
-    assert set(NOT_PORTED) == {"shard", "shard_vector", "devices"}
-    for name in ("shard", "shard_vector", "devices"):
-        assert NOT_PORTED[name].startswith("ROADMAP 1.12")
+    assert "not_ported" not in meta and not hasattr(conformance,
+                                                    "NOT_PORTED")
+    assert meta["device_count"] == 2
     for mode in ("frontend", "optimized"):
         (cell,) = [c for c in rep.cells if c.mode == mode]
         assert cell.status == "pass" and cell.bit_identical
         assert cell.anchor == "vector/host" and cell.bit_required
-    assert not {"shard", "shard_vector"} & set(backend_names())
+    shard = [c for c in rep.cells if c.backend == "shard_vector"]
+    assert {c.devices for c in shard} == {1, 2, 4}
+    for c in shard:
+        if c.devices == 4:
+            assert c.status == "skip" and "only 2 device" in c.detail
+        elif c.mode == "host":
+            assert c.status == "pass" and c.anchor == "vector"
+            assert c.bit_required and c.bit_identical
+        else:                        # device_resident: its own host cell
+            assert c.mode == "device_resident" and c.status == "pass"
+            assert c.anchor == "shard_vector/host" and c.bit_identical
+    assert {c.mode for c in shard} == {"host", "device_resident"}
+    assert {"shard", "shard_vector"} <= set(backend_names())
+    assert rep.summary()["shard_vector"]["fail"] == 0
+
+
+def test_anchors_carry_bits_between_calls(monkeypatch):
+    """Phase 3c of chip_smoke.py runs one backend a call: vector's cells
+    leave their bits in ``anchors`` and shard_vector's cells of a later
+    call, without vector among its backends, are held against them; with
+    no shared dict they carry no anchor."""
+    monkeypatch.setenv("CUPBOP_HOST_DEVICES", "2")
+    cases = [CASES[n] for n in ("vecadd", "histogram", "bfs_frontier")]
+    anchors = {}
+    run_matrix(cases=cases, backends=("vector",), variants=True, device=CPU,
+               anchors=anchors)
+    assert {k[:2] for k in anchors} == {(c.name, "vector") for c in cases}
+    rep = run_matrix(cases=cases, backends=("shard_vector",), variants=True,
+                     device=CPU, anchors=anchors)
+    host = [c for c in rep.cells if c.mode == "host"]
+    assert {c.devices for c in host} == {1, 2}
+    assert all(c.anchor == "vector" and c.bit_required and c.bit_identical
+               and c.status == "pass" for c in host)
+    alone = run_matrix(cases=cases[:1], backends=("shard_vector",),
+                       variants=False, device=CPU)
+    assert all(c.anchor is None and c.status == "pass" for c in alone.cells)
 
 
 # --- the frontend leg --------------------------------------------------------
@@ -360,8 +397,8 @@ def test_frontend_leg_covers_the_corpus_on_loop_and_vector():
     """Each corpus kernel's translated twin makes one cell per backend of
     FRONTEND_BACKENDS, which cuda is not in (it refuses a translated
     kernel), and every kernel an optimized cell per backend of
-    OPTIMIZED_BACKENDS; the full CPU matrix over the five backends has
-    377 cells, 46 of them optimized."""
+    OPTIMIZED_BACKENDS; the full CPU matrix over the seven backends at
+    one host worker has 537 cells, 46 of them optimized."""
     assert conformance.FRONTEND_BACKENDS == ("loop", "vector")
     assert conformance.OPTIMIZED_BACKENDS == ("loop", "vector")
     axis = {"grain": conformance.VARIANT_BACKENDS,
@@ -385,7 +422,7 @@ def test_frontend_leg_covers_the_corpus_on_loop_and_vector():
     assert front == {(n, b) for n in conformance.FRONTEND_CORPUS
                      for b in ("loop", "vector")}
     assert optimized == {(n, b) for n in CASES for b in ("loop", "vector")}
-    assert cells == 377
+    assert cells == 537
 
 
 def test_frontend_cell_detects_a_mistranslation(monkeypatch):
@@ -478,7 +515,7 @@ def test_cli_gate_passes_and_writes_the_report(tmp_path):
     res = _cli("--no-variants", "--kernels", "vecadd", "--device", "cpu",
                "--json", "m.json", tmp_path=tmp_path)
     assert res.returncode == 0, res.stderr
-    assert "conformance gate: passed (5 cells, 1 kernels)" in res.stdout
+    assert "conformance gate: passed (7 cells, 1 kernels)" in res.stdout
     js = json.loads((tmp_path / "m.json").read_text())
     assert js["meta"]["device"] == "cpu"
     assert {c["backend"] for c in js["cells"]} == set(backend_names())

@@ -68,7 +68,8 @@ def test_percentages_unsupport_and_incorrect_count_against():
 def test_percentages_empty_table_is_zero_per_registered_backend():
     pct = torch_coverage.percentages({})
     assert set(pct) == set(torch_coverage.frameworks())
-    assert set(pct) == {"loop", "loop_nowarp", "naive", "vector", "cuda"}
+    assert set(pct) == {"loop", "loop_nowarp", "naive", "vector", "cuda",
+                        "shard", "shard_vector"}
     assert all(v == 0.0 for v in pct.values())
 
 
@@ -254,6 +255,18 @@ def test_real_sweep_of_vector_and_cuda_on_the_cpu(monkeypatch):
     assert cov == {fw: base["backends"][fw] for fw in ("vector", "cuda")}
 
 
+def test_real_sweep_of_shard_vector_at_four_host_workers(monkeypatch):
+    """The cheap shard column over all 23 entries at 4 host workers:
+    every entry correct, the baseline's count."""
+    monkeypatch.setenv("CUPBOP_HOST_DEVICES", "4")
+    table = torch_coverage.run(device="cpu", backends=("shard_vector",))
+    with open(os.path.join(_BENCH, "torch_coverage_baseline.json")) as f:
+        base = json.load(f)
+    assert torch_coverage.counts(table) == {
+        "shard_vector": base["backends"]["shard_vector"]} == {
+        "shard_vector": 23}
+
+
 def test_committed_baseline_matches_the_reference_baseline():
     """The checked-in baseline describes the 23-kernel suite with the
     reference's counts, cuda where the reference has pallas, and records
@@ -265,7 +278,8 @@ def test_committed_baseline_matches_the_reference_baseline():
     assert base["n_kernels"] == ref["n_kernels"] == 23
     assert base["device"] in ("cpu", "cuda")
     assert set(base["percent"]) == set(base["backends"]) == {
-        "loop", "loop_nowarp", "naive", "vector", "cuda"}
+        "loop", "loop_nowarp", "naive", "vector", "cuda", "shard",
+        "shard_vector"}
     for fw, cnt in base["backends"].items():
         want = ref["backends"]["pallas" if fw == "cuda" else fw]
         assert cnt == want
@@ -273,5 +287,6 @@ def test_committed_baseline_matches_the_reference_baseline():
         assert base["percent"][fw] == ref["percent"][
             "pallas" if fw == "cuda" else fw]
     assert base["backends"] == {"loop": 23, "loop_nowarp": 21, "naive": 5,
-                                "vector": 23, "cuda": 23}
+                                "vector": 23, "cuda": 23, "shard": 23,
+                                "shard_vector": 23}
     assert torch_coverage.ordering_holds(base["backends"])

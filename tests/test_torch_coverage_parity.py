@@ -2,7 +2,7 @@
 against the reference's, on the CPU.
 
 Every kernel of ``build_suite(1)`` (each step of a chain) is probed with
-the port's ``coverage`` and the reference's ``supported`` on the five
+the port's ``coverage`` and the reference's ``supported`` on the seven
 backends both registries have (``cuda`` matched to ``pallas``), on the
 entry's inputs and block.  The probe runs one block (``grid=1``) so that
 the loop lowerings stay cheap, except for the two kernels whose wrappers
@@ -25,7 +25,8 @@ from repro_torch.core import api, backends, cuda_suite  # noqa: E402
 from repro_torch.core.kernel import UnsupportedKernel  # noqa: E402
 #: the port's backend -> the reference's backend in the same column
 COLUMNS = {"loop": "loop", "loop_nowarp": "loop_nowarp", "naive": "naive",
-           "vector": "vector", "cuda": "pallas"}
+           "vector": "vector", "cuda": "pallas", "shard": "shard",
+           "shard_vector": "shard_vector"}
 #: kernels whose cuda wrappers take only the entry's whole grid
 WHOLE_GRID = ("bfs_frontier", "kmeans_update")
 
@@ -111,7 +112,8 @@ def test_coverage_row_spans_the_registry_and_follows_it():
         row = api.coverage(kernel, grid=2, block=64, args=bufs)
         assert list(row) == [*COLUMNS, "echo", "refuser"]
         assert row == {"loop": True, "loop_nowarp": False, "naive": False,
-                       "vector": True, "cuda": True, "echo": True,
+                       "vector": True, "cuda": True, "shard": True,
+                       "shard_vector": True, "echo": True,
                        "refuser": False}
     finally:
         backends.unregister_backend("echo")

@@ -119,16 +119,18 @@ def test_launch_batch_rejects_empty_and_multi_device(kernel):
     with pytest.raises(ValueError, match="non-empty"):
         api.launch_batch(kernel, grid=GRID, block=BLOCK, args_list=[])
     rng = np.random.default_rng(3)
-    # the port has no multi-device backend yet (ROADMAP 1.12): one that
-    # says it shards is refused as the reference refuses ``shard``
+    # the shard backends are refused as the reference refuses ``shard``,
+    # and so is any backend that says it shards
     vector = backends.get_backend("vector")
     backends.register_backend("sharded_probe", vector.run,
                               {"multi_device"})
     try:
-        with pytest.raises(UnsupportedKernel, match="single-device"):
-            api.launch_batch(kernel, grid=GRID, block=BLOCK,
-                             args_list=[vecadd_args(rng), vecadd_args(rng)],
-                             backend="sharded_probe")
+        for backend in ("shard", "shard_vector", "sharded_probe"):
+            with pytest.raises(UnsupportedKernel, match="single-device"):
+                api.launch_batch(kernel, grid=GRID, block=BLOCK,
+                                 args_list=[vecadd_args(rng),
+                                            vecadd_args(rng)],
+                                 backend=backend)
     finally:
         backends.unregister_backend("sharded_probe")
 
