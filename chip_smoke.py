@@ -211,9 +211,39 @@ Phases, each printing its own lines:
    (``F.rms_norm``, ``torch.matmul``, ``F.scaled_dot_product_attention``,
    timed only) are timed as in phase 2.  The inputs are drawn from the
    same generator after every entry's;
-5. the kernels' JSON line (the 27 suite kernels and a row per hot-path
-   call and dtype, named ``<kernel>/<call>/<dtype>``), the card line, and
-   last
+5. the LM serving path (``repro_torch.serve.engine`` over
+   ``repro_torch.models``) at qwen2-0.5b's full width in bfloat16 (24
+   layers, d_model 896, 14 / 2 heads padded to 16 / 16, vocabulary
+   151,936, tied embeddings, QKV bias), its weights drawn on the card from
+   ``SEED``: the serve command's traffic (``LM_TRAFFIC``: 8 prompts of
+   16 tokens, 12 new tokens each, 4 slots) under both stream policies,
+   then one prompt of 1,024 tokens with 32 new (``LM_LONG``), each run
+   with every launch count set to 0 just before and read just after;
+   every request must finish with its tokens, and each prefill and decode
+   step must have launched rmsnorm 2L + 1 times and the flash kernel that
+   ``route`` picks for its shapes L times (the tensor-core prefill, the
+   split-kv decode), and no other kernel (``lm serve`` lines, with
+   tokens/s, ``launches``, ``syncs`` and ``steps``).  Then the model
+   against its plain versions (``mode="interpret"``) on the card on the
+   same parameters, teacher-forced with the plain versions' greedy
+   tokens: each step's max-abs logit gap within ``LM_TOL``, and the
+   tokens equal wherever the plain version's top-1 / top-2 margin exceeds
+   it (``lm check`` lines, the steps under the margin counted), the
+   traffic on the weights of each of ``LM_CHECK_SEEDS``; the long
+   request's served tokens equal the plain versions' up to the first step
+   under the margin, and all of them the kernel path's own greedy loop at
+   the engine's shapes.  Then a prefill at 16 and 1,024 tokens and a
+   decode step of 4 slots timed (host wall, the card synchronised at both
+   ends; the card's busy time and the five costliest kernels from a
+   ``torch.profiler`` trace), and each kernel at the long prompt's
+   shapes on its layer-0 inputs (rmsnorm with a drawn scale) against its
+   plain version and the oracle, timed as in phase 4 beside
+   ``F.rms_norm`` / ``F.scaled_dot_product_attention`` (``lm kernel``
+   lines, ``launches`` the served runs' count);
+6. the kernels' JSON line (the 27 suite kernels, a row per hot-path
+   call and dtype, named ``<kernel>/<call>/<dtype>``, and a row per
+   kernel of the LM path, ``<kernel>/lm_qwen2-0.5b/bfloat16``), the card
+   line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line,
@@ -381,6 +411,27 @@ HOT_KERNELS = {
     ("flash_attention_decode", torch.bfloat16): "flash_decode",
     ("flash_attention_decode", torch.float32): "flash_decode",
 }
+#: phase 5: the LM serving path at qwen2-0.5b's full width, random
+#: weights from SEED: the serve command's traffic (``--lm``'s defaults:
+#: max_len = prompt + new + 8) under both policies, then one long prompt,
+#: whose prefill walks 16 kv tiles and whose decode steps several splits
+LM_ARCH = "qwen2-0.5b"
+LM_TRAFFIC = {"requests": 8, "prompt_len": 16, "max_new": 12, "slots": 4}
+LM_LONG = {"prompt_len": 1024, "max_new": 32}
+#: max-abs gap of the kernels' logits from their plain versions' on the
+#: card, teacher-forced: in bfloat16 a kernel's value may land on the
+#: neighbouring bfloat16 value (flash_attention.PLAIN_TOL) and the layers
+#: after it carry that into the logits, rounded to bfloat16 themselves
+#: (the check line prints their largest size, ``logit_max``).  Measured at
+#: most 2.93e-3 on an H100 (PERF.md)
+LM_TOL = 5e-3
+#: the weights' seeds whose traffic is checked against the plain versions:
+#: the served model's and one more, so LM_TOL rests on two draws
+LM_CHECK_SEEDS = (SEED, SEED + 1)
+#: timed runs of a prefill or a decode step, after one more, median kept
+LM_TURNS = 5
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -826,18 +877,18 @@ def hot_tol(fn: str, dtype, matmul_tol) -> float:
     return {"rmsnorm": 1e-5, "flash_attention": 2e-5}[fn]
 
 
-def hot_bound(call: str, dtype) -> tuple[float, str]:
-    """Least time (ms) for one hot-path call: its inputs read once and its
-    output written once over the memory rate, against its flops over the
-    peak rate for their type (bfloat16 tensor cores; float32 CUDA cores)
-    and its ``exp`` over the special-function units."""
-    p, size = HOT[call], torch.empty(0, dtype=dtype).element_size()
+def hot_bound(fn: str, dtype, p: dict) -> tuple[float, str]:
+    """Least time (ms) for one call of ``fn`` at ``p``'s shapes: its inputs
+    read once and its output written once over the memory rate, against
+    its flops over the peak rate for their type (bfloat16 tensor cores;
+    float32 CUDA cores) and its ``exp`` over the special-function units."""
+    size = torch.empty(0, dtype=dtype).element_size()
     peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
     exps = 0.0
-    if call == "rmsnorm":
+    if fn == "rmsnorm":
         nbytes = size * 2 * p["rows"] * p["d"] + 4 * p["d"]
         flops = 4.0 * p["rows"] * p["d"]   # square-add, two products, add
-    elif call == "matmul":
+    elif fn == "matmul":
         m, k, n = p["m"], p["k"], p["n"]
         nbytes = size * (m * k + k * n + m * n)
         flops = 2.0 * m * k * n
@@ -886,11 +937,61 @@ def hot_calls(call: str, t: tuple, ops, kernels_of) -> tuple:
                 q, k, v, is_causal=causal, enable_gqa=True))
 
 
+def kernel_row(label: str, name: str, kname: str, fn: str, p: dict,
+               dtype, fns: tuple, tols: tuple, launches=None,
+               note: str = "") -> dict:
+    """One kernel's JSON row.  ``fns`` is ``(run, plain, oracle, library)``:
+    ``run`` (its ``ops`` call) is launched once with every count set to 0
+    and must launch ``kname`` once and no other kernel; its result is held
+    against ``plain`` within ``tols[0]`` (rtol, atol) and ``oracle`` within
+    ``tols[1]``; then ``run``, ``plain`` and ``library`` are timed and the
+    bound taken from ``p``, the shapes of ``fn``'s call.  ``launches`` is the main
+    path's count (default: this one launch's)."""
+    from repro_torch.core import lower_cuda
+    from repro_torch.kernels import ops
+
+    run, plain, oracle, library = fns
+    plain_tol, tol = tols
+    kernels = {**ops.KERNELS, **lower_cuda.KERNELS}
+    for kern in kernels.values():
+        kern.launches = 0
+    torch.cuda.synchronize()
+    got = run()
+    torch.cuda.synchronize()
+    counts = {n: k.launches for n, k in kernels.items() if k.launches}
+    if counts != {kname: 1}:
+        raise AssertionError(f"{name}: launched {counts}, not {kname} once")
+    err = 0.0
+    for what, want, (rtol, atol) in (("plain", plain(), plain_tol),
+                                     ("oracle", oracle(), (tol, tol))):
+        if got.shape != want.shape or got.dtype != want.dtype or \
+                not torch.isfinite(got).all() or \
+                not torch.allclose(got.float(), want.float(), rtol=rtol,
+                                   atol=atol):
+            raise AssertionError(f"{name}: disagrees with its {what} "
+                                 f"version")
+        if what == "plain":
+            err = float((got.double() - want.double()).abs().max())
+        del want
+    del got
+    ms, plain_ms, library_ms = time_ms(run), time_ms(plain), time_ms(library)
+    bound_ms, bound_by = hot_bound(fn, dtype, p)
+    launches = 1 if launches is None else launches
+    print(f"{label} {name}: {p} kernel_ms={ms} plain_ms={plain_ms} "
+          f"bound_ms={bound_ms} ({bound_by}) library_ms={library_ms} "
+          f"max_abs_err={err} plain_tol={plain_tol} tol={tol} "
+          f"launches={launches} oracle=match{note}")
+    return {"name": name, "route": "cuda", "source": ops.KERNELS[kname].source,
+            "replaces": HOT_REPLACES[fn],
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def hot_phase(host: dict, dev, matmul_tol) -> dict:
     """Phase 4: each hot-path call through ``ops`` once per dtype with
     fresh counts (the main path), held against its plain version and the
     oracle, then timed.  Returns the kernels' JSON rows by name."""
-    from repro_torch.core import lower_cuda
     from repro_torch.kernels import flash_attention, matmul, ops, rmsnorm
 
     kernels_of = {"rmsnorm": rmsnorm, "matmul": matmul,
@@ -901,47 +1002,14 @@ def hot_phase(host: dict, dev, matmul_tol) -> dict:
         for call in HOT:
             t = tuple(torch.from_numpy(a).to(dev).to(dtype)
                       for a in host[call])
-            fn, run, plain, oracle, library = hot_calls(call, t, ops,
-                                                        kernels_of)
+            fn, *fns = hot_calls(call, t, ops, kernels_of)
             kname = HOT_KERNELS[call, dtype]
-            # the main path: this call's kernel, once, and no other
-            for kern in (*ops.KERNELS.values(), *lower_cuda.KERNELS.values()):
-                kern.launches = 0
-            torch.cuda.synchronize()
-            got = run()
-            torch.cuda.synchronize()
-            counts = {n: k.launches for n, k in ops.KERNELS.items()}
-            counts.update((n, k.launches) for n, k in
-                          lower_cuda.KERNELS.items() if k.launches)
-            launches = counts.pop(kname)
-            if launches != 1 or any(counts.values()):
-                raise AssertionError(f"{call}/{dname}: {kname} launched "
-                                     f"{launches} times, others {counts}")
             tol = hot_tol(fn, dtype, matmul_tol)
             # flash attention's kernels hold their plain versions closer
             # than the oracle (PLAIN_TOL says why)
             plain_tol = (flash_attention.PLAIN_TOL[
                 flash_attention.route(*t), dtype]
                 if fn == "flash_attention" else (tol, tol))
-            err = 0.0
-            for what, want, (rtol, atol) in (
-                    ("plain", plain(), plain_tol),
-                    ("oracle", oracle(), (tol, tol))):
-                if got.shape != want.shape or got.dtype != want.dtype or \
-                        not torch.isfinite(got).all() or \
-                        not torch.allclose(got.float(), want.float(),
-                                           rtol=rtol, atol=atol):
-                    raise AssertionError(f"{call}/{dname}: disagrees with "
-                                         f"its {what} version")
-                if what == "plain":
-                    err = float((got.double() - want.double()).abs().max())
-                del want
-            del got
-            ms = time_ms(run)
-            plain_ms = time_ms(plain)
-            library_ms = time_ms(library)
-            bound_ms, bound_by = hot_bound(call, dtype)
-            name = f"{kname}/{call}/{dname}"
             ctas = ""
             if kname == "matmul":
                 m, n = HOT[call]["m"], HOT[call]["n"]
@@ -952,21 +1020,343 @@ def hot_phase(host: dict, dev, matmul_tol) -> dict:
                 B, H, Sq, d = t[0].shape
                 ctas = (f" ctas={flash_attention.simt_ctas(B, H, Sq, d)} "
                         f"q_tile={flash_attention.simt_q_tile(d)}")
-            rows[name] = {
-                "name": name, "route": "cuda",
-                "source": ops.KERNELS[kname].source,
-                "replaces": HOT_REPLACES[fn], "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms}
-            print(f"hot {name}: {HOT[call]} kernel_ms={ms} "
-                  f"plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by}) "
-                  f"library_ms={library_ms} max_abs_err={err} "
-                  f"plain_tol={plain_tol} tol={tol} "
-                  f"launches={launches} oracle=match{ctas}")
+            name = f"{kname}/{call}/{dname}"
+            rows[name] = kernel_row("hot", name, kname, fn, HOT[call],
+                                    dtype, tuple(fns), (plain_tol, tol),
+                                    note=ctas)
             del t
             torch.cuda.empty_cache()
     return rows
+
+
+def lm_times(fn) -> tuple[float, float | None, list]:
+    """``(wall_ms, busy_ms, top)`` of ``fn()``: the host's wall with the
+    card synchronised at both ends, median of ``LM_TURNS`` after one more;
+    the card's busy time a call, the union of the kernels' intervals that
+    ``torch.profiler`` (CUPTI) traced over ``LM_TURNS`` more calls, over
+    the count (None when the trace holds no kernel); and the five kernels
+    with the most device time a call, ``(name, ms)``.  An event window
+    behind a spin cannot give the busy time here: a decode step enqueues
+    more launches than the card's launch queue holds, so its tail is
+    enqueued at the host's pace inside the window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    for _ in range(LM_TURNS + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(LM_TURNS):
+            fn()
+        torch.cuda.synchronize()
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            r = e.time_range
+            spans.append((r.start, r.end))
+            by_name[e.name] = by_name.get(e.name, 0.0) + (r.end - r.start)
+    busy, reach = 0.0, None
+    for a, b in sorted(spans):          # the union, in us
+        if reach is None or a > reach:
+            busy += b - a
+            reach = b
+        elif b > reach:
+            busy += b - reach
+            reach = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return (statistics.median(walls[1:]),
+            busy / LM_TURNS / 1e3 if spans else None,
+            [(n[:60], t / LM_TURNS / 1e3) for n, t in top])
+
+
+def lm_phase(dev) -> dict:
+    """Phase 5: the LM serving path at qwen2-0.5b's full width through the
+    port's ``Engine`` (the main path: each serving run with every launch
+    count set to 0 just before and read just after; rmsnorm 2L + 1 times
+    and the routed flash kernel L times a prefill and a decode step, and
+    no other kernel), the model's logits against its plain versions on the
+    card (teacher-forced), the path's timings, and each of its kernels at
+    the long prompt's shapes against its plain version and the oracle.
+    Returns the kernels' JSON rows by name."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import registry
+    from repro_torch.core import lower_cuda
+    from repro_torch.core.streams import Policy
+    from repro_torch.kernels import flash_attention, ops, rmsnorm
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    cfg = registry.get(LM_ARCH)
+    plan = attention.plan_for(cfg)
+    L, dt, V = cfg.num_layers, cfg.cdtype, cfg.vocab_size
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from leaves(v) if isinstance(v, dict) else (v,)
+
+    print(f"lm model {cfg.name}: layers={L} d_model={cfg.d_model} "
+          f"heads={cfg.num_heads}/{cfg.num_kv_heads} padded="
+          f"{plan.hq_p}/{plan.hkv_p} head_dim={cfg.hd} d_ff={cfg.d_ff} "
+          f"vocab={V} padded_vocab={cfg.padded_vocab} dtype={cfg.param_dtype} "
+          f"tied={cfg.tie_embeddings} qkv_bias={cfg.qkv_bias} "
+          f"params={sum(t.numel() for t in leaves(params))} init_s={init_s}")
+
+    kernels = {**ops.KERNELS, **lower_cuda.KERNELS}
+
+    def zero():
+        for kern in kernels.values():
+            kern.launches = 0
+
+    def counts():
+        return {n: k.launches for n, k in kernels.items() if k.launches}
+
+    def flash_kernel(B, Sq, Skv):
+        q = torch.empty(B, plan.hq_p, Sq, cfg.hd, dtype=dt, device=dev)
+        kv = torch.empty(B, plan.hkv_p, Skv, cfg.hd, dtype=dt, device=dev)
+        return ops.ROUTES["flash_attention"][flash_attention.route(q, kv, kv)]
+
+    def expected(prompt_lens, slots, steps):
+        """Each prefill (B = 1, its prompt) and decode step (B = slots):
+        rmsnorm 2L + 1, its routed flash kernel L."""
+        want = {"rmsnorm": (2 * L + 1) * (len(prompt_lens) + steps)}
+        calls = [(flash_kernel(1, S, S), 1) for S in prompt_lens]
+        calls.append((flash_kernel(slots, 1, 1), steps))
+        for name, n in calls:
+            if n:
+                want[name] = want.get(name, 0) + L * n
+        return want
+
+    rng = np.random.default_rng(SEED)
+    tr = LM_TRAFFIC
+    prompts = [rng.integers(0, V, tr["prompt_len"])
+               for _ in range(tr["requests"])]
+    long_prompt = rng.integers(0, V, LM_LONG["prompt_len"])
+    if flash_kernel(1, tr["prompt_len"], tr["prompt_len"]) != \
+            "flash_attention_tc" or flash_kernel(1, 1, 1) != "flash_decode":
+        raise AssertionError("lm: the path would not take the tc prefill "
+                             "and split-kv decode kernels")
+
+    totals = {}
+
+    def serve(label, spec, slots, max_len, policy, main=True):
+        """Serve ``spec``'s (prompt, max_new) requests; every request
+        finished with its tokens and each kernel launched exactly as
+        ``expected``.  Returns (engine, requests)."""
+        eng = Engine(cfg, params, slots=slots, max_len=max_len,
+                     policy=policy, device=dev)
+        reqs = [eng.submit(p, max_new=m) for p, m in spec]
+        zero()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = counts()
+        for i, r in enumerate(reqs):
+            if not r.done or len(r.out) != r.max_new or \
+                    not all(0 <= x < V for x in r.out):
+                raise AssertionError(f"lm serve {label}: request {i} gave "
+                                     f"{r.out} for {r.max_new} tokens")
+        want = expected([len(p) for p, _ in spec], slots, eng.stats["steps"])
+        if got != want:
+            raise AssertionError(f"lm serve {label}: kernels launched {got}, "
+                                 f"the path asks for {want}")
+        if main:
+            for n, c in got.items():
+                totals[n] = totals.get(n, 0) + c
+        toks = sum(len(r.out) for r in reqs)
+        print(f"lm serve {label}: policy={policy.value} requests={len(reqs)} "
+              f"slots={slots} max_len={max_len} tokens={toks} wall_s={wall} "
+              f"tok_per_s={toks / wall} launches={eng.stats['launches']} "
+              f"syncs={eng.stats['syncs']} steps={eng.stats['steps']} "
+              f"kernels={got} card={card}")
+        return eng, reqs
+
+    # the main path: the serve command's traffic under both policies, then
+    # the long prompt (a short warm-up first, its counts not kept)
+    cli_len = tr["prompt_len"] + tr["max_new"] + 8
+    serve("warm-up", [(prompts[0], 2)], 1, cli_len, Policy.HAZARD_ONLY,
+          main=False)
+    outs = {}
+    for policy in (Policy.HAZARD_ONLY, Policy.SYNC_ALWAYS):
+        _, reqs = serve("traffic", [(p, tr["max_new"]) for p in prompts],
+                        tr["slots"], cli_len, policy)
+        outs[policy] = [r.out for r in reqs]
+    if outs[Policy.HAZARD_ONLY] != outs[Policy.SYNC_ALWAYS]:
+        raise AssertionError("lm serve: the two policies gave other tokens")
+    long_len = LM_LONG["prompt_len"] + LM_LONG["max_new"] + 8
+    _, (long_req,) = serve("long", [(long_prompt, LM_LONG["max_new"])], 1,
+                           long_len, Policy.HAZARD_ONLY)
+
+    # the logits against the plain versions on the card, teacher-forced
+    # with the plain versions' greedy tokens
+    def greedy(logits):
+        return logits[:, -1, :V].argmax(-1)[:, None]
+
+    def forced(label, prm, toks, max_len, steps):
+        want, wc = T.prefill(cfg, prm, {"tokens": toks}, max_len,
+                             mode="interpret")
+        got, gc = T.prefill(cfg, prm, {"tokens": toks}, max_len)
+        gaps, under, first_under, stream, top = [], 0, None, [], 0.0
+        for j in range(steps + 1):
+            if j:
+                want, wc = T.decode_step(cfg, prm, wc, nxt, mode="interpret")
+                got, gc = T.decode_step(cfg, prm, gc, nxt)
+            if not (torch.isfinite(got).all() and got.shape == want.shape):
+                raise AssertionError(f"lm check {label}: step {j} gave "
+                                     f"{tuple(got.shape)} or non-finite")
+            gaps.append(float((got - want).abs().max()))
+            top = max(top, float(want.abs().max()))
+            ref = want[:, -1, :V]
+            top2 = ref.topk(2, dim=-1).values
+            clear = top2[:, 0] - top2[:, 1] > LM_TOL
+            agree = greedy(got)[:, 0] == ref.argmax(-1)
+            if not bool(agree[clear].all()):
+                raise AssertionError(f"lm check {label}: step {j}'s token "
+                                     f"differs above the margin")
+            if not bool(clear.all()) and first_under is None:
+                first_under = j
+            under += int((~clear).sum())
+            nxt = greedy(want)
+            stream.append(nxt[:, 0].tolist())
+        print(f"lm check {label}: batch={toks.shape[0]} "
+              f"prompt={toks.shape[1]} steps={steps + 1} gaps={gaps} "
+              f"max_gap={max(gaps)} tol={LM_TOL} logit_max={top} "
+              f"under_margin={under} "
+              f"first_under={first_under} card={card}")
+        if max(gaps) > LM_TOL:
+            raise AssertionError(f"lm check {label}: logits {max(gaps)} "
+                                 f"from the plain versions' > {LM_TOL}")
+        return stream, first_under
+
+    # the traffic on the served weights and on LM_CHECK_SEEDS' others
+    batch = torch.from_numpy(np.stack(prompts[:tr["slots"]])).to(dev)
+    for seed in LM_CHECK_SEEDS:
+        prm = params if seed == SEED else T.init_params(cfg, seed, device=dev)
+        forced(f"traffic seed={seed}", prm, batch, cli_len, tr["max_new"] - 1)
+        del prm
+    long_toks = torch.from_numpy(long_prompt[None]).to(dev)
+    stream, first_under = forced(f"long seed={SEED}", params, long_toks,
+                                 long_len, LM_LONG["max_new"] - 1)
+    plain_toks = [t[0] for t in stream]
+    agree = first_under if first_under is not None else len(plain_toks)
+    if long_req.out[:agree] != plain_toks[:agree]:
+        raise AssertionError(f"lm serve long: tokens {long_req.out} part "
+                             f"from the plain versions' {plain_toks} before "
+                             f"the first step under the margin ({agree})")
+    print(f"lm serve long: the served tokens equal the plain versions' "
+          f"greedy ones over the first {agree} of {len(plain_toks)} "
+          f"(the rest after a step under the margin: "
+          f"{long_req.out[agree:] == plain_toks[agree:]})")
+    # and against the kernel path's own greedy loop at the engine's shapes
+    # (B = 1, the same max_len): the same kernels, so every token equal
+    lg, c = T.prefill(cfg, params, {"tokens": long_toks}, long_len)
+    free = []
+    for j in range(LM_LONG["max_new"]):
+        if j:
+            lg, c = T.decode_step(cfg, params, c, nxt)
+        nxt = greedy(lg)
+        free.append(int(nxt[0, 0]))
+    if long_req.out != free:
+        raise AssertionError(f"lm serve long: tokens {long_req.out} differ "
+                             f"from the kernel path's greedy loop {free}")
+    print(f"lm serve long: the served tokens equal the kernel path's greedy "
+          f"loop's over all {len(free)}")
+    del lg, c
+
+    # timings: a prefill at both prompt lengths (one request, as the engine
+    # admits it) and a decode step of the traffic's slots
+    def timing(label, fn, tokens):
+        wall, busy, top = lm_times(fn)
+        idle = "not measured" if busy is None else 1 - busy / wall
+        print(f"lm {label}: wall_ms={wall} device_busy_ms={busy} "
+              f"idle_share={idle} tok_per_s={tokens / wall * 1e3} "
+              f"top_kernels_ms={top} card={card}")
+
+    for S, toks in ((tr["prompt_len"], prompts[0]),
+                    (LM_LONG["prompt_len"], long_prompt)):
+        t = torch.from_numpy(toks[None]).to(dev)
+        timing(f"prefill S={S}", lambda t=t, S=S: T.prefill(
+            cfg, params, {"tokens": t}, S + 40), S)
+    _, cache = T.prefill(cfg, params, {"tokens": batch}, cli_len)
+    nxt = batch[:, -1:]
+    timing(f"decode slots={tr['slots']} pos={cache['pos']}",
+           lambda: T.decode_step(cfg, params, cache, nxt), tr["slots"])
+    del cache
+
+    # each kernel of the path at the long prompt's shapes, on its layer-0
+    # inputs, against its plain version, the oracle and PyTorch's call;
+    # rmsnorm with a drawn scale (the model's starts at 0, which would
+    # leave the kernel's 1 + scale untested)
+    lp = T.layer_params(params, 0)
+    x = T.embed(cfg, params, {"tokens": long_prompt[None]})
+    rows2d = x.reshape(-1, cfg.d_model).contiguous()
+    xn = ops.rmsnorm(rows2d, lp["ln1"]).reshape(x.shape)
+    pos = torch.arange(x.shape[1], dtype=torch.int32, device=dev)[None]
+    q, k, v = (t.transpose(1, 2).contiguous() for t in
+               attention._project_qkv(cfg, plan, lp["attn"], xn, pos))
+    q1 = q[:, :, -1:].contiguous()
+    scale = torch.from_numpy(rng.standard_normal(
+        cfg.d_model, dtype=np.float32)).to(dev).to(lp["ln1"].dtype)
+    S, hd = x.shape[1], cfg.hd
+    scale_w = (1.0 + scale).to(dt)
+
+    def attn(qq, causal, **kw):
+        return lambda: ops.flash_attention(qq, k, v, causal=causal,
+                                           q_blk=qq.shape[2], kv_blk=S, **kw)
+
+    calls = {
+        "rmsnorm": (
+            "rmsnorm", {"rows": S, "d": cfg.d_model},
+            (lambda: ops.rmsnorm(rows2d, scale),
+             lambda: rmsnorm.rmsnorm_plain(rows2d, scale),
+             lambda: ops.rmsnorm(rows2d, scale, mode="ref"),
+             lambda: F.rms_norm(rows2d, (cfg.d_model,), weight=scale_w,
+                                eps=1e-5)),
+            (2e-2, 2e-2)),
+        "flash_attention_tc": (
+            "flash_attention",
+            {"b": 1, "h": plan.hq_p, "hkv": plan.hkv_p, "sq": S, "skv": S,
+             "d": hd, "causal": True},
+            (attn(q, True), attn(q, True, mode="interpret"),
+             attn(q, True, mode="ref"),
+             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                    enable_gqa=True)),
+            flash_attention.PLAIN_TOL["tc", dt]),
+        "flash_decode": (
+            "flash_attention",
+            {"b": 1, "h": plan.hq_p, "hkv": plan.hkv_p, "sq": 1, "skv": S,
+             "d": hd, "causal": False},
+            (attn(q1, False), attn(q1, False, mode="interpret"),
+             attn(q1, False, mode="ref"),
+             lambda: F.scaled_dot_product_attention(q1, k, v,
+                                                    enable_gqa=True)),
+            flash_attention.PLAIN_TOL["decode", dt])}
+    out = {}
+    for kname, (fn, p, fns, plain_tol) in calls.items():
+        name = f"{kname}/lm_{LM_ARCH}/{str(dt).removeprefix('torch.')}"
+        out[name] = kernel_row("lm kernel", name, kname, fn, p, dt, fns,
+                               (plain_tol, hot_tol(fn, dt, None)),
+                               launches=totals[kname], note=f" card={card}")
+    if set(totals) != {"rmsnorm", "flash_attention_tc", "flash_decode"}:
+        raise AssertionError(f"lm: the main path launched {totals}")
+    del params, q, k, v, q1, x, rows2d, xn, scale
+    torch.cuda.empty_cache()
+    print(f"phase 5: seconds={time.perf_counter() - t_phase} card={card}")
+    return out
 
 
 def layer_us(entry, args: dict, dev, api, carry, kern, n=512) -> dict:
@@ -2043,6 +2433,9 @@ def main() -> int:
 
     # ---- phase 4: the hot-path kernels at granite-3-2b's widths ---------
     rows.update(hot_phase(hot_host, dev, cuda_suite.matmul_tol))
+
+    # ---- phase 5: the LM serving path at qwen2-0.5b's full width -------
+    rows.update(lm_phase(dev))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,11 +1,13 @@
 """Carry the reference's state across: NumPy buffers -> the port's tensors.
 
-This system runs kernels, not a model, so its "weights" are the buffers a
-suite entry's ``make_args`` builds.  :func:`from_reference` hands those
-NumPy arrays to the port as tensors on one device, with the names in
-``const`` wrapped as read-only ``__constant__`` buffers.  The hot-path
-kernels' activations may be bfloat16 (``ml_dtypes``' type, which
-``torch.from_numpy`` refuses): they cross as their 16-bit patterns.
+Two kinds of state cross.  A suite entry's buffers, which its
+``make_args`` builds: :func:`from_reference` hands those NumPy arrays to
+the port as tensors on one device, with the names in ``const`` wrapped as
+read-only ``__constant__`` buffers.  And an LM's parameters (the LM tier,
+``repro_torch.models``): :func:`params_from_reference` takes the
+reference's parameter pytree as NumPy arrays and gives the port's nested
+dict of tensors, key for key.  bfloat16 arrays (``ml_dtypes``' type, which
+``torch.from_numpy`` refuses) cross as their 16-bit patterns.
 
 64-bit buffers (float64, int64, uint64, complex128) follow the port's x64
 switch (:func:`repro_torch.enable_x64`), as JAX's arrays follow its own:
@@ -29,3 +31,18 @@ def from_reference(args: dict[str, np.ndarray], *, const=(),
         t = host_tensor(value).to(dev)
         out[name] = ConstArray(t) if name in const else t
     return out
+
+
+def params_from_reference(params, *, device=None):
+    """The port's parameters for the reference's parameter pytree given as
+    NumPy arrays (``jax.tree.map(np.asarray, params)``): the same nested
+    keys and stacked ``[L, ...]`` layouts, each leaf a tensor on
+    ``device`` (the card unless ``"cpu"`` is asked for) with the same
+    dtype and bits."""
+    dev = resolve_device(device)
+
+    def carry_tree(tree):
+        if isinstance(tree, dict):
+            return {k: carry_tree(v) for k, v in tree.items()}
+        return host_tensor(tree).to(dev)
+    return carry_tree(params)

@@ -1,16 +1,24 @@
-"""Serving driver: kernel-service traffic over the suite's single launches.
+"""Serving driver: kernel-service traffic (default) or the LM engine (--lm).
 
-Stands up a :class:`repro_torch.serve.KernelService` on ``--device`` (the
-card unless the caller asks for the CPU), registers the single-launch
-suite kernels of ``build_suite(1)`` as endpoints, replays two waves of a
-round-robin request mix through the batching worker, and prints the
-:class:`~repro_torch.serve.ServiceStats` surface::
+Both run on ``--device``, the card unless the caller asks for the CPU.
+The default mode stands up a :class:`repro_torch.serve.KernelService`,
+registers the single-launch suite kernels of ``build_suite(1)`` as
+endpoints, replays two waves of a round-robin request mix through the
+batching worker, and prints the :class:`~repro_torch.serve.ServiceStats`
+surface::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --backend vector
 
-``--lm`` names the reference's token-level tier, which comes with the LM
-stack (ROADMAP 1.14).
+``--lm`` drives the token-level tier instead (continuous-batching decode
+over the dense decoder, :mod:`repro_torch.serve.engine`; on the card its
+RMSNorm and attention are the hand-written kernels)::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --lm --arch qwen2-0.5b \\
+      --requests 8 --max-new 12
+
+As the reference's, ``--smoke`` is on by default and cannot be turned
+off, so ``--lm`` serves ``registry.smoke(--arch)``.
 """
 from __future__ import annotations
 
@@ -70,15 +78,51 @@ def serve_kernels(args) -> dict:
     return doc
 
 
+def serve_lm(args) -> dict:
+    """Batched LM requests through the continuous-batching engine."""
+    from repro_torch.configs import registry
+    from repro_torch.core import memory
+    from repro_torch.core.streams import Policy
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine
+
+    cfg = registry.smoke(args.arch) if args.smoke else registry.get(args.arch)
+    device = memory.resolve_device(args.device)
+    params = T.init_params(cfg, 0, device=device)
+    policy = Policy.SYNC_ALWAYS if args.sync_always else Policy.HAZARD_ONLY
+    eng = Engine(cfg, params, slots=args.slots,
+                 max_len=args.prompt_len + args.max_new + 8, policy=policy,
+                 device=device)
+
+    rng = np.random.default_rng(0)
+    reqs = [eng.submit(rng.integers(0, cfg.vocab_size, args.prompt_len),
+                       max_new=args.max_new)
+            for _ in range(args.requests)]
+    t0 = time.time()
+    eng.run()
+    dt = time.time() - t0
+    toks = sum(len(r.out) for r in reqs)
+    print(f"served {len(reqs)} requests, {toks} tokens in {dt:.2f}s "
+          f"({toks/dt:.1f} tok/s) on {device} arch={cfg.name} "
+          f"policy={policy.value} launches={eng.stats['launches']} "
+          f"syncs={eng.stats['syncs']}")
+    for r in reqs[:3]:
+        print(f"  req{r.rid}: {r.out}")
+    return eng.stats
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--lm", action="store_true",
-                    help="the token-level LM tier (not ported yet)")
+                    help="drive the token-level LM engine instead of the "
+                         "kernel service")
     ap.add_argument("--device", default=None,
                     help="device to serve on (default: the card)")
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--requests", type=int, default=None,
+                    help="request count (default: 48 a wave kernel / 8 lm)")
+    # kernel-service mode
     ap.add_argument("--backend", default="cuda")
-    ap.add_argument("--requests", type=int, default=48,
-                    help="requests a wave")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--window-ms", type=float, default=2.0)
     ap.add_argument("--timeout", type=float, default=120.0)
@@ -86,11 +130,17 @@ def main(argv=None):
                     help="restrict to these suite kernels")
     ap.add_argument("--json", default=None,
                     help="write the ServiceStats snapshot here")
+    # lm mode
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=12)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--sync-always", action="store_true",
+                    help="HIP-CPU baseline policy (paper SVII-A.2)")
     args = ap.parse_args(argv)
-    if args.lm:
-        raise NotImplementedError(
-            "the LM serving tier is not ported yet: ROADMAP 1.14 (LM stack)")
-    return serve_kernels(args)
+    if args.requests is None:
+        args.requests = 8 if args.lm else 48
+    return serve_lm(args) if args.lm else serve_kernels(args)
 
 
 if __name__ == "__main__":

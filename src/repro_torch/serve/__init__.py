@@ -1,9 +1,15 @@
-"""The serving tier over the port's runtime.
+"""Serving tiers over the port's runtime.
 
-:mod:`repro_torch.serve.kernel_service` is the kernel-launch tier:
-multi-tenant requests against registered suite kernels, batched into
-stacked dispatches.  The reference's token-level LM tier
-(``repro.serve.engine``) comes with the LM stack (ROADMAP 1.14).
+Two granularities share the emit-on-hazard discipline:
+
+* :mod:`repro_torch.serve.kernel_service` - the kernel-launch tier:
+  multi-tenant requests against registered suite kernels, batched into
+  stacked dispatches;
+* :mod:`repro_torch.serve.engine` - the token-level LM tier:
+  continuous-batching decode over the dense decoder
+  (``repro_torch.models``), whose RMSNorm and attention launch the
+  hand-written kernels on the card (imported lazily; it pulls in the
+  model code, which kernel-serving users never need).
 """
 from repro_torch.serve.kernel_service import (
     Endpoint,
