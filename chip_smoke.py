@@ -240,11 +240,35 @@ Phases, each printing its own lines:
    plain version and the oracle, timed as in phase 4 beside
    ``F.rms_norm`` / ``F.scaled_dot_product_attention`` (``lm kernel``
    lines, ``launches`` the served runs' count);
-6. the kernels' JSON line (the 27 suite kernels, a row per hot-path
-   call and dtype, named ``<kernel>/<call>/<dtype>``, and a row per
-   kernel of the LM path, ``<kernel>/lm_qwen2-0.5b/bfloat16``), the card
-   line, and last
-   ``{"ok": true, "device": {...}}``.
+6. the LM training path (``repro_torch.train.step`` over
+   ``repro_torch.models``) at qwen2-0.5b's full width and depth in
+   bfloat16, remat ``full``, AdamW with the config's float32 moments, a
+   batch of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens from ``SyntheticLM``,
+   weights drawn on the card from ``SEED``: one train step with every
+   launch count set to 0 just before and read just after, which must
+   have launched rmsnorm 2L + 1 times a forward and 2L more in remat's
+   recompute and ``flash_attention_tc`` L + L times, and no other kernel
+   (``train main``, with the peak memory); the step's loss, gradients and
+   updated parameters against the same step through the plain versions
+   (``mode="interpret"``) on the weights of each of ``TRAIN_CHECK_SEEDS``,
+   within ``TRAIN_TOL`` (``train check`` lines); each flash route's lse
+   (the tc and simt prefills and the decode route at phase 4's shapes,
+   the tc prefill at the training shape) against its plain version within
+   ``LSE_TOL``, its output with the lse bit for bit its output without
+   (``train lse``); ``OVERFIT_STEPS`` steps on one batch at lr 1e-3, the
+   last loss below the first; a train step timed as phase 5 times a
+   decode step (``train step``: wall, busy, idle share, tokens/s, the
+   costliest kernels); the trainable flash's forward and backward at the
+   training shape beside SDPA's (``train flash``); each kernel at the
+   training shapes against its plain version and the oracle
+   (``train kernel`` lines, ``launches`` the main path's count); then
+   ``launch.train.main`` for 3 steps on the card through the entry point,
+   each step launching as the main path's;
+7. the kernels' JSON line (the 27 suite kernels, a row per hot-path
+   call and dtype, named ``<kernel>/<call>/<dtype>``, a row per kernel of
+   the LM path, ``<kernel>/lm_qwen2-0.5b/bfloat16``, and of the training
+   path, ``<kernel>/lm_train_qwen2-0.5b/bfloat16``), the card line, and
+   last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line,
 as it does with no CUDA device or outside a checkout of the repository.
@@ -430,6 +454,31 @@ LM_TOL = 5e-3
 LM_CHECK_SEEDS = (SEED, SEED + 1)
 #: timed runs of a prefill or a decode step, after one more, median kept
 LM_TURNS = 5
+#: phase 6: the LM training path at qwen2-0.5b's full width and depth in
+#: bfloat16, remat "full", AdamW with the config's float32 moments, a
+#: batch of 4 x 1,024 tokens from SyntheticLM (4,096 tokens a step)
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+#: a train step through the kernels against the same step through their
+#: plain versions on the card (``mode="interpret"``), same parameters and
+#: batch: (loss and grad norm, relative; the worst gradient leaf's
+#: ||dg|| / ||g||; the worst parameter leaf's ||dp|| / ||p|| after one
+#: AdamW update).  In bfloat16 a kernel's value may land on the
+#: neighbouring bfloat16 value (flash_attention.PLAIN_TOL), which every
+#: layer after it and the whole backward carry on.  The worst leaf of
+#: both is the k bias: it starts at 0, softmax nearly ignores it (a bias
+#: shared by a row's keys shifts every score alike but for rope), so its
+#: gradient is near 0 and rounding picks the sign of some elements, and
+#: AdamW's first step moves each element by lr whatever the gradient's
+#: size.  Each is 1.5 times the largest gap measured over
+#: TRAIN_CHECK_SEEDS on an H100 (PERF.md): loss 1.20e-6,
+#: grad norm 9.80e-5, a gradient leaf 6.62e-3, a parameter leaf 7.11e-2
+TRAIN_TOL = {"loss": 1.8e-6, "grad_norm": 1.5e-4, "grad": 1e-2,
+             "param": 0.107}
+TRAIN_CHECK_SEEDS = (SEED, SEED + 1)
+#: a route's lse against its plain version's (max-abs, natural log)
+LSE_TOL = 1e-4
+#: the reference's test_overfit_tiny_batch: steps on one batch at lr 1e-3
+OVERFIT_STEPS = 8
 
 
 def card_line() -> str:
@@ -1357,6 +1406,276 @@ def lm_phase(dev) -> dict:
     torch.cuda.empty_cache()
     print(f"phase 5: seconds={time.perf_counter() - t_phase} card={card}")
     return out
+
+
+def train_phase(dev) -> dict:
+    """Phase 6: the LM training path at qwen2-0.5b's full width and depth
+    through the port's train step (the main path: one step with every
+    launch count set to 0 just before and read just after; rmsnorm 2L + 1
+    times a forward and 2L more in remat's recompute, flash_attention_tc
+    L times a forward and L more in the recompute, no other kernel), the
+    step against the same step through the plain versions on two seeds'
+    weights, each flash route's lse against its plain version (serving's
+    output bit for bit without it), loss falling over a repeated batch,
+    ``launch.train`` for 3 steps, the step's timings and the trainable
+    flash beside SDPA.  Returns the kernels' JSON rows by name."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import registry
+    from repro_torch.core import lower_cuda
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention, ops, rmsnorm
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as train_mod
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    cfg = registry.get(LM_ARCH)
+    if cfg.remat != "full" or cfg.compute_dtype != "bfloat16":
+        raise AssertionError(f"train: {cfg.name} is not bfloat16 under "
+                             f"remat full")
+    L, dt, S = cfg.num_layers, cfg.cdtype, TRAIN_SEQ
+    plan = attention.plan_for(cfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    opt_cfg = adamw.AdamWConfig(total_steps=100, warmup_steps=5,
+                                schedule=cfg.schedule,
+                                state_dtype=cfg.opt_state_dtype)
+    kernels = {**ops.KERNELS, **lower_cuda.KERNELS}
+
+    def zero():
+        for kern in kernels.values():
+            kern.launches = 0
+
+    def counts():
+        return {n: k.launches for n, k in kernels.items() if k.launches}
+
+    per_step = {"rmsnorm": 2 * (2 * L) + 1, "flash_attention_tc": 2 * L}
+
+    def data(seed):
+        return SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                           seed=seed).batch_at(0)
+
+    def worst(a, b):
+        """The leaf whose ||a - b|| / ||b|| is largest, and that ratio."""
+        out = ("", 0.0)
+        for (name, x), y in zip(flat(a), adamw.tree_leaves(b)):
+            r = float((x.float() - y.float()).norm()
+                      / y.float().norm().clamp(min=1e-30))
+            out = max(out, (name, r), key=lambda t: t[1])
+        return out
+
+    def flat(tree, path=""):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in flat(tree[k],
+                                                          f"{path}/{k}")]
+        return [(path, tree)]
+
+    # the main path: one train step with fresh counts
+    params = T.init_params(cfg, SEED, device=dev)
+    opt = adamw.init_state(opt_cfg, params)
+    batch = data(SEED)
+    step = train_mod.make_train_step(cfg, opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    t0 = time.perf_counter()
+    p1, o1, m = step(params, opt, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    totals = counts()
+    peak = torch.cuda.max_memory_allocated()
+    if totals != per_step:
+        raise AssertionError(f"train: the step launched {totals}, the path "
+                             f"asks for {per_step}")
+    if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+            and all(bool(torch.isfinite(x).all())
+                    for x in adamw.tree_leaves(p1)) and int(o1.step) == 1):
+        raise AssertionError("train: the step gave a non-finite result")
+    nparams = sum(x.numel() for x in adamw.tree_leaves(params))
+    print(f"train main {cfg.name}: layers={L} d_model={cfg.d_model} "
+          f"heads={plan.hq_p}/{plan.hkv_p} padded_vocab={cfg.padded_vocab} "
+          f"params={nparams} dtype={cfg.param_dtype} remat={cfg.remat} "
+          f"state_dtype={opt_cfg.state_dtype} batch={TRAIN_BATCH}x{S} "
+          f"loss={float(m['loss'])} grad_norm={float(m['grad_norm'])} "
+          f"lr={float(m['lr'])} launches={totals} first_step_s={first_s} "
+          f"max_memory_allocated_bytes={peak} card={card}")
+    del p1, o1, m
+
+    # the step against its plain versions, on two seeds' weights
+    for seed in TRAIN_CHECK_SEEDS:
+        prm = params if seed == SEED else T.init_params(cfg, seed,
+                                                        device=dev)
+        b = data(seed)
+        res = {}
+        for mode in (None, "interpret"):
+            (l, _), g = train_mod.value_and_grad(
+                train_mod.make_loss(cfg, mode=mode), prm, b)
+            newp, _, om = adamw.apply_updates(
+                opt_cfg, prm, g, adamw.init_state(opt_cfg, prm))
+            res[mode] = (float(l), g, newp, float(om["grad_norm"]))
+        (lk, gk, pk, nk), (lp, gp, pp, np_) = res[None], res["interpret"]
+        gaps = {"loss": abs(lk - lp) / abs(lp),
+                "grad_norm": abs(nk - np_) / np_}
+        gname, gaps["grad"] = worst(gk, gp)
+        pname, gaps["param"] = worst(pk, pp)
+        print(f"train check seed={seed}: loss={lk} plain_loss={lp} "
+              f"grad_norm={nk} plain_grad_norm={np_} gaps={gaps} "
+              f"worst_grad_leaf={gname} worst_param_leaf={pname} "
+              f"tol={TRAIN_TOL} card={card}")
+        for what, tol in TRAIN_TOL.items():
+            if not gaps[what] <= tol:
+                raise AssertionError(f"train check seed={seed}: {what} "
+                                     f"{gaps[what]} from the plain step's "
+                                     f"> {tol}")
+        del prm, res, gk, gp, pk, pp
+        torch.cuda.empty_cache()
+
+    # each flash route's lse against its plain version, at phase 4's
+    # shapes and the training shape; the output with lse bit for bit the
+    # output without
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def draw(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    hd = cfg.hd
+    shapes = [(f"{call}/{str(d).removeprefix('torch.')}", HOT[call], d)
+              for call in ("flash_attention_prefill",
+                           "flash_attention_decode") for d in HOT_DTYPES]
+    shapes.append(("train/bfloat16", {
+        "b": TRAIN_BATCH, "h": plan.hq_p, "hkv": plan.hkv_p, "sq": S,
+        "skv": S, "d": hd, "causal": True}, dt))
+    for label, p, d in shapes:
+        q = draw(p["b"], p["h"], p["sq"], p["d"], dtype=d)
+        k = draw(p["b"], p["hkv"], p["skv"], p["d"], dtype=d)
+        v = draw(p["b"], p["hkv"], p["skv"], p["d"], dtype=d)
+        kw = dict(causal=p["causal"], q_blk=p["sq"], kv_blk=p["skv"])
+        route = flash_attention.route(q, k, v)
+        out_l, lse = flash_attention.flash_attention(q, k, v, with_lse=True,
+                                                     **kw)
+        out = flash_attention.flash_attention(q, k, v, **kw)
+        plain_out, plain_lse = flash_attention.plain(q, k, v, with_lse=True,
+                                                     **kw)
+        gap = float((lse - plain_lse).abs().max())
+        rtol, atol = flash_attention.PLAIN_TOL[route, d]
+        ok = (torch.equal(out_l, out) and gap <= LSE_TOL
+              and torch.allclose(out.float(), plain_out.float(), rtol=rtol,
+                                 atol=atol))
+        bits = "equal" if torch.equal(out_l, out) else "differ"
+        print(f"train lse {label}: route={route} lse_gap={gap} "
+              f"tol={LSE_TOL} out_bits={bits} card={card}")
+        if not ok:
+            raise AssertionError(f"train lse {label}: the {route} kernel's "
+                                 f"lse or output disagrees")
+        del q, k, v, out_l, out, lse, plain_out, plain_lse
+    torch.cuda.empty_cache()
+
+    # the loss falls over a repeated batch (test_overfit_tiny_batch)
+    fit_cfg = adamw.AdamWConfig(lr_peak=1e-3, total_steps=30, warmup_steps=1,
+                                state_dtype=cfg.opt_state_dtype)
+    fit = train_mod.make_train_step(cfg, fit_cfg)
+    prm, st, losses = params, adamw.init_state(fit_cfg, params), []
+    for _ in range(OVERFIT_STEPS):
+        prm, st, mm = fit(prm, st, batch)
+        losses.append(float(mm["loss"]))
+    print(f"train overfit: losses={losses} card={card}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train overfit: the loss did not fall "
+                             f"{losses}")
+    del prm, st, mm
+
+    # timings: a train step (host wall, the card synchronised at both
+    # ends; busy time and the costliest kernels from torch.profiler)
+    wall, busy, top = lm_times(lambda: step(params, opt, batch))
+    idle = "not measured" if busy is None else 1 - busy / wall
+    print(f"train step: wall_ms={wall} device_busy_ms={busy} "
+          f"idle_share={idle} tok_per_s={tokens / wall * 1e3} "
+          f"top_kernels_ms={top} card={card}")
+
+    # the trainable flash at the training shape, forward and backward,
+    # beside SDPA's (TF32 off)
+    q = draw(TRAIN_BATCH, plan.hq_p, S, hd, dtype=dt).requires_grad_()
+    k = draw(TRAIN_BATCH, plan.hkv_p, S, hd, dtype=dt).requires_grad_()
+    v = draw(TRAIN_BATCH, plan.hkv_p, S, hd, dtype=dt).requires_grad_()
+    dout = draw(TRAIN_BATCH, plan.hq_p, S, hd, dtype=dt)
+
+    def ours():
+        out = attention.attend_heads(q, k, v, causal=True,
+                                     q_chunk=cfg.q_chunk,
+                                     kv_chunk=cfg.kv_chunk)
+        return torch.autograd.grad(out, (q, k, v), dout)
+
+    def sdpa():
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                             enable_gqa=True)
+        return torch.autograd.grad(out, (q, k, v), dout)
+
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: flash_attention.flash_attention(
+            q, k, v, causal=True, q_blk=S, kv_blk=S, with_lse=True))
+        sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+    both_ms, sdpa_both_ms = time_ms(ours), time_ms(sdpa)
+    print(f"train flash: shape={tuple(q.shape)}/{tuple(k.shape)} "
+          f"fwd_ms={fwd_ms} fwd_bwd_ms={both_ms} bwd_ms={both_ms - fwd_ms} "
+          f"sdpa_fwd_ms={sdpa_fwd_ms} sdpa_fwd_bwd_ms={sdpa_both_ms} "
+          f"sdpa_bwd_ms={sdpa_both_ms - sdpa_fwd_ms} card={card}")
+
+    # each kernel of the path at the training shapes against its plain
+    # version, the oracle and PyTorch's call; rmsnorm on the batch's
+    # embedded rows with a drawn scale
+    x = T.embed(cfg, params, batch).reshape(-1, cfg.d_model).contiguous()
+    scale = draw(cfg.d_model, dtype=torch.float32)
+    scale_w = (1.0 + scale).to(dt)
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    calls = {
+        "rmsnorm": (
+            "rmsnorm", {"rows": tokens, "d": cfg.d_model},
+            (lambda: ops.rmsnorm(x, scale),
+             lambda: rmsnorm.rmsnorm_plain(x, scale),
+             lambda: ops.rmsnorm(x, scale, mode="ref"),
+             lambda: F.rms_norm(x, (cfg.d_model,), weight=scale_w,
+                                eps=1e-5)),
+            (2e-2, 2e-2)),
+        "flash_attention_tc": (
+            "flash_attention",
+            {"b": TRAIN_BATCH, "h": plan.hq_p, "hkv": plan.hkv_p, "sq": S,
+             "skv": S, "d": hd, "causal": True},
+            (lambda: ops.flash_attention(qd, kd, vd, q_blk=S, kv_blk=S),
+             lambda: ops.flash_attention(qd, kd, vd, q_blk=S, kv_blk=S,
+                                         mode="interpret"),
+             lambda: ops.flash_attention(qd, kd, vd, mode="ref"),
+             lambda: F.scaled_dot_product_attention(
+                 qd, kd, vd, is_causal=True, enable_gqa=True)),
+            flash_attention.PLAIN_TOL["tc", dt])}
+    rows = {}
+    for kname, (fn, p, fns, plain_tol) in calls.items():
+        name = f"{kname}/lm_train_{LM_ARCH}/{str(dt).removeprefix('torch.')}"
+        rows[name] = kernel_row("train kernel", name, kname, fn, p, dt, fns,
+                                (plain_tol, hot_tol(fn, dt, None)),
+                                launches=totals[kname], note=f" card={card}")
+    del params, opt, q, k, v, dout, qd, kd, vd, x
+    torch.cuda.empty_cache()
+
+    # the entry point: launch.train for 3 steps on the card
+    zero()
+    t0 = time.perf_counter()
+    loss = launch_train.main(["--arch", LM_ARCH, "--steps", "3", "--batch",
+                              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)])
+    torch.cuda.synchronize()
+    run = counts()
+    want = {n: 3 * c for n, c in per_step.items()}
+    print(f"train launch: loss={loss} wall_s={time.perf_counter() - t0} "
+          f"launches={run} card={card}")
+    if run != want or not np.isfinite(loss):
+        raise AssertionError(f"train launch: launched {run} (the path asks "
+                             f"for {want}), loss {loss}")
+    torch.cuda.empty_cache()
+    print(f"phase 6: seconds={time.perf_counter() - t_phase} card={card}")
+    return rows
 
 
 def layer_us(entry, args: dict, dev, api, carry, kern, n=512) -> dict:
@@ -2436,6 +2755,9 @@ def main() -> int:
 
     # ---- phase 5: the LM serving path at qwen2-0.5b's full width -------
     rows.update(lm_phase(dev))
+
+    # ---- phase 6: the LM training path at qwen2-0.5b's full width ------
+    rows.update(train_phase(dev))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

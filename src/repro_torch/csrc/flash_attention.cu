@@ -49,7 +49,11 @@
 // for a live row (key 0 is in the first tile), so m is finite and no
 // (-inf) - (-inf) arises.  The causal mask is top-left, qpos >= kpos with
 // both counted from 0, and a kv tile wholly above the CTA's last row is
-// not visited.  The output is acc / max(l, 1e-30).  Ragged edges (Sq or
+// not visited.  The output is acc / max(l, 1e-30); when `lse` is not null
+// each row's logsumexp goes to float32 lse [B, H, Sq] as well, m ln 2 +
+// ln max(l, 1e-30) (m is in log2 units of the pre-scaled scores), for the
+// trainable attention's backward, and a null `lse` leaves the rest as it
+// was, bit for bit.  Ragged edges (Sq or
 // Skv not a multiple of the tiles, d below its padded width of 32, 64 or
 // 128) are zero-filled on load and masked on store.
 // tools/flash_attention_variants.cu times this kernel beside the one it
@@ -75,6 +79,7 @@ __device__ __forceinline__ void from_f32(float v, __nv_bfloat16* out) {
 constexpr int kKT = 64;                 // keys a tile (KV_TILE)
 constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -191,7 +196,8 @@ __global__ void __launch_bounds__(S::NT, 1)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
                            int BH, int H, int Hkv, int Sq, int Skv, int d,
-                           int causal, float scale_log2) {
+                           int causal, float scale_log2,
+                           float* __restrict__ lse) {
   constexpr int DP = S::DP, BQ = S::BQ, TM = S::TM, TN = S::TN;
   constexpr int TX = S::TX, TY = S::TY, CN = S::CN, LD = S::LD;
   constexpr int PS = S::PS;
@@ -398,6 +404,8 @@ __global__ void __launch_bounds__(S::NT, 1)
     const int qpos = q0 + ty + TY * i;
     if (qpos >= Sq) continue;
     const float denom = fmaxf(lt, 1e-30f);
+    if (lse != nullptr && tx == 0)    // m[i] is the row's, lt its sum
+      lse[(size_t)(b * H + h) * Sq + qpos] = m[i] * kLn2 + logf(denom);
     T* orow = ob + (size_t)qpos * d;
 #pragma unroll
     for (int c = 0; c < CN / 4; ++c) {
@@ -420,7 +428,7 @@ template <typename T, class S, bool ASYNC>
 cudaError_t launch_shape(const void* q, const void* k, const void* v,
                          void* o, int B, int H, int Hkv, int Sq, int Skv,
                          int d, int causal, float scale,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, float* lse = nullptr) {
   const auto kern = flash_attention_kernel<T, S, ASYNC>;
   // above 48 KB a block's dynamic shared memory needs the opt-in
   cudaError_t err = cudaFuncSetAttribute(
@@ -430,7 +438,7 @@ cudaError_t launch_shape(const void* q, const void* k, const void* v,
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   kern<<<(unsigned)blocks, S::NT, S::kSmem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, B * H, H, Hkv, Sq, Skv,
-      d, causal, scale * kLog2e);
+      d, causal, scale * kLog2e, lse);
   return cudaGetLastError();
 }
 
@@ -440,32 +448,35 @@ template <typename T, class S>
 cudaError_t launch_staged(const void* q, const void* k, const void* v,
                           void* o, int B, int H, int Hkv, int Sq, int Skv,
                           int d, int causal, float scale,
-                          cudaStream_t stream) {
+                          cudaStream_t stream, float* lse) {
   const uintptr_t any =
       reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
   if constexpr (sizeof(T) == sizeof(float)) {
     if (d % 4 == 0 && any % 16 == 0)
       return launch_shape<T, S, true>(q, k, v, o, B, H, Hkv, Sq, Skv, d,
-                                      causal, scale, stream);
+                                      causal, scale, stream, lse);
   }
   return launch_shape<T, S, false>(q, k, v, o, B, H, Hkv, Sq, Skv, d, causal,
-                                   scale, stream);
+                                   scale, stream, lse);
 }
 
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      int B, int H, int Hkv, int Sq, int Skv, int d,
-                     int causal, float scale, cudaStream_t stream) {
+                     int causal, float scale, cudaStream_t stream,
+                     float* lse) {
   if (d <= 32)
     return launch_staged<T, ShapeOf<32>::type>(q, k, v, o, B, H, Hkv, Sq,
-                                               Skv, d, causal, scale, stream);
+                                               Skv, d, causal, scale, stream,
+                                               lse);
   if (d <= 64)
     return launch_staged<T, ShapeOf<64>::type>(q, k, v, o, B, H, Hkv, Sq,
-                                               Skv, d, causal, scale, stream);
+                                               Skv, d, causal, scale, stream,
+                                               lse);
   if (d <= 128)
     return launch_staged<T, ShapeOf<128>::type>(
-        q, k, v, o, B, H, Hkv, Sq, Skv, d, causal, scale, stream);
+        q, k, v, o, B, H, Hkv, Sq, Skv, d, causal, scale, stream, lse);
   return cudaErrorInvalidValue;
 }
 
@@ -473,16 +484,18 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 
 // bf16: 0 when q, k, v and o are float32, 1 when they are bfloat16.
 // 1 <= d <= 128, H a multiple of Hkv (the wrapper checks both).
+// lse: null, or float32 [B, H, Sq] for each row's logsumexp.
 extern "C" int launch_flash_attention(const void* q, const void* k,
                                       const void* v, void* o, int B, int H,
                                       int Hkv, int Sq, int Skv, int d,
                                       int causal, float scale, int bf16,
-                                      void* stream) {
+                                      void* lse, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  float* ls = (float*)lse;
   return (int)(bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, B, H, Hkv, Sq, Skv,
-                                              d, causal, scale, s)
+                                              d, causal, scale, s, ls)
                     : launch_d<float>(q, k, v, o, B, H, Hkv, Sq, Skv, d,
-                                      causal, scale, s));
+                                      causal, scale, s, ls));
 }
 
 // The query rows a CTA of the launcher owns at head width d (1 ... 128),

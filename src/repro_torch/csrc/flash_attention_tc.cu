@@ -23,7 +23,12 @@
 // shared memory), and V is read by ldmatrix.trans for p v.  Masked scores
 // are -1e30, never -inf; the causal mask is top-left (qpos >= kpos, both
 // counted from 0), and kv tiles wholly above the tile's diagonal are not
-// visited.  The output is acc / max(l, 1e-30).  d is padded to 32, 64 or
+// visited.  The output is acc / max(l, 1e-30).  When `lse` is not null the
+// kernel also writes each row's logsumexp, float32 [B, H, Sq]: the natural
+// log of the softmax's denominator over the scaled scores, m ln 2 +
+// ln max(l, 1e-30) (m is kept in log2 units of the pre-scaled scores), for
+// the trainable attention's backward; a null `lse` leaves the rest of the
+// kernel as it was, bit for bit.  d is padded to 32, 64 or
 // 128 with zeros (so d = 80 runs); ragged Sq and Skv are zero-filled on
 // load, masked, and not stored.  Causal blocks are issued heaviest first.
 //
@@ -56,6 +61,7 @@ constexpr int kWarps = 4, kThreads = 32 * kWarps;
 constexpr int kKT = 64;                 // keys a tile
 constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -138,7 +144,8 @@ __global__ void __launch_bounds__(kThreads)
     flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v,
-                              __nv_bfloat16* __restrict__ o, int BH, int H,
+                              __nv_bfloat16* __restrict__ o,
+                              float* __restrict__ lse, int BH, int H,
                               int Hkv, int Sq, int Skv, int d, int causal,
                               float scale_log2) {
   constexpr int kMT = m_tiles<DP>(), kQT = q_tile<DP>();
@@ -314,9 +321,12 @@ __global__ void __launch_bounds__(kThreads)
       float lt = l[mt][hf];
       lt += __shfl_xor_sync(0xffffffffu, lt, 1);
       lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-      lt = 1.0f / fmaxf(lt, 1e-30f);
       const int qpos = w0 + mt * 16 + g + 8 * hf;
       if (qpos >= Sq) continue;
+      if (lse != nullptr && t == 0)      // m is the quad's, lt its sum
+        lse[(size_t)(b * H + h) * Sq + qpos] =
+            m[mt][hf] * kLn2 + logf(fmaxf(lt, 1e-30f));
+      lt = 1.0f / fmaxf(lt, 1e-30f);
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j) {
         const int col = 8 * j + 2 * t;        // d % 8 == 0: pairs are whole
@@ -331,8 +341,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int Hkv, int Sq, int Skv, int d, int causal,
-                   float scale, cudaStream_t stream) {
+                   float* lse, int B, int H, int Hkv, int Sq, int Skv, int d,
+                   int causal, float scale, cudaStream_t stream) {
   constexpr int kQT = q_tile<DP>();
   constexpr int bytes = (kQT + 4 * kKT) * (DP + 8) * 2;   // q, 2 K, 2 V
   cudaError_t err = cudaFuncSetAttribute(
@@ -344,8 +354,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_attention_tc_kernel<DP><<<(unsigned)blocks, kThreads, bytes,
                                   stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, B * H, H, Hkv, Sq, Skv, d,
-      causal, scale * kLog2e);
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, B * H, H, Hkv, Sq,
+      Skv, d, causal, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -353,21 +363,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // q, k, v and o are bfloat16, 16-byte aligned, with d % 8 == 0 and
 // 8 <= d <= 128 (the wrapper's route checks; refused here as well).
+// lse: null, or float32 [B, H, Sq] for each row's logsumexp.
 extern "C" int launch_flash_attention_tc(const void* q, const void* k,
                                          const void* v, void* o, int B,
                                          int H, int Hkv, int Sq, int Skv,
                                          int d, int causal, float scale,
-                                         void* stream) {
+                                         void* lse, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  float* ls = (float*)lse;
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) |
                         reinterpret_cast<uintptr_t>(k) |
                         reinterpret_cast<uintptr_t>(v);
   if (d % 8 || any % 16 || Hkv <= 0 || H % Hkv) return cudaErrorInvalidValue;
-  if (d <= 32) return launch<32>(q, k, v, o, B, H, Hkv, Sq, Skv, d, causal,
-                                 scale, s);
-  if (d <= 64) return launch<64>(q, k, v, o, B, H, Hkv, Sq, Skv, d, causal,
-                                 scale, s);
-  if (d <= 128) return launch<128>(q, k, v, o, B, H, Hkv, Sq, Skv, d, causal,
-                                   scale, s);
+  if (d <= 32) return launch<32>(q, k, v, o, ls, B, H, Hkv, Sq, Skv, d,
+                                 causal, scale, s);
+  if (d <= 64) return launch<64>(q, k, v, o, ls, B, H, Hkv, Sq, Skv, d,
+                                 causal, scale, s);
+  if (d <= 128) return launch<128>(q, k, v, o, ls, B, H, Hkv, Sq, Skv, d,
+                                   causal, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -19,7 +19,10 @@
 // row slots and writes (m, l, acc) of each row to a float32 scratch
 // buffer that the wrapper allocates.  The second kernel merges a row's
 // splits in order: M = max m, l = sum l e^(m - M), acc = sum acc e^(m - M),
-// out = acc / max(l, 1e-30).  Masked scores are -1e30, never -inf: a split
+// out = acc / max(l, 1e-30); when `lse` is not null it also writes the
+// row's logsumexp, M + ln max(l, 1e-30), to float32 lse [B, H, Sq] (the
+// trainable attention's backward reads it), and a null `lse` leaves the
+// rest as it was, bit for bit.  Masked scores are -1e30, never -inf: a split
 // that the causal mask hides from a row keeps m = -1e30 and weighs
 // e^(-1e30 - M) = 0 in the merge, since split 0 holds key 0, which every
 // row sees.
@@ -238,8 +241,10 @@ template <typename T>
 __global__ void flash_decode_merge_kernel(const float* __restrict__ part_m,
                                           const float* __restrict__ part_l,
                                           const float* __restrict__ part_acc,
-                                          T* __restrict__ o, int H, int Hkv,
-                                          int Sq, int d, int nsplit) {
+                                          T* __restrict__ o,
+                                          float* __restrict__ lse, int H,
+                                          int Hkv, int Sq, int d,
+                                          int nsplit) {
   const int g = H / Hkv, R = g * Sq;
   const int r = blockIdx.x % R, bg = blockIdx.x / R;
   const int b = bg / Hkv, hk = bg % Hkv;
@@ -257,14 +262,16 @@ __global__ void flash_decode_merge_kernel(const float* __restrict__ part_m,
       acc = fmaf(part_acc[at * d + c], w, acc);
     }
     from_f32(acc / fmaxf(l, 1e-30f), &out[c]);
+    if (lse != nullptr && c == 0)     // every column sums the same l
+      lse[(size_t)(b * H + h) * Sq + i] = mx + logf(fmaxf(l, 1e-30f));
   }
 }
 
 template <typename T, int DP, int RMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* pm, float* pl, float* pa, int B, int H, int Hkv,
-                   int Sq, int Skv, int d, int causal, float scale, int split,
-                   int nsplit, cudaStream_t stream) {
+                   float* lse, float* pm, float* pl, float* pa, int B, int H,
+                   int Hkv, int Sq, int Skv, int d, int causal, float scale,
+                   int split, int nsplit, cudaStream_t stream) {
   const long long blocks =
       (long long)B * Hkv * ((nsplit + kWarps - 1) / kWarps);
   const long long rows = (long long)B * Hkv * (H / Hkv) * Sq;
@@ -281,40 +288,40 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_decode_merge_kernel<T><<<(unsigned)rows, d <= 64 ? 64 : 128, 0,
-                                 stream>>>(pm, pl, pa, (T*)o, H, Hkv, Sq, d,
-                                           nsplit);
+                                 stream>>>(pm, pl, pa, (T*)o, lse, H, Hkv,
+                                           Sq, d, nsplit);
   return cudaGetLastError();
 }
 
 template <typename T, int DP>
 cudaError_t launch_r(const void* q, const void* k, const void* v, void* o,
-                     float* pm, float* pl, float* pa, int B, int H, int Hkv,
-                     int Sq, int Skv, int d, int causal, float scale,
-                     int split, int nsplit, cudaStream_t s) {
+                     float* lse, float* pm, float* pl, float* pa, int B,
+                     int H, int Hkv, int Sq, int Skv, int d, int causal,
+                     float scale, int split, int nsplit, cudaStream_t s) {
   const int R = H / Hkv * Sq;
   if (R <= 4)
-    return launch<T, DP, 4>(q, k, v, o, pm, pl, pa, B, H, Hkv, Sq, Skv, d,
-                            causal, scale, split, nsplit, s);
+    return launch<T, DP, 4>(q, k, v, o, lse, pm, pl, pa, B, H, Hkv, Sq, Skv,
+                            d, causal, scale, split, nsplit, s);
   if (R <= 8)
-    return launch<T, DP, 8>(q, k, v, o, pm, pl, pa, B, H, Hkv, Sq, Skv, d,
-                            causal, scale, split, nsplit, s);
+    return launch<T, DP, 8>(q, k, v, o, lse, pm, pl, pa, B, H, Hkv, Sq, Skv,
+                            d, causal, scale, split, nsplit, s);
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
-                     float* pm, float* pl, float* pa, int B, int H, int Hkv,
-                     int Sq, int Skv, int d, int causal, float scale,
-                     int split, int nsplit, cudaStream_t s) {
+                     float* lse, float* pm, float* pl, float* pa, int B,
+                     int H, int Hkv, int Sq, int Skv, int d, int causal,
+                     float scale, int split, int nsplit, cudaStream_t s) {
   if (d <= 32)
-    return launch_r<T, 32>(q, k, v, o, pm, pl, pa, B, H, Hkv, Sq, Skv, d,
-                           causal, scale, split, nsplit, s);
+    return launch_r<T, 32>(q, k, v, o, lse, pm, pl, pa, B, H, Hkv, Sq, Skv,
+                           d, causal, scale, split, nsplit, s);
   if (d <= 64)
-    return launch_r<T, 64>(q, k, v, o, pm, pl, pa, B, H, Hkv, Sq, Skv, d,
-                           causal, scale, split, nsplit, s);
+    return launch_r<T, 64>(q, k, v, o, lse, pm, pl, pa, B, H, Hkv, Sq, Skv,
+                           d, causal, scale, split, nsplit, s);
   if (d <= 128)
-    return launch_r<T, 128>(q, k, v, o, pm, pl, pa, B, H, Hkv, Sq, Skv, d,
-                            causal, scale, split, nsplit, s);
+    return launch_r<T, 128>(q, k, v, o, lse, pm, pl, pa, B, H, Hkv, Sq, Skv,
+                            d, causal, scale, split, nsplit, s);
   return cudaErrorInvalidValue;
 }
 
@@ -327,13 +334,15 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 // wrapper's route checks; refused here as well).  `tile` is the keys a
 // warp walks a step as the caller's plain version walks them
 // (`flash_attention.decode_tile`): refused unless it is this kernel's
-// kNI * 32 / L, so that the two cannot sum in different orders.
+// kNI * 32 / L, so that the two cannot sum in different orders.  lse:
+// null, or float32 [B, H, Sq] for each row's logsumexp.
 extern "C" int launch_flash_decode(const void* q, const void* k,
                                    const void* v, void* o, void* part_m,
                                    void* part_l, void* part_acc, int B, int H,
                                    int Hkv, int Sq, int Skv, int d, int causal,
                                    float scale, int split, int nsplit,
-                                   int tile, int bf16, void* stream) {
+                                   int tile, int bf16, void* lse,
+                                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) |
                         reinterpret_cast<uintptr_t>(k) |
@@ -345,10 +354,11 @@ extern "C" int launch_flash_decode(const void* q, const void* k,
       tile != kNI * 32 / (dp * size / 16))
     return (int)cudaErrorInvalidValue;
   float *pm = (float*)part_m, *pl = (float*)part_l, *pa = (float*)part_acc;
-  return (int)(bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, pm, pl, pa, B, H,
-                                              Hkv, Sq, Skv, d, causal, scale,
-                                              split, nsplit, s)
-                    : launch_d<float>(q, k, v, o, pm, pl, pa, B, H, Hkv, Sq,
-                                      Skv, d, causal, scale, split, nsplit,
-                                      s));
+  float* ls = (float*)lse;
+  return (int)(bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, ls, pm, pl, pa, B,
+                                              H, Hkv, Sq, Skv, d, causal,
+                                              scale, split, nsplit, s)
+                    : launch_d<float>(q, k, v, o, ls, pm, pl, pa, B, H, Hkv,
+                                      Sq, Skv, d, causal, scale, split,
+                                      nsplit, s));
 }

@@ -24,6 +24,15 @@ tiles, and any ``d`` up to 128.  Three kernels, chosen by :func:`route`:
 
 The prefill kernels walk the kv axis in tiles of ``KV_TILE`` keys, and
 :func:`flash_attention_plain` is their plain version.
+
+``with_lse=True`` asks every route for each row's logsumexp as well,
+float32 ``lse[B, H, Sq]``: the natural log of the softmax's denominator
+over the scaled scores, ``m + log(max(l, 1e-30))`` as the reference's
+``_flash_fwd_lse`` gives it (the prefill kernels keep ``m`` in log2 units
+of pre-scaled scores and write ``m ln 2 + ln l``; the decode route's merge
+writes it from the row's final ``m`` and ``l``).  The trainable
+attention's backward reads it.  Without it the kernels take a null
+pointer and run as before, bit for bit.
 """
 from __future__ import annotations
 
@@ -37,13 +46,14 @@ from repro_torch.kernels.launcher import (F, I, P, Launcher, check_tensors,
 from repro_torch.kernels.ref import NEG_INF
 
 KERNEL = Launcher(symbol="launch_flash_attention",
-                  argtypes=(P,) * 4 + (I,) * 7 + (F, I, P),
+                  argtypes=(P,) * 4 + (I,) * 7 + (F, I, P, P),
                   source="src/repro_torch/csrc/flash_attention.cu")
 KERNEL_TC = Launcher(symbol="launch_flash_attention_tc",
-                     argtypes=(P,) * 4 + (I,) * 7 + (F, P),
+                     argtypes=(P,) * 4 + (I,) * 7 + (F, P, P),
                      source="src/repro_torch/csrc/flash_attention_tc.cu")
 KERNEL_DECODE = Launcher(symbol="launch_flash_decode",
-                         argtypes=(P,) * 7 + (I,) * 7 + (F, I, I, I, I, P),
+                         argtypes=(P,) * 7 + (I,) * 7 + (F,) + (I,) * 4
+                         + (P, P),
                          source="src/repro_torch/csrc/flash_decode.cu")
 #: the prefill kernels' kv tile: the plain version walks the same tiles
 KV_TILE = 64
@@ -159,14 +169,21 @@ def _check(q, k, v, q_blk, kv_blk) -> torch.device:
     return dev
 
 
-def flash_attention_plain(q, k, v, *, causal=True, q_blk=128, kv_blk=128):
+def _lse(m, l):
+    """The rows' logsumexp from their final running max and sum."""
+    return m + torch.log(torch.clamp(l, min=1e-30))
+
+
+def flash_attention_plain(q, k, v, *, causal=True, q_blk=128, kv_blk=128,
+                          with_lse=False):
     """The prefill kernels' arithmetic in PyTorch: float32 throughout, the
     kv axis walked in the kernels' tiles of ``KV_TILE`` keys with the same
     online softmax (masked scores ``-1e30``, output ``acc / max(l,
     1e-30)``).  When the call's route is ``"tc"``, p is rounded to
     bfloat16 before the product with v, as the tensor-core kernel rounds
     it (its sum ``l`` stays float32).  Tiles above every query's diagonal
-    are skipped, as the kernels skip them tile by tile."""
+    are skipped, as the kernels skip them tile by tile.  ``with_lse``
+    returns ``(out, lse)``."""
     _check(q, k, v, q_blk, kv_blk)
     round_p = route(q, k, v) == "tc"
     B, H, Sq, d = q.shape
@@ -196,16 +213,21 @@ def flash_attention_plain(q, k, v, *, causal=True, q_blk=128, kv_blk=128):
                                                    vt)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(B, H, Sq, d).to(q.dtype)
+    out = out.reshape(B, H, Sq, d).to(q.dtype)
+    if with_lse:
+        return out, _lse(m, l).reshape(B, H, Sq)
+    return out
 
 
-def flash_decode_plain(q, k, v, *, causal=True, q_blk=128, kv_blk=128):
+def flash_decode_plain(q, k, v, *, causal=True, q_blk=128, kv_blk=128,
+                       with_lse=False):
     """The decode kernel's arithmetic in PyTorch, float32 throughout: a kv
     group's ``(H // Hkv) * Sq`` rows together, the kv axis cut into the
     kernel's splits (:func:`decode_split`), each walked in its tiles
     (:func:`decode_tile`) with the online softmax (masked scores
     ``-1e30``), then the splits merged in order: ``M = max m``, ``l = sum
-    l e^(m - M)``, ``acc = sum acc e^(m - M)``, ``acc / max(l, 1e-30)``."""
+    l e^(m - M)``, ``acc = sum acc e^(m - M)``, ``acc / max(l, 1e-30)``;
+    ``with_lse`` returns ``(out, M + log(max(l, 1e-30)))``."""
     _check(q, k, v, q_blk, kv_blk)
     B, H, Sq, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -247,33 +269,44 @@ def flash_decode_plain(q, k, v, *, causal=True, q_blk=128, kv_blk=128):
         l_all = l_all + l * w
         acc_all = acc_all + acc * w[..., None]
     out = acc_all / torch.clamp(l_all, min=1e-30)[..., None]
-    return out.reshape(B, H, Sq, d).to(q.dtype)
+    out = out.reshape(B, H, Sq, d).to(q.dtype)
+    if with_lse:
+        # row r of a group is head r // Sq of the group, query r % Sq
+        return out, _lse(top, l_all).reshape(B, H, Sq)
+    return out
 
 
-def plain(q, k, v, *, causal=True, q_blk=128, kv_blk=128):
+def plain(q, k, v, *, causal=True, q_blk=128, kv_blk=128, with_lse=False):
     """The plain version of the kernel that :func:`route` picks."""
     fn = (flash_decode_plain if route(q, k, v) == "decode"
           else flash_attention_plain)
-    return fn(q, k, v, causal=causal, q_blk=q_blk, kv_blk=kv_blk)
+    return fn(q, k, v, causal=causal, q_blk=q_blk, kv_blk=kv_blk,
+              with_lse=with_lse)
 
 
-def flash_attention(q, k, v, *, causal=True, q_blk=128, kv_blk=128):
+def flash_attention(q, k, v, *, causal=True, q_blk=128, kv_blk=128,
+                    with_lse=False):
     """q: [B, H, Sq, d]; k, v: [B, Hkv, Skv, d] with H % Hkv == 0.
     Launches the kernel that :func:`route` picks for tensors on the card
     (``d`` up to 128); runs its plain version (:func:`plain`) for tensors
-    on the CPU."""
+    on the CPU.  ``with_lse`` returns ``(out, lse)``, ``lse`` float32
+    ``[B, H, Sq]``."""
     dev = _check(q, k, v, q_blk, kv_blk)
     if dev.type == "cpu":
-        return plain(q, k, v, causal=causal, q_blk=q_blk, kv_blk=kv_blk)
+        return plain(q, k, v, causal=causal, q_blk=q_blk, kv_blk=kv_blk,
+                     with_lse=with_lse)
     B, H, Sq, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if d > MAX_D:
         raise ValueError(f"flash_attention: head width {d} exceeds the "
                          f"kernels' {MAX_D}")
     out = torch.empty_like(q)
+    lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=dev)
+           if with_lse else None)
     if not out.numel():
-        return out
+        return (out, lse) if with_lse else out
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    lse_ptr = lse.data_ptr() if with_lse else None
     scale = 1.0 / math.sqrt(d)
     which = route(q, k, v)
     if which == "decode":
@@ -286,11 +319,11 @@ def flash_attention(q, k, v, *, causal=True, q_blk=128, kv_blk=128):
                       part_acc.data_ptr(), B, H, Hkv, Sq, Skv, d,
                       int(causal), scale, split, nsplit,
                       decode_tile(q.dtype, d),
-                      dtype_code("flash_attention", q), device=dev)
+                      dtype_code("flash_attention", q), lse_ptr, device=dev)
     elif which == "tc":
-        KERNEL_TC(*ptrs, B, H, Hkv, Sq, Skv, d, int(causal), scale,
+        KERNEL_TC(*ptrs, B, H, Hkv, Sq, Skv, d, int(causal), scale, lse_ptr,
                   device=dev)
     else:
         KERNEL(*ptrs, B, H, Hkv, Sq, Skv, d, int(causal), scale,
-               dtype_code("flash_attention", q), device=dev)
-    return out
+               dtype_code("flash_attention", q), lse_ptr, device=dev)
+    return (out, lse) if with_lse else out

@@ -47,9 +47,12 @@ def _mode(mode, t: torch.Tensor, fn: str) -> str:
 
 
 def flash_attention(q, k, v, *, causal=True, mode=None, **kw):
+    """``with_lse=True`` (in ``kw``) returns ``(out, lse)`` on every
+    path."""
     mode = _mode(mode, q, "flash_attention")
     if mode == "ref":
-        return _ref.flash_attention_ref(q, k, v, causal=causal)
+        return _ref.flash_attention_ref(q, k, v, causal=causal,
+                                        with_lse=kw.get("with_lse", False))
     fn = _fa.flash_attention if mode == "cuda" else _fa.plain
     return fn(q, k, v, causal=causal, **kw)
 

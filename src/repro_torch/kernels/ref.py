@@ -8,10 +8,11 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal=True):
+def flash_attention_ref(q, k, v, *, causal=True, with_lse=False):
     """Exact softmax attention.  q [B,H,Sq,d]; k/v [B,Hkv,Skv,d] (GQA by
     h // g).  The causal mask is top-left: ``qpos >= kpos``, both counted
-    from 0, whatever ``Sq`` and ``Skv`` are."""
+    from 0, whatever ``Sq`` and ``Skv`` are.  ``with_lse`` returns
+    ``(out, lse)``, the rows' float32 logsumexp ``[B, H, Sq]``."""
     B, H, Sq, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     g = H // Hkv
@@ -25,7 +26,10 @@ def flash_attention_ref(q, k, v, *, causal=True):
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, vf)
-    return o.reshape(B, H, Sq, d).to(q.dtype)
+    o = o.reshape(B, H, Sq, d).to(q.dtype)
+    if with_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    return o
 
 
 def rmsnorm_ref(x, scale, eps=1e-5):

@@ -3,22 +3,69 @@
 Plain functions on tensors.  :func:`rmsnorm` goes through
 ``repro_torch.kernels.ops.rmsnorm``: the hand-written kernel for tensors
 on the card, its plain version for tensors on the CPU, or what ``mode``
-asks for (``ops.MODES``).  The projections stay ``torch.matmul``, as the
-reference's are ``jnp.einsum`` outside any Pallas kernel.
+asks for (``ops.MODES``); under autograd its gradient is the plain
+float32 formula's (:class:`RMSNormFn`).  The projections stay
+``torch.matmul``, as the reference's are ``jnp.einsum`` outside any
+Pallas kernel.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels import ops
 
 
+def _work_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a backward computes in: float32, or float64 for float64
+    inputs (``torch.autograd.gradcheck``)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+class RMSNormFn(torch.autograd.Function):
+    """``out = fwd(x, scale, eps)`` on ``x[rows, D]``, with the gradient
+    that ``jax.grad`` takes of the reference's jnp ``rmsnorm``: in float32,
+    ``n = x inv``, ``inv = rsqrt(mean(x^2) + eps)``, ``dn = g (1 +
+    scale)``, ``dx = inv (dn - n mean(dn n))`` in ``x``'s dtype and
+    ``dscale = sum over rows of g n`` in ``scale``'s.  ``fwd`` is
+    ``ops.rmsnorm`` for the model (the kernel on the card)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps, fwd):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return fwd(x, scale, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        wt = _work_dtype(x.dtype)
+        xf, gf = x.to(wt), g.to(wt)
+        inv = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + ctx.eps)
+        n = xf * inv
+        dx = dscale = None
+        if ctx.needs_input_grad[0]:
+            dn = gf * (1.0 + scale.to(wt))
+            dx = (inv * (dn - n * (dn * n).mean(-1, keepdim=True))
+                  ).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dscale = (gf * n).sum(0).to(scale.dtype)
+        return dx, dscale, None, None
+
+
 def rmsnorm(x, scale, eps=1e-5, *, mode=None):
     """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` over the last axis in
     float32, in ``x``'s dtype: the stream as a contiguous ``[rows, D]``
-    (the only layout the kernel takes) through ``ops.rmsnorm``."""
+    (the only layout the kernel takes) through ``ops.rmsnorm``, inside
+    :class:`RMSNormFn` when a gradient is asked for."""
     rows = x.reshape(-1, x.shape[-1]).contiguous()
-    return ops.rmsnorm(rows, scale, eps=eps, mode=mode).reshape(x.shape)
+    fwd = functools.partial(ops.rmsnorm, mode=mode)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        out = RMSNormFn.apply(rows, scale, eps, fwd)
+    else:
+        out = fwd(rows, scale, eps=eps)
+    return out.reshape(x.shape)
 
 
 def silu(x):
@@ -38,6 +85,27 @@ def rope(x, positions, theta=1e4):
     x1f, x2f = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], -1)
     return out.to(x.dtype)
+
+
+def cross_entropy(logits, targets, mask=None, real_vocab=None):
+    """Mean next-token cross-entropy in float32 over ``logits[..., Vp]``;
+    the padded vocabulary past ``real_vocab`` gets ``-1e9`` added, as the
+    reference adds it.  With ``mask``, the mean over its nonzero places
+    (at least one)."""
+    logits = logits.float()
+    vp = logits.shape[-1]
+    if real_vocab is not None and real_vocab < vp:
+        neg = torch.zeros(vp, dtype=logits.dtype, device=logits.device)
+        neg[real_vocab:] = -1e9
+        logits = logits + neg
+    targets = torch.as_tensor(targets, device=logits.device).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    mask = torch.as_tensor(mask, device=logits.device).float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def dense(x, w, b=None, compute_dtype=None):

@@ -527,15 +527,15 @@ def test_cuda_mode_never_falls_back(card):
     qb = torch.ones(1, 1, 8, 12, dtype=torch.bfloat16, device=card)
     with pytest.raises(RuntimeError, match="launch_flash_attention_tc"):
         tfa.KERNEL_TC(*(qb.data_ptr(),) * 4, 1, 1, 1, 8, 8, 12, 1, 0.3,
-                      device=card)
+                      None, device=card)
     with pytest.raises(RuntimeError, match="launch_flash_decode"):
         tfa.KERNEL_DECODE(*(qb.data_ptr(),) * 7, 1, 16, 1, 1, 8, 8, 0, 0.3,
-                          32, 1, 32, 1, device=card)
+                          32, 1, 32, 1, None, device=card)
     # nor a key tile other than its own, which the plain version walks
     assert tfa.decode_tile(torch.bfloat16, 8) == 32
     with pytest.raises(RuntimeError, match="launch_flash_decode"):
         tfa.KERNEL_DECODE(*(qb.data_ptr(),) * 7, 1, 8, 1, 1, 8, 8, 0, 0.3,
-                          32, 1, 16, 1, device=card)
+                          32, 1, 16, 1, None, device=card)
     # and each route's call launches its kernel, never the plain version
     a = torch.ones(64, 64, dtype=torch.bfloat16, device=card)
     for fn, call, name in (

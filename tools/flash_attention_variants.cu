@@ -426,7 +426,7 @@ Launch earlier(int d) {
 Launch kernel(int d, int bf16) {
   return [d, bf16](const void* q, const void* k, const void* v, void* o) {
     launch_flash_attention(q, k, v, o, B, H, Hkv, kS, kS, d, 1, scale_of(d),
-                           bf16, nullptr);
+                           bf16, nullptr, nullptr);
   };
 }
 
