@@ -264,11 +264,43 @@ Phases, each printing its own lines:
    (``train kernel`` lines, ``launches`` the main path's count); then
    ``launch.train.main`` for 3 steps on the card through the entry point,
    each step launching as the main path's;
-7. the kernels' JSON line (the 27 suite kernels, a row per hot-path
+7. the mixture-of-experts decoder (``repro_torch.models.moe``) at
+   deepseek-moe-16b's full width and depth in bfloat16 (28 layers, 16
+   heads of 128, 64 routed experts top-6 and 2 shared), weights drawn on
+   the card from ``SEED`` after phase 6's are freed, the init's peak
+   memory held to the parameters' bytes plus one layer's draws (``moe
+   init``): (a) phase 5's traffic under both policies and its long prompt
+   through the ``Engine``, each run with every launch count set to 0 just
+   before and read just after, rmsnorm 2L + 1 and the routed flash kernel
+   L a prefill and a decode step and no other kernel (``moe serve``), the
+   long request's tokens equal to the kernel path's own greedy loop's,
+   and a prefill at 16 and 1,024 tokens and a decode step of 4 slots
+   timed as in phase 5 (``moe prefill``, ``moe decode``); (f) each kernel
+   at the long prompt's shapes (d = 128 with 16 heads, D = 2048) as in
+   phase 5 (``lm kernel``); (c) the ``sort`` dispatch's prefill of the
+   long prompt twice, bit for bit, with (a)'s counts (``moe sort``); (b)
+   on the weights of each of ``MOE_CHECK_SEEDS``, each layer run from the
+   plain path's input to it through the kernels and through the plain
+   versions with both paths' routing recorded: the tokens routed alike
+   within ``MOE_LAYER_TOL``, a token that changed experts only where its
+   plain k-th / (k+1)-th gate margin is within twice its gates' largest
+   move, a kept status changed only in an expert whose queue a changed
+   choice touched; the flipped share, the end-to-end logit gap and the
+   share of equal greedy tokens printed, not gated (``moe check``); (d)
+   a train step at full width, ``MOE_TRAIN_LAYERS`` deep (rmsnorm 4L + 1,
+   ``flash_attention_tc`` 2L), the aux term finite and the loss falling
+   over ``OVERFIT_STEPS`` steps on one batch (``moe train``); (e)
+   musicgen-medium at full width and depth (``[B, S, 4]`` tokens) and
+   internvl2-76b at full width, ``VLM_LAYERS`` deep (1,024 patch
+   embeddings and 16 tokens): a prefill and ``AV_STEPS`` decode steps
+   with (a)'s counts, teacher-forced against their plain versions within
+   ``AV_TOL`` on two seeds' weights (``av check``);
+8. the kernels' JSON line (the 27 suite kernels, a row per hot-path
    call and dtype, named ``<kernel>/<call>/<dtype>``, a row per kernel of
-   the LM path, ``<kernel>/lm_qwen2-0.5b/bfloat16``, and of the training
-   path, ``<kernel>/lm_train_qwen2-0.5b/bfloat16``), the card line, and
-   last ``{"ok": true, "device": {...}}``.
+   the LM path, ``<kernel>/lm_qwen2-0.5b/bfloat16`` and
+   ``<kernel>/lm_deepseek-moe-16b/bfloat16``, and of the training path,
+   ``<kernel>/lm_train_qwen2-0.5b/bfloat16``), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line,
 as it does with no CUDA device or outside a checkout of the repository.
@@ -479,6 +511,38 @@ TRAIN_CHECK_SEEDS = (SEED, SEED + 1)
 LSE_TOL = 1e-4
 #: the reference's test_overfit_tiny_batch: steps on one batch at lr 1e-3
 OVERFIT_STEPS = 8
+#: phase 7: the mixture-of-experts decoder at deepseek-moe-16b's full
+#: width and depth in bfloat16 (28 layers, d_model 2048, 16 heads of 128,
+#: 64 routed experts top-6 and 2 shared, 16.9 B parameters), weights drawn
+#: on the card from SEED, serving phase 5's traffic and long prompt
+MOE_ARCH = "deepseek-moe-16b"
+#: (b): the weights' seeds of the routing-aware check
+MOE_CHECK_SEEDS = (SEED, SEED + 1)
+#: (b): max-abs gap of a layer's output through the kernels from its
+#: output through the plain versions, from the same input, over the
+#: tokens routed alike by both (the same experts, each kept or dropped
+#: alike).  A kernel's last-bit difference may flip a token's k-th expert
+#: (the token then goes another way, and its gap is no rounding gap), so
+#: flipped tokens are held to their gates instead (``moe_routing_check``).
+#: 1.5 times the largest gap measured over MOE_CHECK_SEEDS on an H100
+#: (PERF.md): 6.25e-2, one bfloat16 step of a value in [8, 16)
+MOE_LAYER_TOL = 9.4e-2
+#: (d): the train step's depth: full depth with AdamW's float32 moments
+#: would need about 200 GB
+MOE_TRAIN_LAYERS = 2
+#: (e): the audio config at full width and depth, the VLM config at full
+#: width with its depth cut (for memory: 80 layers are 152 GB in
+#: bfloat16); prompts of AV_SEQ tokens (4 codebooks a position for the
+#: audio config, LM_TRAFFIC's slots as the batch; the VLM config's after
+#: its 1,024 patch embeddings), then AV_STEPS decode steps teacher-forced
+AUDIO_ARCH, VLM_ARCH, VLM_LAYERS = "musicgen-medium", "internvl2-76b", 2
+AV_SEQ, AV_STEPS = 16, 4
+AV_CHECK_SEEDS = (SEED, SEED + 1)
+#: (e): max-abs gap of the kernels' logits from their plain versions' on
+#: the card, teacher-forced, as LM_TOL: 1.5 times the largest gap measured
+#: over AV_CHECK_SEEDS on an H100 (PERF.md), 4.44e-2 for musicgen-medium's
+#: 48 layers (logits up to 2.7) and 1.76e-2 for internvl2-76b's 2
+AV_TOL = {AUDIO_ARCH: 6.7e-2, VLM_ARCH: 2.6e-2}
 
 
 def card_line() -> str:
@@ -1078,6 +1142,95 @@ def hot_phase(host: dict, dev, matmul_tol) -> dict:
     return rows
 
 
+def launch_counters():
+    """``(zero, counts)`` over every kernel of the port: ``zero()`` sets
+    each launch count to 0, ``counts()`` gives the nonzero ones by name."""
+    from repro_torch.core import lower_cuda
+    from repro_torch.kernels import ops
+
+    kernels = {**ops.KERNELS, **lower_cuda.KERNELS}
+
+    def zero():
+        for kern in kernels.values():
+            kern.launches = 0
+
+    def counts():
+        return {n: k.launches for n, k in kernels.items() if k.launches}
+    return zero, counts
+
+
+def flash_kernel(cfg, B, Sq, Skv, dev) -> str:
+    """The ``ops.KERNELS`` name of the flash kernel that ``route`` picks
+    for ``cfg``'s attention over ``B`` rows of ``Sq`` queries and ``Skv``
+    keys."""
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.models import attention
+
+    plan = attention.plan_for(cfg)
+    q = torch.empty(B, plan.hq_p, Sq, cfg.hd, dtype=cfg.cdtype, device=dev)
+    kv = torch.empty(B, plan.hkv_p, Skv, cfg.hd, dtype=cfg.cdtype,
+                     device=dev)
+    return ops.ROUTES["flash_attention"][flash_attention.route(q, kv, kv)]
+
+
+def lm_expected(cfg, dev, prompt_lens, slots, steps) -> dict:
+    """The launches of ``len(prompt_lens)`` prefills (B = 1, each its
+    prompt) and ``steps`` decode steps of ``slots`` rows: rmsnorm 2L + 1
+    and the routed flash kernel L a call."""
+    L = cfg.num_layers
+    want = {"rmsnorm": (2 * L + 1) * (len(prompt_lens) + steps)}
+    calls = [(flash_kernel(cfg, 1, S, S, dev), 1) for S in prompt_lens]
+    calls.append((flash_kernel(cfg, slots, 1, 1, dev), steps))
+    for name, n in calls:
+        if n:
+            want[name] = want.get(name, 0) + L * n
+    return want
+
+
+def lm_serve(cfg, params, dev, label, spec, slots, max_len, policy,
+             totals=None):
+    """Serve ``spec``'s (prompt, max_new) requests through the port's
+    ``Engine`` with every launch count set to 0 just before and read just
+    after: every request finished with its tokens and each kernel
+    launched exactly as ``lm_expected``; the counts are added to
+    ``totals`` when given (the main path's).  Returns (engine,
+    requests)."""
+    from repro_torch.serve.engine import Engine
+
+    zero, counts = launch_counters()
+    V = cfg.vocab_size
+    eng = Engine(cfg, params, slots=slots, max_len=max_len, policy=policy,
+                 device=dev)
+    reqs = [eng.submit(p, max_new=m) for p, m in spec]
+    zero()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    got = counts()
+    for i, r in enumerate(reqs):
+        if not r.done or len(r.out) != r.max_new or \
+                not all(0 <= x < V for x in r.out):
+            raise AssertionError(f"{label}: request {i} gave {r.out} for "
+                                 f"{r.max_new} tokens")
+    want = lm_expected(cfg, dev, [len(p) for p, _ in spec], slots,
+                       eng.stats["steps"])
+    if got != want:
+        raise AssertionError(f"{label}: kernels launched {got}, the path "
+                             f"asks for {want}")
+    if totals is not None:
+        for n, c in got.items():
+            totals[n] = totals.get(n, 0) + c
+    toks = sum(len(r.out) for r in reqs)
+    print(f"{label}: policy={policy.value} requests={len(reqs)} "
+          f"slots={slots} max_len={max_len} tokens={toks} wall_s={wall} "
+          f"tok_per_s={toks / wall} launches={eng.stats['launches']} "
+          f"syncs={eng.stats['syncs']} steps={eng.stats['steps']} "
+          f"kernels={got} card={card_line()}")
+    return eng, reqs
+
+
 def lm_times(fn) -> tuple[float, float | None, list]:
     """``(wall_ms, busy_ms, top)`` of ``fn()``: the host's wall with the
     card synchronised at both ends, median of ``LM_TURNS`` after one more;
@@ -1123,6 +1276,76 @@ def lm_times(fn) -> tuple[float, float | None, list]:
             [(n[:60], t / LM_TURNS / 1e3) for n, t in top])
 
 
+def lm_kernel_rows(cfg, params, prompt, rng, totals, dev, card) -> dict:
+    """Each kernel of the LM path (rmsnorm, the tc prefill, the split-kv
+    decode) at ``prompt``'s shapes, on its layer-0 inputs, against its
+    plain version, the oracle and PyTorch's call (``kernel_row``),
+    ``launches`` the main path's ``totals``; rmsnorm with a scale drawn
+    from ``rng`` (the model's starts at 0, which would leave the kernel's
+    1 + scale untested).  Returns the rows by name,
+    ``<kernel>/lm_<arch>/<dtype>``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ops, rmsnorm
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as T
+
+    plan = attention.plan_for(cfg)
+    dt = cfg.cdtype
+    lp = T.layer_params(params, 0)
+    x = T.embed(cfg, params, {"tokens": prompt[None]})
+    rows2d = x.reshape(-1, cfg.d_model).contiguous()
+    xn = ops.rmsnorm(rows2d, lp["ln1"]).reshape(x.shape)
+    pos = torch.arange(x.shape[1], dtype=torch.int32, device=dev)[None]
+    q, k, v = (t.transpose(1, 2).contiguous() for t in
+               attention._project_qkv(cfg, plan, lp["attn"], xn, pos))
+    q1 = q[:, :, -1:].contiguous()
+    scale = torch.from_numpy(rng.standard_normal(
+        cfg.d_model, dtype=np.float32)).to(dev).to(lp["ln1"].dtype)
+    S, hd = x.shape[1], cfg.hd
+    scale_w = (1.0 + scale).to(dt)
+
+    def attn(qq, causal, **kw):
+        return lambda: ops.flash_attention(qq, k, v, causal=causal,
+                                           q_blk=qq.shape[2], kv_blk=S, **kw)
+
+    calls = {
+        "rmsnorm": (
+            "rmsnorm", {"rows": S, "d": cfg.d_model},
+            (lambda: ops.rmsnorm(rows2d, scale),
+             lambda: rmsnorm.rmsnorm_plain(rows2d, scale),
+             lambda: ops.rmsnorm(rows2d, scale, mode="ref"),
+             lambda: F.rms_norm(rows2d, (cfg.d_model,), weight=scale_w,
+                                eps=1e-5)),
+            (2e-2, 2e-2)),
+        "flash_attention_tc": (
+            "flash_attention",
+            {"b": 1, "h": plan.hq_p, "hkv": plan.hkv_p, "sq": S, "skv": S,
+             "d": hd, "causal": True},
+            (attn(q, True), attn(q, True, mode="interpret"),
+             attn(q, True, mode="ref"),
+             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                    enable_gqa=True)),
+            flash_attention.PLAIN_TOL["tc", dt]),
+        "flash_decode": (
+            "flash_attention",
+            {"b": 1, "h": plan.hq_p, "hkv": plan.hkv_p, "sq": 1, "skv": S,
+             "d": hd, "causal": False},
+            (attn(q1, False), attn(q1, False, mode="interpret"),
+             attn(q1, False, mode="ref"),
+             lambda: F.scaled_dot_product_attention(q1, k, v,
+                                                    enable_gqa=True)),
+            flash_attention.PLAIN_TOL["decode", dt])}
+    out = {}
+    for kname, (fn, p, fns, plain_tol) in calls.items():
+        name = f"{kname}/lm_{cfg.name}/{str(dt).removeprefix('torch.')}"
+        out[name] = kernel_row("lm kernel", name, kname, fn, p, dt, fns,
+                               (plain_tol, hot_tol(fn, dt, None)),
+                               launches=totals[kname], note=f" card={card}")
+    del q, k, v, q1, x, rows2d, xn, scale
+    return out
+
+
 def lm_phase(dev) -> dict:
     """Phase 5: the LM serving path at qwen2-0.5b's full width through the
     port's ``Engine`` (the main path: each serving run with every launch
@@ -1132,15 +1355,10 @@ def lm_phase(dev) -> dict:
     card (teacher-forced), the path's timings, and each of its kernels at
     the long prompt's shapes against its plain version and the oracle.
     Returns the kernels' JSON rows by name."""
-    import torch.nn.functional as F
-
     from repro_torch.configs import registry
-    from repro_torch.core import lower_cuda
     from repro_torch.core.streams import Policy
-    from repro_torch.kernels import flash_attention, ops, rmsnorm
     from repro_torch.models import attention
     from repro_torch.models import transformer as T
-    from repro_torch.serve.engine import Engine
 
     t_phase = time.perf_counter()
     card = card_line()
@@ -1163,76 +1381,22 @@ def lm_phase(dev) -> dict:
           f"tied={cfg.tie_embeddings} qkv_bias={cfg.qkv_bias} "
           f"params={sum(t.numel() for t in leaves(params))} init_s={init_s}")
 
-    kernels = {**ops.KERNELS, **lower_cuda.KERNELS}
-
-    def zero():
-        for kern in kernels.values():
-            kern.launches = 0
-
-    def counts():
-        return {n: k.launches for n, k in kernels.items() if k.launches}
-
-    def flash_kernel(B, Sq, Skv):
-        q = torch.empty(B, plan.hq_p, Sq, cfg.hd, dtype=dt, device=dev)
-        kv = torch.empty(B, plan.hkv_p, Skv, cfg.hd, dtype=dt, device=dev)
-        return ops.ROUTES["flash_attention"][flash_attention.route(q, kv, kv)]
-
-    def expected(prompt_lens, slots, steps):
-        """Each prefill (B = 1, its prompt) and decode step (B = slots):
-        rmsnorm 2L + 1, its routed flash kernel L."""
-        want = {"rmsnorm": (2 * L + 1) * (len(prompt_lens) + steps)}
-        calls = [(flash_kernel(1, S, S), 1) for S in prompt_lens]
-        calls.append((flash_kernel(slots, 1, 1), steps))
-        for name, n in calls:
-            if n:
-                want[name] = want.get(name, 0) + L * n
-        return want
-
     rng = np.random.default_rng(SEED)
     tr = LM_TRAFFIC
     prompts = [rng.integers(0, V, tr["prompt_len"])
                for _ in range(tr["requests"])]
     long_prompt = rng.integers(0, V, LM_LONG["prompt_len"])
-    if flash_kernel(1, tr["prompt_len"], tr["prompt_len"]) != \
-            "flash_attention_tc" or flash_kernel(1, 1, 1) != "flash_decode":
+    if flash_kernel(cfg, 1, tr["prompt_len"], tr["prompt_len"], dev) != \
+            "flash_attention_tc" or \
+            flash_kernel(cfg, 1, 1, 1, dev) != "flash_decode":
         raise AssertionError("lm: the path would not take the tc prefill "
                              "and split-kv decode kernels")
 
     totals = {}
 
     def serve(label, spec, slots, max_len, policy, main=True):
-        """Serve ``spec``'s (prompt, max_new) requests; every request
-        finished with its tokens and each kernel launched exactly as
-        ``expected``.  Returns (engine, requests)."""
-        eng = Engine(cfg, params, slots=slots, max_len=max_len,
-                     policy=policy, device=dev)
-        reqs = [eng.submit(p, max_new=m) for p, m in spec]
-        zero()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        got = counts()
-        for i, r in enumerate(reqs):
-            if not r.done or len(r.out) != r.max_new or \
-                    not all(0 <= x < V for x in r.out):
-                raise AssertionError(f"lm serve {label}: request {i} gave "
-                                     f"{r.out} for {r.max_new} tokens")
-        want = expected([len(p) for p, _ in spec], slots, eng.stats["steps"])
-        if got != want:
-            raise AssertionError(f"lm serve {label}: kernels launched {got}, "
-                                 f"the path asks for {want}")
-        if main:
-            for n, c in got.items():
-                totals[n] = totals.get(n, 0) + c
-        toks = sum(len(r.out) for r in reqs)
-        print(f"lm serve {label}: policy={policy.value} requests={len(reqs)} "
-              f"slots={slots} max_len={max_len} tokens={toks} wall_s={wall} "
-              f"tok_per_s={toks / wall} launches={eng.stats['launches']} "
-              f"syncs={eng.stats['syncs']} steps={eng.stats['steps']} "
-              f"kernels={got} card={card}")
-        return eng, reqs
+        return lm_serve(cfg, params, dev, f"lm serve {label}", spec, slots,
+                        max_len, policy, totals if main else None)
 
     # the main path: the serve command's traffic under both policies, then
     # the long prompt (a short warm-up first, its counts not kept)
@@ -1347,62 +1511,11 @@ def lm_phase(dev) -> dict:
     del cache
 
     # each kernel of the path at the long prompt's shapes, on its layer-0
-    # inputs, against its plain version, the oracle and PyTorch's call;
-    # rmsnorm with a drawn scale (the model's starts at 0, which would
-    # leave the kernel's 1 + scale untested)
-    lp = T.layer_params(params, 0)
-    x = T.embed(cfg, params, {"tokens": long_prompt[None]})
-    rows2d = x.reshape(-1, cfg.d_model).contiguous()
-    xn = ops.rmsnorm(rows2d, lp["ln1"]).reshape(x.shape)
-    pos = torch.arange(x.shape[1], dtype=torch.int32, device=dev)[None]
-    q, k, v = (t.transpose(1, 2).contiguous() for t in
-               attention._project_qkv(cfg, plan, lp["attn"], xn, pos))
-    q1 = q[:, :, -1:].contiguous()
-    scale = torch.from_numpy(rng.standard_normal(
-        cfg.d_model, dtype=np.float32)).to(dev).to(lp["ln1"].dtype)
-    S, hd = x.shape[1], cfg.hd
-    scale_w = (1.0 + scale).to(dt)
-
-    def attn(qq, causal, **kw):
-        return lambda: ops.flash_attention(qq, k, v, causal=causal,
-                                           q_blk=qq.shape[2], kv_blk=S, **kw)
-
-    calls = {
-        "rmsnorm": (
-            "rmsnorm", {"rows": S, "d": cfg.d_model},
-            (lambda: ops.rmsnorm(rows2d, scale),
-             lambda: rmsnorm.rmsnorm_plain(rows2d, scale),
-             lambda: ops.rmsnorm(rows2d, scale, mode="ref"),
-             lambda: F.rms_norm(rows2d, (cfg.d_model,), weight=scale_w,
-                                eps=1e-5)),
-            (2e-2, 2e-2)),
-        "flash_attention_tc": (
-            "flash_attention",
-            {"b": 1, "h": plan.hq_p, "hkv": plan.hkv_p, "sq": S, "skv": S,
-             "d": hd, "causal": True},
-            (attn(q, True), attn(q, True, mode="interpret"),
-             attn(q, True, mode="ref"),
-             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                    enable_gqa=True)),
-            flash_attention.PLAIN_TOL["tc", dt]),
-        "flash_decode": (
-            "flash_attention",
-            {"b": 1, "h": plan.hq_p, "hkv": plan.hkv_p, "sq": 1, "skv": S,
-             "d": hd, "causal": False},
-            (attn(q1, False), attn(q1, False, mode="interpret"),
-             attn(q1, False, mode="ref"),
-             lambda: F.scaled_dot_product_attention(q1, k, v,
-                                                    enable_gqa=True)),
-            flash_attention.PLAIN_TOL["decode", dt])}
-    out = {}
-    for kname, (fn, p, fns, plain_tol) in calls.items():
-        name = f"{kname}/lm_{LM_ARCH}/{str(dt).removeprefix('torch.')}"
-        out[name] = kernel_row("lm kernel", name, kname, fn, p, dt, fns,
-                               (plain_tol, hot_tol(fn, dt, None)),
-                               launches=totals[kname], note=f" card={card}")
+    # inputs, against its plain version, the oracle and PyTorch's call
+    out = lm_kernel_rows(cfg, params, long_prompt, rng, totals, dev, card)
     if set(totals) != {"rmsnorm", "flash_attention_tc", "flash_decode"}:
         raise AssertionError(f"lm: the main path launched {totals}")
-    del params, q, k, v, q1, x, rows2d, xn, scale
+    del params
     torch.cuda.empty_cache()
     print(f"phase 5: seconds={time.perf_counter() - t_phase} card={card}")
     return out
@@ -1422,7 +1535,6 @@ def train_phase(dev) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.configs import registry
-    from repro_torch.core import lower_cuda
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels import flash_attention, ops, rmsnorm
     from repro_torch.launch import train as launch_train
@@ -1443,15 +1555,7 @@ def train_phase(dev) -> dict:
     opt_cfg = adamw.AdamWConfig(total_steps=100, warmup_steps=5,
                                 schedule=cfg.schedule,
                                 state_dtype=cfg.opt_state_dtype)
-    kernels = {**ops.KERNELS, **lower_cuda.KERNELS}
-
-    def zero():
-        for kern in kernels.values():
-            kern.launches = 0
-
-    def counts():
-        return {n: k.launches for n, k in kernels.items() if k.launches}
-
+    zero, counts = launch_counters()
     per_step = {"rmsnorm": 2 * (2 * L) + 1, "flash_attention_tc": 2 * L}
 
     def data(seed):
@@ -1675,6 +1779,466 @@ def train_phase(dev) -> dict:
                              f"for {want}), loss {loss}")
     torch.cuda.empty_cache()
     print(f"phase 6: seconds={time.perf_counter() - t_phase} card={card}")
+    return rows
+
+
+def param_bytes(tree) -> tuple[int, int]:
+    """(elements, bytes) of every leaf of a parameter tree."""
+    n = b = 0
+    for v in tree.values():
+        if isinstance(v, dict):
+            dn, db = param_bytes(v)
+        else:
+            dn, db = v.numel(), v.numel() * v.element_size()
+        n, b = n + dn, b + db
+    return n, b
+
+
+def lm_init(cfg, seed, dev, label, card):
+    """``init_params`` on the card, timed, with its peak memory above
+    what was allocated before it, held to the parameters' bytes plus one
+    layer's and one float32 draw of the largest leaf (the layers are
+    drawn one at a time into a stack allocated once; two stacks would
+    exceed it).  Returns the parameters."""
+    from repro_torch.models import transformer as T
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    n, nbytes = param_bytes(params)
+    L = cfg.num_layers
+    layer = param_bytes(params["layers"])[1] // L
+    draw = 4 * max([v.numel() for v in params.values()
+                    if not isinstance(v, dict)]
+                   + [v.numel() for v in params["embed"].values()]
+                   + [t.numel() // L for t in layer_leaves(params["layers"])])
+    limit = nbytes + layer + draw
+    print(f"{label} init {cfg.name} seed={seed}: layers={L} params={n} "
+          f"param_bytes={nbytes} init_s={init_s} init_peak_bytes={peak} "
+          f"peak_over_params={peak / nbytes} limit_bytes={limit} "
+          f"card={card}")
+    if peak > limit:
+        raise AssertionError(f"{label}: the init's peak {peak} is above "
+                             f"{limit}, the parameters' bytes and one "
+                             f"layer's draws")
+    return params
+
+
+def layer_leaves(tree):
+    for v in tree.values():
+        yield from layer_leaves(v) if isinstance(v, dict) else (v,)
+
+
+def moe_routing(idx, C: int, dispatch: str, E: int):
+    """``(one_hot [G, gs, k, E], chosen [G, gs, E], kept [G, gs, E])`` of
+    top indices ``idx`` by the dispatch's rule: einsum serves every first
+    choice before any second one, sort token by token; a choice is kept
+    when fewer than C choices are queued on its expert before it."""
+    import torch.nn.functional as F
+
+    G, gs, k = idx.shape
+    oh = F.one_hot(idx, E)
+    if dispatch == "sort":
+        flat = oh.reshape(G, gs * k, E)
+        pos = (torch.cumsum(flat, 1) - flat).reshape(G, gs, k, E)
+    else:
+        pos = torch.empty_like(oh)
+        running = torch.zeros((G, 1, E), dtype=oh.dtype, device=oh.device)
+        for j in range(k):
+            ohj = oh[:, :, j]
+            pos[:, :, j] = running + torch.cumsum(ohj, 1) - ohj
+            running = running + ohj.sum(1, keepdim=True)
+    chosen = (oh > 0).any(2)
+    kept = ((pos < C) & (oh > 0)).any(2)
+    return oh, chosen, kept
+
+
+def moe_routing_check(cfg, params, toks, label, card) -> dict:
+    """Phase 7 (b): each layer run from the plain path's input to it
+    (``mode="interpret"``, layer by layer) through the kernels and through
+    the plain versions, both paths' routing recorded by wrapping
+    ``moe._route``.  Passes when (1) the tokens that both route alike
+    (the same experts, each kept or dropped alike) are within
+    MOE_LAYER_TOL; (2) every token whose experts differ has a plain
+    margin between its k-th and (k+1)-th gate no larger than twice the
+    largest difference of one of its gates between the paths (one gate
+    rises, another falls, each by at most that); (3) every token kept on
+    one path and dropped on the other sits in an expert whose queue a
+    token with other choices changed.  Prints the share of flipped
+    (layer, token) pairs, the end-to-end logit gap and the share of
+    positions whose greedy token is the same: printed, not gated."""
+    from repro_torch.models import attention, moe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import dense
+
+    m = cfg.moe
+    E, k, D = m.num_experts, m.top_k, cfg.d_model
+    plan = attention.plan_for(cfg)
+    seen = []
+    real = moe._route
+
+    def route(c, p, xt):
+        out = real(c, p, xt)
+        gates = torch.softmax(dense(xt, p["router"],
+                                    compute_dtype=torch.float32), dim=-1)
+        seen.append((gates, out[1]))
+        return out
+
+    gaps, flipped, kept_changed, worst_margin = [], 0, 0, 0.0
+    moe._route = route
+    try:
+        x = T.embed(cfg, params, {"tokens": toks})
+        pos = T._positions(x)
+        ntok = x.shape[0] * x.shape[1]
+        _, C = moe.group_of(m, ntok)
+        for i in range(cfg.num_layers):
+            lp = T.layer_params(params, i)
+            seen.clear()
+            yp, _, _ = T._layer_full(cfg, plan, lp, x, pos, "interpret")
+            yk, _, _ = T._layer_full(cfg, plan, lp, x, pos, None)
+            (gp, ip), (gk, ik) = seen
+            ohp, chp, kpp = moe_routing(ip, C, m.dispatch, E)
+            ohk, chk, kpk = moe_routing(ik, C, m.dispatch, E)
+            same_set = (chp == chk).all(-1)
+            agree = same_set & (kpp == kpk).all(-1)
+            diff = (yk.float() - yp.float()).abs().reshape(-1, D).amax(-1)
+            gaps.append(float(diff[agree.reshape(-1)].max()))
+            # (2) a flipped token's plain margin against its gates' move
+            top = gp.sort(-1, descending=True).values
+            margin = top[..., k - 1] - top[..., k]
+            move = (gk - gp).abs().amax(-1)
+            flip = ~same_set
+            if bool((flip & (margin > 2 * move)).any()):
+                raise AssertionError(f"{label}: layer {i}: a token changed "
+                                     f"experts with a plain margin above "
+                                     f"its gates' move")
+            if bool(flip.any()):
+                worst_margin = max(worst_margin,
+                                   float((margin / move)[flip].max()))
+            # (3) a kept status changed only in a queue a choice changed
+            queue = (ohp != ohk).any(2).any(1)                 # [G, E]
+            moved = (kpp != kpk) & chp & chk
+            if bool((moved & ~queue[:, None, :]).any()):
+                raise AssertionError(f"{label}: layer {i}: a token's kept "
+                                     f"status changed in an expert no "
+                                     f"flipped token touched")
+            flipped += int(flip.sum())
+            kept_changed += int(moved.any(-1).sum())
+            x = yp
+        seen.clear()
+        plain = T.head(cfg, params, x, mode="interpret")
+        mine, _ = T.forward(cfg, params, {"tokens": toks})
+    finally:
+        moe._route = real
+    V = cfg.vocab_size
+    e2e = float((mine - plain).abs().max())
+    same = float((mine[..., :V].argmax(-1) == plain[..., :V].argmax(-1))
+                 .float().mean())
+    share = flipped / (cfg.num_layers * ntok)
+    print(f"{label}: layers={cfg.num_layers} tokens={ntok} capacity={C} "
+          f"dispatch={m.dispatch} layer_gaps={gaps} max_gap={max(gaps)} "
+          f"tol={MOE_LAYER_TOL} flipped_pairs={flipped} "
+          f"flipped_share={share} kept_changed={kept_changed} "
+          f"worst_margin_over_move={worst_margin} e2e_logit_gap={e2e} "
+          f"greedy_same_share={same} card={card}")
+    if max(gaps) > MOE_LAYER_TOL:
+        raise AssertionError(f"{label}: a layer's tokens routed alike are "
+                             f"{max(gaps)} from the plain versions' > "
+                             f"{MOE_LAYER_TOL}")
+    del plain, mine, x
+    return {"max_gap": max(gaps), "flipped_share": share}
+
+
+def moe_train_check(cfg, dev, card) -> None:
+    """Phase 7 (d): a train step of ``cfg`` at full width, its depth cut
+    to MOE_TRAIN_LAYERS, AdamW with the config's float32 moments, a batch
+    of TRAIN_BATCH x TRAIN_SEQ tokens from SyntheticLM: each step launches
+    rmsnorm 4L + 1 and flash_attention_tc 2L times (remat full) and no
+    other kernel, the aux term is finite, and the loss falls over
+    OVERFIT_STEPS steps on the one batch at lr 1e-3."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as train_mod
+
+    cfg = cfg.replace(num_layers=MOE_TRAIN_LAYERS)
+    L = cfg.num_layers
+    if cfg.remat != "full":
+        raise AssertionError(f"moe train: {cfg.name} is not under remat full")
+    zero, counts = launch_counters()
+    opt_cfg = adamw.AdamWConfig(lr_peak=1e-3, total_steps=30, warmup_steps=1,
+                                state_dtype=cfg.opt_state_dtype)
+    params = lm_init(cfg, SEED, dev, "moe train", card)
+    opt = adamw.init_state(opt_cfg, params)
+    batch = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                        seed=SEED).batch_at(0)
+    step = train_mod.make_train_step(cfg, opt_cfg)
+    per_step = {"rmsnorm": 4 * L + 1, "flash_attention_tc": 2 * L}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, auxes, walls = [], [], []
+    for i in range(OVERFIT_STEPS):
+        zero()
+        t0 = time.perf_counter()
+        params, opt, mm = step(params, opt, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        got = counts()
+        if got != per_step:
+            raise AssertionError(f"moe train: step {i} launched {got}, the "
+                                 f"path asks for {per_step}")
+        losses.append(float(mm["loss"]))
+        auxes.append(float(mm["aux"]))
+    wall = statistics.median(walls[1:])
+    print(f"moe train {cfg.name}: layers={L} batch={TRAIN_BATCH}x"
+          f"{TRAIN_SEQ} state_dtype={opt_cfg.state_dtype} launches={per_step} "
+          f"losses={losses} aux={auxes} step_walls_s={walls} "
+          f"tok_per_s={TRAIN_BATCH * TRAIN_SEQ / wall} "
+          f"max_memory_allocated_bytes={torch.cuda.max_memory_allocated()} "
+          f"card={card}")
+    if not all(np.isfinite(auxes)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"moe train: aux {auxes}, losses {losses}: "
+                             f"not finite or not falling")
+    del params, opt, mm
+    torch.cuda.empty_cache()
+
+
+def av_check(dev, card) -> None:
+    """Phase 7 (e): the audio config (``[B, S, K]`` tokens) at full width
+    and depth and the VLM config (1,024 patch embeddings in front of the
+    tokens) at full width, VLM_LAYERS deep, on each of AV_CHECK_SEEDS'
+    weights: a prefill and AV_STEPS decode steps through the kernels,
+    each with every launch count set to 0 just before and read just
+    after (rmsnorm 2L + 1 and the routed flash kernel L, no other), held
+    to the same calls through the plain versions, teacher-forced with the
+    plain versions' greedy tokens, within AV_TOL."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+
+    zero, counts = launch_counters()
+    for arch, layers in ((AUDIO_ARCH, None), (VLM_ARCH, VLM_LAYERS)):
+        cfg = registry.get(arch)
+        if layers:
+            cfg = cfg.replace(num_layers=layers)
+        L, V, K, P = (cfg.num_layers, cfg.vocab_size, cfg.num_codebooks,
+                      cfg.patch_prefix)
+        B = LM_TRAFFIC["slots"] if K > 1 else 1
+        S = AV_SEQ + P
+        max_len = S + AV_STEPS + 8
+
+        def greedy(logits):
+            nxt = logits[:, -1:, ..., :V].argmax(-1)
+            return nxt                   # [B, 1] or [B, 1, K]
+
+        def kernels(fn, want):
+            zero()
+            out = fn()
+            torch.cuda.synchronize()
+            if counts() != want:
+                raise AssertionError(f"av {cfg.name}: launched {counts()}, "
+                                     f"the path asks for {want}")
+            return out
+
+        for seed in AV_CHECK_SEEDS:
+            params = lm_init(cfg, seed, dev, "av", card)
+            rng = np.random.default_rng(seed)
+            shape = (B, AV_SEQ, K) if K > 1 else (B, AV_SEQ)
+            batch = {"tokens": torch.from_numpy(
+                rng.integers(0, V, shape)).to(dev)}
+            if P:
+                batch["patch_embeds"] = (torch.from_numpy(rng.standard_normal(
+                    (B, P, cfg.d_model), dtype=np.float32)) * 0.02).to(dev)
+            want, wc = T.prefill(cfg, params, batch, max_len,
+                                 mode="interpret")
+            got, gc_ = kernels(
+                lambda: T.prefill(cfg, params, batch, max_len),
+                {"rmsnorm": 2 * L + 1,
+                 flash_kernel(cfg, B, S, S, dev): L})
+            gaps, top = [float((got - want).abs().max())], 0.0
+            for _ in range(AV_STEPS):
+                nxt = greedy(want)
+                want, wc = T.decode_step(cfg, params, wc, nxt,
+                                         mode="interpret")
+                got, gc_ = kernels(
+                    lambda: T.decode_step(cfg, params, gc_, nxt),
+                    {"rmsnorm": 2 * L + 1,
+                     flash_kernel(cfg, B, 1, 1, dev): L})
+                if not (torch.isfinite(got).all() and
+                        got.shape == want.shape):
+                    raise AssertionError(f"av {cfg.name}: a decode step "
+                                         f"gave {tuple(got.shape)} or "
+                                         f"non-finite logits")
+                gaps.append(float((got - want).abs().max()))
+                top = max(top, float(want.abs().max()))
+            print(f"av check {cfg.name} seed={seed}: layers={L} batch={B} "
+                  f"prompt={AV_SEQ} patches={P} codebooks={K} "
+                  f"logits={tuple(got.shape)} steps={AV_STEPS + 1} "
+                  f"gaps={gaps} max_gap={max(gaps)} tol={AV_TOL[arch]} "
+                  f"logit_max={top} card={card}")
+            if max(gaps) > AV_TOL[arch]:
+                raise AssertionError(f"av {cfg.name}: logits {max(gaps)} "
+                                     f"from the plain versions' > "
+                                     f"{AV_TOL[arch]}")
+            del params, want, wc, got, gc_, batch
+            torch.cuda.empty_cache()
+
+
+def moe_phase(dev) -> dict:
+    """Phase 7: the mixture-of-experts decoder at deepseek-moe-16b's full
+    width and depth through the port's ``Engine`` (phase 5's traffic and
+    long prompt, each run with every launch count set to 0 just before
+    and read just after: rmsnorm 2L + 1 and the routed flash kernel L a
+    prefill and a decode step, no other kernel), the served long request
+    against the kernel path's greedy loop, the timings; (f) each kernel at
+    the long prompt's shapes (d = 128, 16 heads; D = 2048); (c) the sort
+    dispatch's prefill twice, bit for bit; (b) the routing-aware check of
+    the kernels against their plain versions on two seeds' weights; (d) a
+    train step at 2 layers; (e) the audio and VLM configs.  Returns the
+    kernels' JSON rows by name."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import registry
+    from repro_torch.core.streams import Policy
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as T
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    card = card_line()
+    cfg = registry.get(MOE_ARCH)
+    m, L, V = cfg.moe, cfg.num_layers, cfg.vocab_size
+    plan = attention.plan_for(cfg)
+    print(f"moe model {cfg.name}: layers={L} d_model={cfg.d_model} "
+          f"heads={cfg.num_heads}/{cfg.num_kv_heads} padded={plan.hq_p}/"
+          f"{plan.hkv_p} head_dim={cfg.hd} experts={m.num_experts} "
+          f"top_k={m.top_k} expert_d_ff={m.expert_d_ff} shared="
+          f"{m.num_shared}x{m.shared_d_ff} capacity_factor="
+          f"{m.capacity_factor} group_size={m.group_size} dispatch="
+          f"{m.dispatch} vocab={V} dtype={cfg.param_dtype} "
+          f"allocated_before_bytes={torch.cuda.memory_allocated()} "
+          f"card={card}")
+    params = lm_init(cfg, SEED, dev, "moe", card)
+
+    rng = np.random.default_rng(SEED)
+    tr = LM_TRAFFIC
+    prompts = [rng.integers(0, V, tr["prompt_len"])
+               for _ in range(tr["requests"])]
+    long_prompt = rng.integers(0, V, LM_LONG["prompt_len"])
+    if flash_kernel(cfg, 1, tr["prompt_len"], tr["prompt_len"], dev) != \
+            "flash_attention_tc" or \
+            flash_kernel(cfg, 1, 1, 1, dev) != "flash_decode":
+        raise AssertionError("moe: the path would not take the tc prefill "
+                             "and split-kv decode kernels")
+
+    # (a) the main path: phase 5's traffic under both policies, then the
+    # long prompt (a short warm-up first, its counts not kept)
+    totals = {}
+    cli_len = tr["prompt_len"] + tr["max_new"] + 8
+    lm_serve(cfg, params, dev, "moe serve warm-up", [(prompts[0], 2)], 1,
+             cli_len, Policy.HAZARD_ONLY)
+    torch.cuda.reset_peak_memory_stats()
+    outs = {}
+    for policy in (Policy.HAZARD_ONLY, Policy.SYNC_ALWAYS):
+        _, reqs = lm_serve(cfg, params, dev, "moe serve traffic",
+                           [(p, tr["max_new"]) for p in prompts],
+                           tr["slots"], cli_len, policy, totals)
+        outs[policy] = [r.out for r in reqs]
+    if outs[Policy.HAZARD_ONLY] != outs[Policy.SYNC_ALWAYS]:
+        raise AssertionError("moe serve: the two policies gave other tokens")
+    long_len = LM_LONG["prompt_len"] + LM_LONG["max_new"] + 8
+    _, (long_req,) = lm_serve(cfg, params, dev, "moe serve long",
+                              [(long_prompt, LM_LONG["max_new"])], 1,
+                              long_len, Policy.HAZARD_ONLY, totals)
+    print(f"moe serve peak: max_memory_allocated_bytes="
+          f"{torch.cuda.max_memory_allocated()} card={card}")
+
+    # the served long request against the kernel path's own greedy loop
+    # at the engine's shapes (B = 1, the same max_len)
+    long_toks = torch.from_numpy(long_prompt[None]).to(dev)
+    lg, c = T.prefill(cfg, params, {"tokens": long_toks}, long_len)
+    free = []
+    for j in range(LM_LONG["max_new"]):
+        if j:
+            lg, c = T.decode_step(cfg, params, c, nxt)
+        nxt = lg[:, -1, :V].argmax(-1)[:, None]
+        free.append(int(nxt[0, 0]))
+    if long_req.out != free:
+        raise AssertionError(f"moe serve long: tokens {long_req.out} differ "
+                             f"from the kernel path's greedy loop {free}")
+    print(f"moe serve long: the served tokens equal the kernel path's "
+          f"greedy loop's over all {len(free)}")
+    del lg, c
+
+    # timings: a prefill at both prompt lengths (one request, as the
+    # engine admits it) and a decode step of the traffic's slots
+    def timing(label, fn, tokens):
+        wall, busy, top = lm_times(fn)
+        idle = "not measured" if busy is None else 1 - busy / wall
+        print(f"moe {label}: wall_ms={wall} device_busy_ms={busy} "
+              f"idle_share={idle} tok_per_s={tokens / wall * 1e3} "
+              f"top_kernels_ms={top} card={card}")
+
+    for S, toks in ((tr["prompt_len"], prompts[0]),
+                    (LM_LONG["prompt_len"], long_prompt)):
+        t = torch.from_numpy(toks[None]).to(dev)
+        timing(f"prefill S={S}", lambda t=t, S=S: T.prefill(
+            cfg, params, {"tokens": t}, S + 40), S)
+    batch = torch.from_numpy(np.stack(prompts[:tr["slots"]])).to(dev)
+    _, cache = T.prefill(cfg, params, {"tokens": batch}, cli_len)
+    nxt = batch[:, -1:]
+    timing(f"decode slots={tr['slots']} pos={cache['pos']}",
+           lambda: T.decode_step(cfg, params, cache, nxt), tr["slots"])
+    del cache
+
+    # (f) each kernel at the long prompt's shapes: d = 128 with 16 heads,
+    # D = 2048
+    rows = lm_kernel_rows(cfg, params, long_prompt, rng, totals, dev, card)
+    if set(totals) != {"rmsnorm", "flash_attention_tc", "flash_decode"}:
+        raise AssertionError(f"moe: the main path launched {totals}")
+
+    # (c) the sort dispatch: the long prompt's prefill twice, bit for bit
+    zero, counts = launch_counters()
+    sort_cfg = cfg.replace(moe=dataclasses.replace(m, dispatch="sort"))
+    runs = []
+    for _ in range(2):
+        zero()
+        lg, c = T.prefill(sort_cfg, params, {"tokens": long_toks}, long_len)
+        torch.cuda.synchronize()
+        want = lm_expected(cfg, dev, [LM_LONG["prompt_len"]], 1, 0)
+        if counts() != want:
+            raise AssertionError(f"moe sort: launched {counts()}, the path "
+                                 f"asks for {want}")
+        runs.append((lg, c["k"], c["v"]))
+    same = all(torch.equal(a, b) for a, b in zip(*runs, strict=True))
+    print(f"moe sort: prefill S={LM_LONG['prompt_len']} twice: bits "
+          f"{'equal' if same else 'differ'} launches={want} card={card}")
+    if not same:
+        raise AssertionError("moe sort: two prefills gave other bits")
+    del runs, lg, c
+
+    # (b) the routing-aware check on MOE_CHECK_SEEDS' weights
+    for seed in MOE_CHECK_SEEDS:
+        if seed != SEED:
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = lm_init(cfg, seed, dev, "moe check", card)
+        moe_routing_check(cfg, params, long_toks, f"moe check seed={seed}",
+                          card)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) a train step at full width, 2 layers deep; (e) audio and VLM
+    moe_train_check(cfg, dev, card)
+    av_check(dev, card)
+    print(f"phase 7: seconds={time.perf_counter() - t_phase} card={card}")
     return rows
 
 
@@ -2758,6 +3322,9 @@ def main() -> int:
 
     # ---- phase 6: the LM training path at qwen2-0.5b's full width ------
     rows.update(train_phase(dev))
+
+    # ---- phase 7: the MoE decoder at deepseek-moe-16b's full size -------
+    rows.update(moe_phase(dev))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

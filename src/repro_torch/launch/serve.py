@@ -11,7 +11,7 @@ surface::
       --backend vector
 
 ``--lm`` drives the token-level tier instead (continuous-batching decode
-over the dense decoder, :mod:`repro_torch.serve.engine`; on the card its
+over the decoder, :mod:`repro_torch.serve.engine`; on the card its
 RMSNorm and attention are the hand-written kernels)::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --lm --arch qwen2-0.5b \\

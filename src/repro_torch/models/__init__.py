@@ -1,4 +1,4 @@
-"""The LM stack's models, as ``repro.models``: the dense decoder
-(``transformer``, ``attention``, ``mlp``, ``common``) and GQA head padding
-(``padding``).  Experts, state-space and RWKV mixers come in later slices
-of ROADMAP 1.14."""
+"""The LM stack's models, as ``repro.models``: the attention decoders
+(``transformer``, ``attention``, ``mlp``, ``moe``, ``common``) and GQA
+head padding (``padding``).  State-space and RWKV mixers come in ROADMAP
+1.14.3."""

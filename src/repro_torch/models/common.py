@@ -124,4 +124,5 @@ def uniform_init(gen: torch.Generator, shape, scale, dtype):
     bound = scale / (fan_in ** 0.5)
     u = torch.rand(shape, generator=gen, dtype=torch.float32,
                    device=gen.device)
-    return (u * (2 * bound) - bound).to(dtype)
+    # in place: one float32 draw beside the result, the same roundings
+    return u.mul_(2 * bound).sub_(bound).to(dtype)

@@ -1,4 +1,5 @@
-"""Decoder LM, the dense families, as ``repro/models/transformer.py``.
+"""Decoder LM, the attention families (dense, moe, audio, vlm), as
+``repro/models/transformer.py``.
 
 Parameters keep the reference's nested dict and its stacked layer axis
 (``params["layers"]`` leaves are ``[L, ...]``); the layers run in a Python
@@ -10,10 +11,15 @@ head, and :func:`~repro_torch.models.common.cross_entropy`.  The
 reference's ``constrain`` is the identity without a mesh, and the port has
 none, so it is left out (:func:`res_constrain` keeps its name).
 
-A config with experts (``moe``), a state-space or RWKV mixer (``ssm``,
-``rwkv``), several codebooks or a patch prefix raises
-``NotImplementedError``: those families come in later slices of ROADMAP
-1.14.
+A layer's feed-forward half is the SwiGLU MLP or, with ``cfg.moe``, the
+mixture of experts of :mod:`repro_torch.models.moe`, whose load-balance
+term :func:`forward` averages over the layers (``aux``).  Several
+codebooks (``num_codebooks``, musicgen) sum one embedding a codebook and
+give ``[B, S, K, Vp]`` logits from one head a codebook; a patch prefix
+(internvl2) puts the projected ``patch_embeds`` of the batch in front of
+the tokens.  A config with a state-space or RWKV mixer (``ssm``,
+``rwkv``) raises ``NotImplementedError``: those families come in ROADMAP
+1.14.3.
 
 ``mode`` (``repro_torch.kernels.ops.MODES``) reaches every RMSNorm and
 attention call: ``None`` launches the hand-written kernels for tensors on
@@ -41,21 +47,20 @@ from repro_torch.core import index
 from repro_torch.core.memory import resolve_device
 from repro_torch.models import attention
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (cross_entropy, dense, rmsnorm,
                                        uniform_init)
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense decoder, the family ported so far."""
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is an attention decoder, the families ported
+    so far (dense, moe, audio, vlm)."""
     other = [name for name, on in (
-        ("moe", cfg.moe is not None), ("ssm", cfg.ssm is not None),
-        ("rwkv", cfg.rwkv is not None),
-        ("num_codebooks", cfg.num_codebooks > 1),
-        ("patch_prefix", bool(cfg.patch_prefix))) if on]
+        ("ssm", cfg.ssm is not None), ("rwkv", cfg.rwkv is not None)) if on]
     if other:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(other)} not ported yet; the port's LM "
-            f"stack serves dense decoders (ROADMAP 1.14)")
+            f"stack serves attention decoders (ROADMAP 1.14.3)")
 
 
 # ---------------------------------------------------------------------------
@@ -63,18 +68,41 @@ def check_dense(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 def _init_layer(cfg: ModelConfig, gen: torch.Generator):
     D = cfg.d_model
-    return {"ln1": torch.zeros(D, dtype=torch.float32, device=gen.device),
-            "ln2": torch.zeros(D, dtype=torch.float32, device=gen.device),
-            "attn": attention.init_attn_params(gen, cfg),
-            "mlp": mlp_mod.init_mlp_params(gen, D, cfg.d_ff, cfg.pdtype)}
+    layer = {"ln1": torch.zeros(D, dtype=torch.float32, device=gen.device),
+             "ln2": torch.zeros(D, dtype=torch.float32, device=gen.device),
+             "attn": attention.init_attn_params(gen, cfg)}
+    if cfg.moe is not None:
+        layer["moe"] = moe_mod.init_moe_params(gen, cfg)
+    else:
+        layer["mlp"] = mlp_mod.init_mlp_params(gen, D, cfg.d_ff, cfg.pdtype)
+    return layer
 
 
-def _stack(trees):
-    """Layer dicts -> one dict of ``[L, ...]`` leaves (the reference's
-    ``vmap`` over layer keys)."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _init_layers(cfg: ModelConfig, gen: torch.Generator):
+    """Every layer's parameters as ``[L, ...]`` leaves (the reference's
+    ``vmap`` over layer keys), drawn layer by layer and copied into leaves
+    allocated once: the peak holds the stack and one layer, not two
+    stacks."""
+    def alloc(tree):
+        if isinstance(tree, dict):
+            return {k: alloc(v) for k, v in tree.items()}
+        return tree.new_empty((cfg.num_layers,) + tuple(tree.shape))
+
+    def fill(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                fill(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    layer = _init_layer(cfg, gen)
+    out = alloc(layer)
+    for i in range(cfg.num_layers):
+        if i:
+            layer = _init_layer(cfg, gen)
+        fill(out, layer, i)
+        del layer
+    return out
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
@@ -82,17 +110,25 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
     for), drawn from a ``torch.Generator`` seeded with ``seed`` on that
     device, with the reference's shapes, dtypes and bounds (its values
     come from JAX's generator: carry them with
-    ``repro_torch.carry.params_from_reference``)."""
-    check_dense(cfg)
+    ``repro_torch.carry.params_from_reference``).  The draws go embedding
+    (``tok`` or ``codebooks``), ``patch_proj``, the layers in order, then
+    ``lm_head`` or ``lm_heads``."""
+    check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    D, Vp = cfg.d_model, cfg.padded_vocab
-    params: dict[str, Any] = {
-        "embed": {"tok": uniform_init(gen, (Vp, D), 1.0, cfg.pdtype)}}
-    params["layers"] = _stack([_init_layer(cfg, gen)
-                               for _ in range(cfg.num_layers)])
+    D, Vp, K = cfg.d_model, cfg.padded_vocab, cfg.num_codebooks
+    if K > 1:
+        emb = {"codebooks": uniform_init(gen, (K, Vp, D), 1.0, cfg.pdtype)}
+    else:
+        emb = {"tok": uniform_init(gen, (Vp, D), 1.0, cfg.pdtype)}
+    if cfg.patch_prefix:
+        emb["patch_proj"] = uniform_init(gen, (D, D), 1.0, cfg.pdtype)
+    params: dict[str, Any] = {"embed": emb}
+    params["layers"] = _init_layers(cfg, gen)
     params["final_norm"] = torch.zeros(D, dtype=torch.float32, device=dev)
-    if not cfg.tie_embeddings:
+    if K > 1:
+        params["lm_heads"] = uniform_init(gen, (K, D, Vp), 1.0, cfg.pdtype)
+    elif not cfg.tie_embeddings:
         params["lm_head"] = uniform_init(gen, (D, Vp), 1.0, cfg.pdtype)
     return params
 
@@ -121,21 +157,46 @@ def _layers(params, L: int) -> list:
 # ---------------------------------------------------------------------------
 # embedding / head
 # ---------------------------------------------------------------------------
-def embed(cfg: ModelConfig, params, batch):
-    """The token rows, gathered by JAX's rule (``index.take``: a negative
-    id wraps once, then an id still out of range clamps), as the
-    reference's ``e["tok"][tokens]`` gathers them.  Its gradient, as
+def _gather(table, ids):
+    """``table[ids]`` by JAX's rule (``index.take``: a negative id wraps
+    once, then an id still out of range clamps).  Its gradient, as
     ``jax.grad`` of that gather, drops the rows of ids out of range after
     the wrap: JAX's transpose is a scatter that skips them."""
-    tok = params["embed"]["tok"]
-    ids = torch.as_tensor(batch["tokens"], device=tok.device).long()
-    x = index.take(tok, ids)
-    if torch.is_grad_enabled() and tok.requires_grad:
-        V = tok.shape[0]
+    x = index.take(table, ids)
+    if torch.is_grad_enabled() and table.requires_grad:
+        V = table.shape[0]
         wrapped = torch.where(ids < 0, ids + V, ids)
         inside = ((wrapped >= 0) & (wrapped < V))[..., None]
         x = torch.where(inside, x, x.detach())
-    return x.to(cfg.cdtype)                               # [B, S, D]
+    return x
+
+
+def embed(cfg: ModelConfig, params, batch):
+    """The token rows by :func:`_gather`, as the reference's
+    ``e["tok"][tokens]``; with several codebooks the sum of each
+    codebook's rows for its ids (``tokens`` ``[B, S, K]``), added in
+    codebook order in the parameters' dtype, then cast, as the
+    reference's ``sum(parts)``.  With a patch prefix and ``patch_embeds``
+    ``[B, P, D]`` in the batch, their ``patch_proj`` product goes in
+    front of the tokens."""
+    e = params["embed"]
+    if cfg.num_codebooks > 1:
+        books = e["codebooks"]
+        ids = torch.as_tensor(batch["tokens"], device=books.device).long()
+        x = _gather(books[0], ids[..., 0])
+        for k in range(1, cfg.num_codebooks):
+            x = x + _gather(books[k], ids[..., k])
+    else:
+        tok = e["tok"]
+        ids = torch.as_tensor(batch["tokens"], device=tok.device).long()
+        x = _gather(tok, ids)
+    x = x.to(cfg.cdtype)                                  # [B, S, D]
+    if cfg.patch_prefix and "patch_embeds" in batch:
+        pe = torch.as_tensor(batch["patch_embeds"], device=x.device)
+        pe = dense(pe.to(cfg.cdtype), e["patch_proj"],
+                   compute_dtype=cfg.cdtype)
+        x = torch.cat([pe, x], dim=1)
+    return x
 
 
 class _GradCast(torch.autograd.Function):
@@ -163,6 +224,9 @@ def head(cfg: ModelConfig, params, x, *, mode=None):
             and x.requires_grad:
         x = _grad_cast(cfg.compute_dtype)(x)
     xn = rmsnorm(x, params["final_norm"], cfg.norm_eps, mode=mode)
+    if cfg.num_codebooks > 1:                    # audio: [B, S, K, Vp]
+        return torch.einsum("bsd,kdv->bskv", xn.to(cfg.cdtype),
+                            params["lm_heads"].to(cfg.cdtype)).float()
     w = (params["embed"]["tok"].t() if cfg.tie_embeddings
          else params["lm_head"])
     return dense(xn, w, compute_dtype=cfg.cdtype).float()
@@ -171,17 +235,23 @@ def head(cfg: ModelConfig, params, x, *, mode=None):
 # ---------------------------------------------------------------------------
 # full sequence
 # ---------------------------------------------------------------------------
-def _mlp_half(cfg: ModelConfig, lp, x, mode):
+def _ffn_half(cfg: ModelConfig, lp, x, mode):
+    """The layer's second half: ``(x + ffn(norm(x)), aux)``, the MLP's
+    aux ``None``, the experts' their load-balance term."""
     xn = rmsnorm(x, lp["ln2"], cfg.norm_eps, mode=mode)
-    return x + mlp_mod.mlp_block(cfg, lp["mlp"], xn)
+    if cfg.moe is not None:
+        h, aux = moe_mod.moe_block(cfg, lp["moe"], xn)
+        return x + h, aux
+    return x + mlp_mod.mlp_block(cfg, lp["mlp"], xn), None
 
 
 def _layer_full(cfg: ModelConfig, plan, lp, x, positions, mode):
-    """One layer, full sequence. Returns (x, (k, v))."""
+    """One layer, full sequence. Returns (x, aux, (k, v))."""
     a, kv = attention.attend_full(
         cfg, plan, lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps, mode=mode),
         positions, mode=mode)
-    return _mlp_half(cfg, lp, x + a, mode), kv
+    x, aux = _ffn_half(cfg, lp, x + a, mode)
+    return x, aux, kv
 
 
 def _positions(x):
@@ -233,34 +303,38 @@ def _remat(cfg: ModelConfig, fn):
 
 
 def forward(cfg: ModelConfig, params, batch, *, mode=None):
-    """Full-sequence forward. Returns (logits, aux); aux is 0 for the
-    dense families (the reference's expert load-balance term).  Under
-    autograd each layer runs under ``cfg.remat``."""
-    check_dense(cfg)
+    """Full-sequence forward. Returns (logits, aux): aux is the layers'
+    expert load-balance terms summed in float32 and divided by L, as the
+    reference's scan sums them (0 without experts).  Under autograd each
+    layer runs under ``cfg.remat``."""
+    check_ported(cfg)
     plan = attention.plan_for(cfg)
     x = embed(cfg, params, batch)
     positions = _positions(x)
 
     def body(lp, x):
-        x, _ = _layer_full(cfg, plan, lp, x, positions, mode)
-        return res_constrain(cfg, x)
+        x, aux, _ = _layer_full(cfg, plan, lp, x, positions, mode)
+        return res_constrain(cfg, x), aux
 
     body = _remat(cfg, body)
     x = res_constrain(cfg, x)
-    for lp in _layers(params, cfg.num_layers):
-        x = body(lp, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return head(cfg, params, x, mode=mode), aux
+    for lp in _layers(params, cfg.num_layers):
+        x, a = body(lp, x)
+        if a is not None:
+            aux = aux + a
+    return head(cfg, params, x, mode=mode), aux / cfg.num_layers
 
 
 def loss_fn(cfg: ModelConfig, params, batch, aux_weight=0.01, *, mode=None):
-    """Next-token cross-entropy of :func:`forward`'s logits (after the
-    patch prefix, which dense configs do not have) against the batch's
-    tokens, over the real vocabulary, plus ``aux_weight`` times the aux
-    term.  Returns ``(loss, {"ce", "aux"})``."""
+    """Next-token cross-entropy of :func:`forward`'s logits against the
+    batch's tokens, over the real vocabulary, plus ``aux_weight`` times
+    the aux term: with several codebooks over every codebook's logits,
+    else over the logits after the patch prefix (whose positions predict
+    no token).  Returns ``(loss, {"ce", "aux"})``."""
     logits, aux = forward(cfg, params, batch, mode=mode)
     toks = torch.as_tensor(batch["tokens"], device=logits.device)
-    lg = logits[:, cfg.patch_prefix:, :]
+    lg = logits if cfg.num_codebooks > 1 else logits[:, cfg.patch_prefix:]
     ce = cross_entropy(lg[:, :-1], toks[:, 1:], real_vocab=cfg.vocab_size)
     loss = ce + aux_weight * aux
     return loss, {"ce": ce, "aux": aux}
@@ -273,7 +347,7 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
                device=None):
     """``{"pos": 0, "k", "v": [L, B, max_len, Hkv_p, hd]}`` zeros in the
     compute dtype; ``pos`` is a host int."""
-    check_dense(cfg)
+    check_ported(cfg)
     dev = resolve_device(device)
     plan = attention.plan_for(cfg)
     shape = (cfg.num_layers, batch_size, max_len, plan.hkv_p, cfg.hd)
@@ -283,13 +357,15 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, *, mode=None):
-    """One decode step. tokens: [B, 1]. Returns (logits, cache).
+    """One decode step. tokens: [B, 1] ([B, 1, K] with codebooks).
+    Returns (logits, cache); experts route every row of the batch, as the
+    reference's step does.
 
     The cache's ``k`` / ``v`` are written in place at ``pos`` (the
     reference donates them to its jitted step); the returned dict holds
     the same tensors and ``pos + 1``.  Keys past ``pos`` are never read,
     so a step may be taken again from the dict it was given."""
-    check_dense(cfg)
+    check_ported(cfg)
     plan = attention.plan_for(cfg)
     x = embed(cfg, params, {"tokens": tokens})
     pos = cache["pos"]
@@ -299,22 +375,24 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, *, mode=None):
             cfg, plan, lp["attn"],
             rmsnorm(x, lp["ln1"], cfg.norm_eps, mode=mode),
             cache["k"][i], cache["v"][i], pos, mode=mode)
-        x = _mlp_half(cfg, lp, x + a, mode)
+        x, _ = _ffn_half(cfg, lp, x + a, mode)
     new_cache = {"pos": pos + 1, "k": cache["k"], "v": cache["v"]}
     return head(cfg, params, x, mode=mode), new_cache
 
 
 def prefill(cfg: ModelConfig, params, batch, max_len: int, *, mode=None):
-    """Run the prompt, build a decode cache. Returns (logits_last, cache)."""
-    check_dense(cfg)
+    """Run the prompt (``batch["tokens"]`` and, with a patch prefix,
+    ``patch_embeds`` in front), build a decode cache. Returns
+    (logits_last, cache)."""
+    check_ported(cfg)
     plan = attention.plan_for(cfg)
     x = embed(cfg, params, batch)
     B, S = x.shape[:2]
     positions = _positions(x)
     cache = init_cache(cfg, B, max_len, device=x.device)
     for i in range(cfg.num_layers):
-        x, (k, v) = _layer_full(cfg, plan, layer_params(params, i), x,
-                                positions, mode)
+        x, _, (k, v) = _layer_full(cfg, plan, layer_params(params, i), x,
+                                   positions, mode)
         cache["k"][i, :, :S] = k.to(cfg.cdtype)
         cache["v"][i, :, :S] = v.to(cfg.cdtype)
     cache["pos"] = S

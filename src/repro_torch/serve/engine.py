@@ -16,9 +16,12 @@ and block the host only on a true hazard.  Here:
 Batching: fixed-slot continuous batcher - finished slots are refilled from
 the queue, prefill runs per admission, decode advances all slots in one
 eager step through ``models.transformer`` (on the card, its RMSNorm and
-attention are the hand-written kernels).  The cache is written in place;
-no step copies it whole.  ``stats`` counts ``launches`` (a prefill or a
-decode step), ``syncs`` and ``steps`` as the reference does.
+attention are the hand-written kernels).  With experts, a decode step
+routes every slot, idle ones included, so an idle slot's token takes
+expert capacity as in the reference (ROADMAP, "Reference caveats").  The
+cache is written in place; no step copies it whole.  ``stats`` counts
+``launches`` (a prefill or a decode step), ``syncs`` and ``steps`` as the
+reference does.
 
 As the reference, the batch shares one ``pos``: a request admitted after
 the others have advanced keeps zero keys between its prompt's end and
@@ -62,7 +65,12 @@ class Engine:
                  max_len: int = 512, policy: Policy = Policy.HAZARD_ONLY,
                  device=None):
         self.device = resolve_device(device)
-        on = params["embed"]["tok"].device
+        if cfg.num_codebooks > 1:
+            raise NotImplementedError(
+                f"Engine: {cfg.name} takes {cfg.num_codebooks} codebook "
+                f"tokens a position; the engine, as the reference's, keeps "
+                f"one token a slot (drive prefill / decode_step directly)")
+        on = params["final_norm"].device
         if on.type != self.device.type:
             raise ValueError(f"Engine: params lie on {on}, the engine "
                              f"serves on {self.device}")

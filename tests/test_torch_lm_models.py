@@ -37,6 +37,10 @@ PADDED = {"padded-6q2kv": dict(num_heads=6, num_kv_heads=2, head_dim=16,
                                tp_align=4)}
 EXCLUDED = ["grok-1-314b", "deepseek-moe-16b", "zamba2-7b", "rwkv6-1.6b",
             "musicgen-medium", "internvl2-76b"]
+#: the families of EXCLUDED ported since (experts, codebooks, a patch
+#: prefix); the state-space and RWKV mixers still raise (ROADMAP 1.14.3)
+PORTED = ["grok-1-314b", "deepseek-moe-16b", "musicgen-medium",
+          "internvl2-76b"]
 
 
 def _jax():
@@ -85,6 +89,19 @@ def _params(ref_cfg, seed=0):
 def _toks(cfg, B, S, seed=0):
     rng = np.random.default_rng(seed)
     return rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def _batch(cfg, B, S, seed=0):
+    """``tests/test_archs.py``'s batch: ``[B, S]`` tokens (``[B, S, K]``
+    with codebooks) and, with a patch prefix, ``patch_embeds``."""
+    rng = np.random.default_rng(seed)
+    shape = (B, S, cfg.num_codebooks) if cfg.num_codebooks > 1 else (B, S)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, shape)
+             .astype(np.int32)}
+    if cfg.patch_prefix:
+        batch["patch_embeds"] = rng.standard_normal(
+            (B, cfg.patch_prefix, cfg.d_model)).astype(np.float32) * 0.02
+    return batch
 
 
 def _np(x):
@@ -381,12 +398,71 @@ def test_params_from_reference_keeps_keys_layouts_and_bits():
 
 @pytest.mark.parametrize("arch", EXCLUDED)
 def test_excluded_families_raise_naming_the_roadmap(arch):
+    """The six archs the dense slice refused: the four ported since run
+    through the five entry points; the state-space and RWKV mixers raise
+    naming ROADMAP 1.14.3."""
     cfg = treg.smoke(arch)
-    toks = _toks(cfg, 1, 4)
+    batch = _batch(cfg, 1, 4)
+    toks = batch["tokens"]
+    if arch in PORTED:
+        p = tT.init_params(cfg, 0, device="cpu")
+        assert tT.init_cache(cfg, 1, 8 + cfg.patch_prefix,
+                             device="cpu")["pos"] == 0
+        logits, aux = tT.forward(cfg, p, batch)
+        assert torch.isfinite(logits).all() and torch.isfinite(aux)
+        lg, cache = tT.prefill(cfg, p, batch, 8 + cfg.patch_prefix)
+        assert cache["pos"] == 4 + cfg.patch_prefix
+        lg, cache = tT.decode_step(cfg, p, cache, toks[:, :1])
+        assert torch.isfinite(lg).all() and cache["pos"] == 5 + \
+            cfg.patch_prefix
+        return
     for call in (lambda: tT.init_params(cfg, 0, device="cpu"),
                  lambda: tT.init_cache(cfg, 1, 8, device="cpu"),
                  lambda: tT.forward(cfg, {}, {"tokens": toks}),
                  lambda: tT.prefill(cfg, {}, {"tokens": toks}, 8),
                  lambda: tT.decode_step(cfg, {}, {}, toks[:, :1])):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.14"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.14\.3"):
             call()
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "granite-3-2b",
+                                  "deepseek-moe-16b", "musicgen-medium",
+                                  "internvl2-76b"])
+def test_init_draws_the_stacked_layers_bit_for_bit_as_before(arch):
+    """init_params fills leaves allocated once, layer by layer: for a
+    given seed every value is the old path's, which built every layer
+    and then stacked them (so earlier seeds' weights do not move)."""
+    cfg = treg.smoke(arch).replace(param_dtype="bfloat16")
+    gen = torch.Generator().manual_seed(7)
+    D, Vp, K = cfg.d_model, cfg.padded_vocab, cfg.num_codebooks
+    want = {"embed": ({"codebooks": tcommon.uniform_init(
+        gen, (K, Vp, D), 1.0, cfg.pdtype)} if K > 1 else
+        {"tok": tcommon.uniform_init(gen, (Vp, D), 1.0, cfg.pdtype)})}
+    if cfg.patch_prefix:
+        want["embed"]["patch_proj"] = tcommon.uniform_init(
+            gen, (D, D), 1.0, cfg.pdtype)
+    layers = [tT._init_layer(cfg, gen) for _ in range(cfg.num_layers)]
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(trees)
+    want["layers"] = stack(layers)
+    want["final_norm"] = torch.zeros(D)
+    if K > 1:
+        want["lm_heads"] = tcommon.uniform_init(gen, (K, D, Vp), 1.0,
+                                                cfg.pdtype)
+    elif not cfg.tie_embeddings:
+        want["lm_head"] = tcommon.uniform_init(gen, (D, Vp), 1.0,
+                                               cfg.pdtype)
+    got = tT.init_params(cfg, 7, device="cpu")
+
+    def walk(w, g, path=""):
+        assert set(w) == set(g), path
+        for k in w:
+            if isinstance(w[k], dict):
+                walk(w[k], g[k], f"{path}/{k}")
+            else:
+                assert g[k].dtype == w[k].dtype, f"{path}/{k}"
+                assert torch.equal(g[k], w[k]), f"{path}/{k}"
+    walk(want, got)

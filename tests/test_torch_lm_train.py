@@ -6,7 +6,8 @@ the parameters and both moments after the last, each leaf within 1e-5 of
 its norm.  ``lr_at`` for all four schedules within 1e-7; microbatches 2
 against 1 (``tests/test_archs.py``'s tolerances) and against the
 reference's own microbatched step; the reference's contracts
-``test_smoke_train_step`` on the dense archs, ``test_overfit_tiny_batch``,
+``test_smoke_train_step`` on the dense archs and the four ported since
+(experts, codebooks, a patch prefix), ``test_overfit_tiny_batch``,
 ``test_wsd_schedule_shape`` and
 ``test_padding_dummy_heads_stay_zero_after_training``.
 """
@@ -20,13 +21,16 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import transformer as tT  # noqa: E402
 from repro_torch.optim import adamw as tadam  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
-from test_torch_lm_models import _params, _toks  # noqa: E402
+from test_torch_lm_models import _batch, _params, _toks  # noqa: E402
 
 STATE_RTOL = 1e-5
 LR_TOL = 1e-7
 SCHEDULES = ["cosine", "wsd", "linear", "constant"]
 DENSE = ["qwen2-0.5b", "granite-3-2b", "minicpm-2b", "qwen2.5-32b",
          "cupbop-demo-120m"]
+#: the families ported since (experts, codebooks, a patch prefix)
+LATER = ["grok-1-314b", "deepseek-moe-16b", "musicgen-medium",
+         "internvl2-76b"]
 
 
 def _jax():
@@ -173,21 +177,21 @@ def test_microbatches_match_the_full_batch_and_the_reference():
     assert worst <= STATE_RTOL, worst
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + LATER)
 def test_smoke_train_step(arch):
     cfg = treg.smoke(arch)
     opt_cfg = tadam.AdamWConfig(total_steps=10, warmup_steps=2,
                                 schedule=cfg.schedule)
     params = tT.init_params(cfg, 0, device="cpu")
     opt = tadam.init_state(opt_cfg, params)
-    params, opt, m = tstep.train_step(cfg, opt_cfg, params, opt,
-                                      {"tokens": _toks(cfg, 2, 32)})
+    batch = _batch(cfg, 2, 32)
+    params, opt, m = tstep.train_step(cfg, opt_cfg, params, opt, batch)
     assert np.isfinite(float(m["loss"]))
     assert np.isfinite(float(m["grad_norm"]))
     assert int(opt.step) == 1
     for leaf in tadam.tree_leaves(params):
         assert bool(torch.isfinite(leaf).all())
-    ev = tstep.eval_step(cfg, params, {"tokens": _toks(cfg, 2, 32)})
+    ev = tstep.eval_step(cfg, params, batch)
     assert np.isfinite(float(ev["loss"])) and not ev["loss"].requires_grad
 
 
