@@ -295,10 +295,39 @@ Phases, each printing its own lines:
    embeddings and 16 tokens): a prefill and ``AV_STEPS`` decode steps
    with (a)'s counts, teacher-forced against their plain versions within
    ``AV_TOL`` on two seeds' weights (``av check``);
-8. the kernels' JSON line (the 27 suite kernels, a row per hot-path
+8. the state-space mixers (``repro_torch.models.mamba2`` and ``rwkv6``)
+   at full width and depth in bfloat16, each model's weights drawn on the
+   card from ``SEED`` after the last's are freed (``ssm init``): (a)
+   zamba2-7b (81 Mamba2 layers, the shared attention of 32 heads of 112
+   before every 6th, 14 applications) and (b) rwkv6-1.6b (24 layers),
+   each serving phase 5's traffic under both policies and its long prompt
+   through the ``Engine``, every run with every launch count set to 0
+   just before and read just after: rmsnorm 2L + A + 1 and the routed
+   flash kernel A a prefill and a decode step (A = 14; for rwkv6 2L + 1
+   and no flash), and no other kernel (``ssm serve``); the long request's
+   tokens equal to the kernel path's own greedy loop's, and a prefill at
+   16 and 1,024 tokens and a decode step of 4 slots timed as in phase 5
+   (``ssm prefill``, ``ssm decode``); (c) on each of ``SSM_CHECK_SEEDS``'
+   weights, the traffic's prompts teacher-forced through the kernels
+   against the plain versions on the card within ``SSM_TOL`` with greedy
+   tokens equal above that margin, and prefill then decode against
+   forward through the kernels within ``SSM_CONSISTENCY_TOL`` (``ssm
+   check``); (d) a train step, remat full, 4 x 1,024 tokens: zamba2-7b
+   at full width and ``SSM_TRAIN_LAYERS`` deep (one block of 6 and a
+   tail of 2: rmsnorm 2(2L + A) + 1 and ``flash_attention_tc`` 2A), and
+   rwkv6-1.6b at full width and depth (rmsnorm 4L + 1), the loss falling
+   over ``OVERFIT_STEPS`` steps on one batch (``ssm train``); (e) the
+   kernels at zamba2's shapes, each against its plain version, the oracle
+   and PyTorch's call: the tc prefill and the decode at d = 112 with 32
+   heads over the long prompt, rmsnorm in bfloat16 at ``[1024, 3584]``
+   and in float32 at ``[1024, 7168]`` (Mamba2's gated norm, on the
+   kernel's two-pass path) (``ssm kernel``); the phase's seconds beside
+   its ceiling of ``SSM_CEILING_S``;
+9. the kernels' JSON line (the 27 suite kernels, a row per hot-path
    call and dtype, named ``<kernel>/<call>/<dtype>``, a row per kernel of
-   the LM path, ``<kernel>/lm_qwen2-0.5b/bfloat16`` and
-   ``<kernel>/lm_deepseek-moe-16b/bfloat16``, and of the training path,
+   the LM path, ``<kernel>/lm_qwen2-0.5b/bfloat16``,
+   ``<kernel>/lm_deepseek-moe-16b/bfloat16`` and
+   ``<kernel>/ssm_zamba2-7b/<dtype>``, and of the training path,
    ``<kernel>/lm_train_qwen2-0.5b/bfloat16``), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -543,6 +572,40 @@ AV_CHECK_SEEDS = (SEED, SEED + 1)
 #: over AV_CHECK_SEEDS on an H100 (PERF.md), 4.44e-2 for musicgen-medium's
 #: 48 layers (logits up to 2.7) and 1.76e-2 for internvl2-76b's 2
 AV_TOL = {AUDIO_ARCH: 6.7e-2, VLM_ARCH: 2.6e-2}
+#: phase 8: the state-space mixers at full width and depth in bfloat16,
+#: weights drawn on the card from SEED: zamba2-7b (81 Mamba2 layers of
+#: d_inner 7,168, 112 heads of 64, state 64, chunk 64, and the shared
+#: attention, 32 heads of 112, before every 6th layer: 14 applications;
+#: 6.5 G parameters) and rwkv6-1.6b (24 layers, d 2,048, 32 heads of 64,
+#: d_ff 7,168, vocab 65,536; 1.6 G), each serving phase 5's traffic and
+#: long prompt
+SSM_ARCHS = ("zamba2-7b", "rwkv6-1.6b")
+#: (c): the weights' seeds whose traffic is checked against the plain
+#: versions
+SSM_CHECK_SEEDS = (SEED, SEED + 1)
+#: (c): max-abs gap of the kernels' logits from their plain versions' on
+#: the card, teacher-forced, as LM_TOL.  A kernel's value may land on the
+#: neighbouring bfloat16 value (rmsnorm's, flash_attention.PLAIN_TOL), and
+#: the layers after it carry that into the logits, each rounding to
+#: bfloat16 again: 81 layers for zamba2, and rwkv6's recurrences, where one
+#: step of one norm in the prefill grows to 0.19 in seed 43's logits (seed
+#: 42's prefill gives the plain versions' bits).  1.5 times the largest gap
+#: measured over SSM_CHECK_SEEDS on an H100 (PERF.md): 0.180 for zamba2-7b,
+#: 0.356 for rwkv6-1.6b (logits up to about 3)
+SSM_TOL = {"zamba2-7b": 0.27, "rwkv6-1.6b": 0.54}
+#: (c): max-abs gap of a prefill and its decode steps through the kernels
+#: from forward's logits through the kernels (tests/test_models.py's
+#: _consistency at full width and depth, in bfloat16: a prefill and the
+#: decode recurrences round in other places than forward's chunks).  1.5
+#: times the largest gap measured over SSM_CHECK_SEEDS on an H100
+#: (PERF.md): 0.123 for zamba2-7b, 0.145 for rwkv6-1.6b
+SSM_CONSISTENCY_TOL = {"zamba2-7b": 0.19, "rwkv6-1.6b": 0.22}
+#: (d): the train step's depth: zamba2-7b one block of 6 and a tail of 2
+#: (2 shared-attention applications), rwkv6-1.6b its full 24
+SSM_TRAIN_LAYERS = {"zamba2-7b": 8, "rwkv6-1.6b": 24}
+#: phase 8's ceiling (s), printed beside its seconds: the script stays
+#: under 600 s
+SSM_CEILING_S = 90.0
 
 
 def card_line() -> str:
@@ -1173,17 +1236,41 @@ def flash_kernel(cfg, B, Sq, Skv, dev) -> str:
     return ops.ROUTES["flash_attention"][flash_attention.route(q, kv, kv)]
 
 
+def attn_calls(cfg) -> int:
+    """The attention calls of one prefill or decode step: one a layer of
+    the attention families, one a shared-attention application of the
+    hybrid (``transformer.hybrid_blocks``), none for RWKV or Mamba2
+    alone."""
+    from repro_torch.models import transformer as T
+
+    if cfg.rwkv is not None or (cfg.ssm is not None and not cfg.attn_every):
+        return 0
+    if cfg.ssm is not None:
+        _, full, tail = T.hybrid_blocks(cfg)
+        return full + (tail > 0)
+    return cfg.num_layers
+
+
+def norm_calls(cfg) -> int:
+    """The RMSNorm calls of one prefill or decode step: two a layer (a
+    Mamba2 layer's input norm and gated norm), one an attention call of
+    the hybrid's shared block, and the head's."""
+    shared = attn_calls(cfg) if cfg.ssm is not None else 0
+    return 2 * cfg.num_layers + shared + 1
+
+
 def lm_expected(cfg, dev, prompt_lens, slots, steps) -> dict:
     """The launches of ``len(prompt_lens)`` prefills (B = 1, each its
-    prompt) and ``steps`` decode steps of ``slots`` rows: rmsnorm 2L + 1
-    and the routed flash kernel L a call."""
-    L = cfg.num_layers
-    want = {"rmsnorm": (2 * L + 1) * (len(prompt_lens) + steps)}
+    prompt) and ``steps`` decode steps of ``slots`` rows: rmsnorm
+    ``norm_calls`` (2L + 1 for the attention families) and the routed
+    flash kernel ``attn_calls`` (L) a call."""
+    A = attn_calls(cfg)
+    want = {"rmsnorm": norm_calls(cfg) * (len(prompt_lens) + steps)}
     calls = [(flash_kernel(cfg, 1, S, S, dev), 1) for S in prompt_lens]
     calls.append((flash_kernel(cfg, slots, 1, 1, dev), steps))
     for name, n in calls:
-        if n:
-            want[name] = want.get(name, 0) + L * n
+        if n and A:
+            want[name] = want.get(name, 0) + A * n
     return want
 
 
@@ -1240,7 +1327,10 @@ def lm_times(fn) -> tuple[float, float | None, list]:
     with the most device time a call, ``(name, ms)``.  An event window
     behind a spin cannot give the busy time here: a decode step enqueues
     more launches than the card's launch queue holds, so its tail is
-    enqueued at the host's pace inside the window."""
+    enqueued at the host's pace inside the window.  The trace's device
+    events are read from the profiler's raw results: ``prof.events()``
+    would build every host op's event tree first, minutes for a call of
+    tens of thousands of ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1257,11 +1347,12 @@ def lm_times(fn) -> tuple[float, float | None, list]:
             fn()
         torch.cuda.synchronize()
     spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            r = e.time_range
-            spans.append((r.start, r.end))
-            by_name[e.name] = by_name.get(e.name, 0.0) + (r.end - r.start)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            a = e.start_ns() / 1e3
+            b = a + e.duration_ns() / 1e3
+            spans.append((a, b))
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + (b - a)
     busy, reach = 0.0, None
     for a, b in sorted(spans):          # the union, in us
         if reach is None or a > reach:
@@ -1276,14 +1367,15 @@ def lm_times(fn) -> tuple[float, float | None, list]:
             [(n[:60], t / LM_TURNS / 1e3) for n, t in top])
 
 
-def lm_kernel_rows(cfg, params, prompt, rng, totals, dev, card) -> dict:
+def lm_kernel_rows(cfg, params, prompt, rng, totals, dev, card,
+                   tag="lm") -> dict:
     """Each kernel of the LM path (rmsnorm, the tc prefill, the split-kv
-    decode) at ``prompt``'s shapes, on its layer-0 inputs, against its
-    plain version, the oracle and PyTorch's call (``kernel_row``),
-    ``launches`` the main path's ``totals``; rmsnorm with a scale drawn
-    from ``rng`` (the model's starts at 0, which would leave the kernel's
-    1 + scale untested).  Returns the rows by name,
-    ``<kernel>/lm_<arch>/<dtype>``."""
+    decode) at ``prompt``'s shapes, on its first attention's inputs
+    (layer 0's, or the hybrid's shared block's), against its plain
+    version, the oracle and PyTorch's call (``kernel_row``), ``launches``
+    the main path's ``totals``; rmsnorm with a scale drawn from ``rng``
+    (the model's starts at 0, which would leave the kernel's 1 + scale
+    untested).  Returns the rows by name, ``<kernel>/<tag>_<arch>/<dtype>``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, ops, rmsnorm
@@ -1293,15 +1385,17 @@ def lm_kernel_rows(cfg, params, prompt, rng, totals, dev, card) -> dict:
     plan = attention.plan_for(cfg)
     dt = cfg.cdtype
     lp = T.layer_params(params, 0)
+    ln, attn_p = ((params["shared_attn"]["ln"], params["shared_attn"]["attn"])
+                  if "shared_attn" in params else (lp["ln1"], lp["attn"]))
     x = T.embed(cfg, params, {"tokens": prompt[None]})
     rows2d = x.reshape(-1, cfg.d_model).contiguous()
-    xn = ops.rmsnorm(rows2d, lp["ln1"]).reshape(x.shape)
+    xn = ops.rmsnorm(rows2d, ln).reshape(x.shape)
     pos = torch.arange(x.shape[1], dtype=torch.int32, device=dev)[None]
     q, k, v = (t.transpose(1, 2).contiguous() for t in
-               attention._project_qkv(cfg, plan, lp["attn"], xn, pos))
+               attention._project_qkv(cfg, plan, attn_p, xn, pos))
     q1 = q[:, :, -1:].contiguous()
     scale = torch.from_numpy(rng.standard_normal(
-        cfg.d_model, dtype=np.float32)).to(dev).to(lp["ln1"].dtype)
+        cfg.d_model, dtype=np.float32)).to(dev).to(ln.dtype)
     S, hd = x.shape[1], cfg.hd
     scale_w = (1.0 + scale).to(dt)
 
@@ -1338,12 +1432,63 @@ def lm_kernel_rows(cfg, params, prompt, rng, totals, dev, card) -> dict:
             flash_attention.PLAIN_TOL["decode", dt])}
     out = {}
     for kname, (fn, p, fns, plain_tol) in calls.items():
-        name = f"{kname}/lm_{cfg.name}/{str(dt).removeprefix('torch.')}"
-        out[name] = kernel_row("lm kernel", name, kname, fn, p, dt, fns,
+        name = f"{kname}/{tag}_{cfg.name}/{str(dt).removeprefix('torch.')}"
+        out[name] = kernel_row(f"{tag} kernel", name, kname, fn, p, dt, fns,
                                (plain_tol, hot_tol(fn, dt, None)),
                                launches=totals[kname], note=f" card={card}")
     del q, k, v, q1, x, rows2d, xn, scale
     return out
+
+
+def forced_check(cfg, prm, toks, max_len, steps, tol, label, card):
+    """A prefill of ``toks`` and ``steps`` decode steps through the
+    kernels and through their plain versions on the card
+    (``mode="interpret"``), both fed the plain versions' greedy tokens:
+    every step's logits finite, of the plain versions' shape and within
+    ``tol`` max-abs of theirs, and the greedy tokens equal wherever the
+    plain versions' top-1 / top-2 margin exceeds ``tol``.  Returns the
+    plain versions' greedy stream, the first step with a row under the
+    margin (or None) and the gaps."""
+    from repro_torch.models import transformer as T
+
+    V = cfg.vocab_size
+
+    def greedy(logits):
+        return logits[:, -1, :V].argmax(-1)[:, None]
+
+    want, wc = T.prefill(cfg, prm, {"tokens": toks}, max_len,
+                         mode="interpret")
+    got, gc = T.prefill(cfg, prm, {"tokens": toks}, max_len)
+    gaps, under, first_under, stream, top = [], 0, None, [], 0.0
+    for j in range(steps + 1):
+        if j:
+            want, wc = T.decode_step(cfg, prm, wc, nxt, mode="interpret")
+            got, gc = T.decode_step(cfg, prm, gc, nxt)
+        if not (torch.isfinite(got).all() and got.shape == want.shape):
+            raise AssertionError(f"{label}: step {j} gave "
+                                 f"{tuple(got.shape)} or non-finite")
+        gaps.append(float((got - want).abs().max()))
+        top = max(top, float(want.abs().max()))
+        ref = want[:, -1, :V]
+        top2 = ref.topk(2, dim=-1).values
+        clear = top2[:, 0] - top2[:, 1] > tol
+        agree = greedy(got)[:, 0] == ref.argmax(-1)
+        if not bool(agree[clear].all()):
+            raise AssertionError(f"{label}: step {j}'s token differs above "
+                                 f"the margin")
+        if not bool(clear.all()) and first_under is None:
+            first_under = j
+        under += int((~clear).sum())
+        nxt = greedy(want)
+        stream.append(nxt[:, 0].tolist())
+    print(f"{label}: batch={toks.shape[0]} prompt={toks.shape[1]} "
+          f"steps={steps + 1} gaps={gaps} max_gap={max(gaps)} tol={tol} "
+          f"logit_max={top} under_margin={under} "
+          f"first_under={first_under} card={card}")
+    if max(gaps) > tol:
+        raise AssertionError(f"{label}: logits {max(gaps)} from the plain "
+                             f"versions' > {tol}")
+    return stream, first_under, gaps
 
 
 def lm_phase(dev) -> dict:
@@ -1414,46 +1559,14 @@ def lm_phase(dev) -> dict:
     _, (long_req,) = serve("long", [(long_prompt, LM_LONG["max_new"])], 1,
                            long_len, Policy.HAZARD_ONLY)
 
-    # the logits against the plain versions on the card, teacher-forced
-    # with the plain versions' greedy tokens
     def greedy(logits):
         return logits[:, -1, :V].argmax(-1)[:, None]
 
+    # the logits against the plain versions on the card, teacher-forced
+    # with the plain versions' greedy tokens
     def forced(label, prm, toks, max_len, steps):
-        want, wc = T.prefill(cfg, prm, {"tokens": toks}, max_len,
-                             mode="interpret")
-        got, gc = T.prefill(cfg, prm, {"tokens": toks}, max_len)
-        gaps, under, first_under, stream, top = [], 0, None, [], 0.0
-        for j in range(steps + 1):
-            if j:
-                want, wc = T.decode_step(cfg, prm, wc, nxt, mode="interpret")
-                got, gc = T.decode_step(cfg, prm, gc, nxt)
-            if not (torch.isfinite(got).all() and got.shape == want.shape):
-                raise AssertionError(f"lm check {label}: step {j} gave "
-                                     f"{tuple(got.shape)} or non-finite")
-            gaps.append(float((got - want).abs().max()))
-            top = max(top, float(want.abs().max()))
-            ref = want[:, -1, :V]
-            top2 = ref.topk(2, dim=-1).values
-            clear = top2[:, 0] - top2[:, 1] > LM_TOL
-            agree = greedy(got)[:, 0] == ref.argmax(-1)
-            if not bool(agree[clear].all()):
-                raise AssertionError(f"lm check {label}: step {j}'s token "
-                                     f"differs above the margin")
-            if not bool(clear.all()) and first_under is None:
-                first_under = j
-            under += int((~clear).sum())
-            nxt = greedy(want)
-            stream.append(nxt[:, 0].tolist())
-        print(f"lm check {label}: batch={toks.shape[0]} "
-              f"prompt={toks.shape[1]} steps={steps + 1} gaps={gaps} "
-              f"max_gap={max(gaps)} tol={LM_TOL} logit_max={top} "
-              f"under_margin={under} "
-              f"first_under={first_under} card={card}")
-        if max(gaps) > LM_TOL:
-            raise AssertionError(f"lm check {label}: logits {max(gaps)} "
-                                 f"from the plain versions' > {LM_TOL}")
-        return stream, first_under
+        return forced_check(cfg, prm, toks, max_len, steps, LM_TOL,
+                            f"lm check {label}", card)
 
     # the traffic on the served weights and on LM_CHECK_SEEDS' others
     batch = torch.from_numpy(np.stack(prompts[:tr["slots"]])).to(dev)
@@ -1462,8 +1575,8 @@ def lm_phase(dev) -> dict:
         forced(f"traffic seed={seed}", prm, batch, cli_len, tr["max_new"] - 1)
         del prm
     long_toks = torch.from_numpy(long_prompt[None]).to(dev)
-    stream, first_under = forced(f"long seed={SEED}", params, long_toks,
-                                 long_len, LM_LONG["max_new"] - 1)
+    stream, first_under, _ = forced(f"long seed={SEED}", params, long_toks,
+                                    long_len, LM_LONG["max_new"] - 1)
     plain_toks = [t[0] for t in stream]
     agree = first_under if first_under is not None else len(plain_toks)
     if long_req.out[:agree] != plain_toks[:agree]:
@@ -1956,28 +2069,37 @@ def moe_routing_check(cfg, params, toks, label, card) -> dict:
 
 def moe_train_check(cfg, dev, card) -> None:
     """Phase 7 (d): a train step of ``cfg`` at full width, its depth cut
-    to MOE_TRAIN_LAYERS, AdamW with the config's float32 moments, a batch
-    of TRAIN_BATCH x TRAIN_SEQ tokens from SyntheticLM: each step launches
-    rmsnorm 4L + 1 and flash_attention_tc 2L times (remat full) and no
-    other kernel, the aux term is finite, and the loss falls over
-    OVERFIT_STEPS steps on the one batch at lr 1e-3."""
+    to MOE_TRAIN_LAYERS (``train_check``): each step launches rmsnorm
+    4L + 1 and flash_attention_tc 2L times (remat full) and no other
+    kernel, and the aux term is finite."""
+    cfg = cfg.replace(num_layers=MOE_TRAIN_LAYERS)
+    L = cfg.num_layers
+    train_check(cfg, {"rmsnorm": 4 * L + 1, "flash_attention_tc": 2 * L},
+                "moe train", dev, card)
+
+
+def train_check(cfg, per_step, label, dev, card) -> None:
+    """A train step of ``cfg`` under remat full, AdamW with the config's
+    float32 moments, a batch of TRAIN_BATCH x TRAIN_SEQ tokens from
+    SyntheticLM: each of OVERFIT_STEPS steps on the one batch at lr 1e-3
+    with every launch count set to 0 just before and read just after
+    launches ``per_step`` and no other kernel, the aux term is finite,
+    and the loss falls."""
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.optim import adamw
     from repro_torch.train import step as train_mod
 
-    cfg = cfg.replace(num_layers=MOE_TRAIN_LAYERS)
     L = cfg.num_layers
     if cfg.remat != "full":
-        raise AssertionError(f"moe train: {cfg.name} is not under remat full")
+        raise AssertionError(f"{label}: {cfg.name} is not under remat full")
     zero, counts = launch_counters()
     opt_cfg = adamw.AdamWConfig(lr_peak=1e-3, total_steps=30, warmup_steps=1,
                                 state_dtype=cfg.opt_state_dtype)
-    params = lm_init(cfg, SEED, dev, "moe train", card)
+    params = lm_init(cfg, SEED, dev, label, card)
     opt = adamw.init_state(opt_cfg, params)
     batch = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
                         seed=SEED).batch_at(0)
     step = train_mod.make_train_step(cfg, opt_cfg)
-    per_step = {"rmsnorm": 4 * L + 1, "flash_attention_tc": 2 * L}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, auxes, walls = [], [], []
@@ -1989,19 +2111,19 @@ def moe_train_check(cfg, dev, card) -> None:
         walls.append(time.perf_counter() - t0)
         got = counts()
         if got != per_step:
-            raise AssertionError(f"moe train: step {i} launched {got}, the "
+            raise AssertionError(f"{label}: step {i} launched {got}, the "
                                  f"path asks for {per_step}")
         losses.append(float(mm["loss"]))
         auxes.append(float(mm["aux"]))
     wall = statistics.median(walls[1:])
-    print(f"moe train {cfg.name}: layers={L} batch={TRAIN_BATCH}x"
+    print(f"{label} {cfg.name}: layers={L} batch={TRAIN_BATCH}x"
           f"{TRAIN_SEQ} state_dtype={opt_cfg.state_dtype} launches={per_step} "
           f"losses={losses} aux={auxes} step_walls_s={walls} "
           f"tok_per_s={TRAIN_BATCH * TRAIN_SEQ / wall} "
           f"max_memory_allocated_bytes={torch.cuda.max_memory_allocated()} "
           f"card={card}")
     if not all(np.isfinite(auxes)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"moe train: aux {auxes}, losses {losses}: "
+        raise AssertionError(f"{label}: aux {auxes}, losses {losses}: "
                              f"not finite or not falling")
     del params, opt, mm
     torch.cuda.empty_cache()
@@ -2239,6 +2361,248 @@ def moe_phase(dev) -> dict:
     moe_train_check(cfg, dev, card)
     av_check(dev, card)
     print(f"phase 7: seconds={time.perf_counter() - t_phase} card={card}")
+    return rows
+
+
+def ssm_model_line(cfg, card) -> str:
+    """The phase 8 model's shape, for its ``ssm model`` line."""
+    from repro_torch.models import mamba2, rwkv6
+
+    A = attn_calls(cfg)
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        d_inner, H, conv_ch, _ = mamba2.dims(cfg)
+        mixer = (f"mamba2 d_inner={d_inner} ssm_heads={H}x{s.head_dim} "
+                 f"state={s.state_dim} chunk={s.chunk} conv={s.conv_dim} "
+                 f"attn_every={cfg.attn_every} shared_attn_calls={A} "
+                 f"heads={cfg.num_heads}/{cfg.num_kv_heads} "
+                 f"head_dim={cfg.hd}")
+    else:
+        H, hd = rwkv6.rdims(cfg)
+        mixer = (f"rwkv6 heads={H}x{hd} d_ff={cfg.d_ff} "
+                 f"decay_lora={cfg.rwkv.decay_lora} chunk={cfg.rwkv.chunk}")
+    return (f"ssm model {cfg.name}: layers={cfg.num_layers} "
+            f"d_model={cfg.d_model} {mixer} vocab={cfg.vocab_size} "
+            f"dtype={cfg.param_dtype} "
+            f"allocated_before_bytes={torch.cuda.memory_allocated()} "
+            f"card={card}")
+
+
+def consistency_check(cfg, params, dev, label, card, B=2, S=16, Sp=12):
+    """tests/test_models.py's ``_consistency`` through the kernels: a
+    prefill of ``Sp`` tokens and teacher-forced decode steps to ``S``,
+    their logits against forward's over the ``S`` tokens.  Returns the
+    gaps."""
+    from repro_torch.models import transformer as T
+
+    rng = np.random.default_rng(SEED + 7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
+    full, _ = T.forward(cfg, params, {"tokens": toks})
+    lg, cache = T.prefill(cfg, params, {"tokens": toks[:, :Sp]}, S)
+    gaps = [float((lg[:, 0] - full[:, Sp - 1]).abs().max())]
+    for j in range(Sp, S):
+        lg, cache = T.decode_step(cfg, params, cache, toks[:, j:j + 1])
+        gaps.append(float((lg[:, 0] - full[:, j]).abs().max()))
+    tol = SSM_CONSISTENCY_TOL[cfg.name]
+    print(f"{label}: consistency batch={B} prompt={Sp} steps={S - Sp} "
+          f"gaps={gaps} max_gap={max(gaps)} tol={tol} "
+          f"logit_max={float(full.abs().max())} card={card}")
+    if max(gaps) > tol:
+        raise AssertionError(f"{label}: prefill and decode {max(gaps)} from "
+                             f"forward's logits > {tol}")
+    return gaps
+
+
+def gated_norm_row(cfg, params, prompt, rng, totals, card) -> dict:
+    """Phase 8 (e): rmsnorm in float32 on Mamba2's gated norm at the long
+    prompt's shape (``[S, d_inner]``, rows wider than the kernel's
+    one-pass 2,304 floats), on layer 0's own input to it and a scale
+    drawn from ``rng``, against its plain version, the oracle and
+    ``F.rms_norm`` (``kernel_row``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, rmsnorm
+    from repro_torch.models import mamba2
+    from repro_torch.models import transformer as T
+
+    lp = T.layer_params(params, 0)
+    grab = {}
+    real = mamba2._gate_out
+
+    def gate_out(c, p, y, z, mode):
+        grab["y"] = (y * mamba2.silu(z.float())).reshape(-1, y.shape[-1])
+        return real(c, p, y, z, mode)
+
+    x = T.embed(cfg, params, {"tokens": prompt[None]})
+    mamba2._gate_out = gate_out
+    try:
+        mamba2.mamba_full(cfg, lp["mamba"], ops.rmsnorm(
+            x.reshape(-1, cfg.d_model).contiguous(),
+            lp["ln1"]).reshape(x.shape))
+    finally:
+        mamba2._gate_out = real
+    y = grab.pop("y").contiguous()
+    rows, d = y.shape
+    scale = torch.from_numpy(rng.standard_normal(d, dtype=np.float32)).to(
+        y.device)
+    w = 1.0 + scale
+    name = f"rmsnorm/ssm_{cfg.name}_gated/float32"
+    tol = hot_tol("rmsnorm", torch.float32, None)
+    return {name: kernel_row(
+        "ssm kernel", name, "rmsnorm", "rmsnorm", {"rows": rows, "d": d},
+        torch.float32,
+        (lambda: ops.rmsnorm(y, scale), lambda: rmsnorm.rmsnorm_plain(y, scale),
+         lambda: ops.rmsnorm(y, scale, mode="ref"),
+         lambda: F.rms_norm(y, (d,), weight=w, eps=1e-5)),
+        ((tol, tol), tol), launches=totals["rmsnorm"],
+        note=f" two_pass={d > 2304} ctas={rmsnorm.ctas(rows)} card={card}")}
+
+
+def ssm_serve_check(arch, dev, card) -> dict:
+    """Phase 8 (a) / (b), (c) and (e) for ``arch`` at full width and
+    depth.  Returns its kernels' JSON rows by name."""
+    import gc
+
+    from repro_torch.configs import registry
+    from repro_torch.core.streams import Policy
+    from repro_torch.models import transformer as T
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = registry.get(arch)
+    V, A = cfg.vocab_size, attn_calls(cfg)
+    print(ssm_model_line(cfg, card))
+    params = lm_init(cfg, SEED, dev, "ssm", card)
+    rng = np.random.default_rng(SEED)
+    tr = LM_TRAFFIC
+    prompts = [rng.integers(0, V, tr["prompt_len"])
+               for _ in range(tr["requests"])]
+    long_prompt = rng.integers(0, V, LM_LONG["prompt_len"])
+    if A and (flash_kernel(cfg, 1, tr["prompt_len"], tr["prompt_len"],
+                           dev) != "flash_attention_tc"
+              or flash_kernel(cfg, 1, 1, 1, dev) != "flash_decode"):
+        raise AssertionError("ssm: the shared attention would not take the "
+                             "tc prefill and split-kv decode kernels")
+
+    # the main path: phase 5's traffic under both policies, then the long
+    # prompt (a short warm-up first, its counts not kept)
+    totals = {}
+    cli_len = tr["prompt_len"] + tr["max_new"] + 8
+    lm_serve(cfg, params, dev, f"ssm serve warm-up {arch}",
+             [(prompts[0], 2)], 1,
+             cli_len, Policy.HAZARD_ONLY)
+    torch.cuda.reset_peak_memory_stats()
+    outs = {}
+    for policy in (Policy.HAZARD_ONLY, Policy.SYNC_ALWAYS):
+        _, reqs = lm_serve(cfg, params, dev, f"ssm serve traffic {arch}",
+                           [(p, tr["max_new"]) for p in prompts],
+                           tr["slots"], cli_len, policy, totals)
+        outs[policy] = [r.out for r in reqs]
+    if outs[Policy.HAZARD_ONLY] != outs[Policy.SYNC_ALWAYS]:
+        raise AssertionError("ssm serve: the two policies gave other tokens")
+    long_len = LM_LONG["prompt_len"] + LM_LONG["max_new"] + 8
+    _, (long_req,) = lm_serve(cfg, params, dev, f"ssm serve long {arch}",
+                              [(long_prompt, LM_LONG["max_new"])], 1,
+                              long_len, Policy.HAZARD_ONLY, totals)
+    want = {"rmsnorm"} | ({"flash_attention_tc", "flash_decode"} if A
+                          else set())
+    if set(totals) != want:
+        raise AssertionError(f"ssm {arch}: the main path launched {totals}")
+    print(f"ssm serve peak {arch}: max_memory_allocated_bytes="
+          f"{torch.cuda.max_memory_allocated()} launches={totals} "
+          f"card={card}")
+
+    # the served long request against the kernel path's own greedy loop
+    # at the engine's shapes (B = 1, the same max_len)
+    long_toks = torch.from_numpy(long_prompt[None]).to(dev)
+    lg, c = T.prefill(cfg, params, {"tokens": long_toks}, long_len)
+    free = []
+    for j in range(LM_LONG["max_new"]):
+        if j:
+            lg, c = T.decode_step(cfg, params, c, nxt)
+        nxt = lg[:, -1, :V].argmax(-1)[:, None]
+        free.append(int(nxt[0, 0]))
+    if long_req.out != free:
+        raise AssertionError(f"ssm serve long: tokens {long_req.out} differ "
+                             f"from the kernel path's greedy loop {free}")
+    print(f"ssm serve long {arch}: the served tokens equal the kernel "
+          f"path's greedy loop's over all {len(free)}")
+    del lg, c
+
+    # timings: a prefill at both prompt lengths (one request, as the
+    # engine admits it) and a decode step of the traffic's slots
+    def timing(label, fn, tokens):
+        wall, busy, top = lm_times(fn)
+        idle = "not measured" if busy is None else 1 - busy / wall
+        print(f"ssm {label} {arch}: wall_ms={wall} device_busy_ms={busy} "
+              f"idle_share={idle} tok_per_s={tokens / wall * 1e3} "
+              f"top_kernels_ms={top} card={card}")
+
+    for S, toks in ((tr["prompt_len"], prompts[0]),
+                    (LM_LONG["prompt_len"], long_prompt)):
+        t = torch.from_numpy(toks[None]).to(dev)
+        timing(f"prefill S={S}", lambda t=t, S=S: T.prefill(
+            cfg, params, {"tokens": t}, S + 40), S)
+    batch = torch.from_numpy(np.stack(prompts[:tr["slots"]])).to(dev)
+    _, cache = T.prefill(cfg, params, {"tokens": batch}, cli_len)
+    nxt = batch[:, -1:]
+    timing(f"decode slots={tr['slots']} pos={cache['pos']}",
+           lambda: T.decode_step(cfg, params, cache, nxt), tr["slots"])
+    del cache
+
+    # (e) the kernels at the model's shapes: the shared attention's
+    # (d = 112, 32 heads) over the long prompt, rmsnorm at d_model in
+    # bfloat16 and at d_inner in float32
+    rows = {}
+    if A:
+        rows.update(lm_kernel_rows(cfg, params, long_prompt, rng, totals,
+                                   dev, card, tag="ssm"))
+        rows.update(gated_norm_row(cfg, params, long_prompt, rng, totals,
+                                   card))
+
+    # (c) the traffic's prompts teacher-forced against the plain versions,
+    # and prefill then decode against forward, on SSM_CHECK_SEEDS' weights
+    for seed in SSM_CHECK_SEEDS:
+        if seed != SEED:
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = lm_init(cfg, seed, dev, "ssm check", card)
+        label = f"ssm check {arch} seed={seed}"
+        forced_check(cfg, params, batch, cli_len, tr["max_new"] - 1,
+                     SSM_TOL[arch], label, card)
+        consistency_check(cfg, params, dev, label, card)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ssm_phase(dev) -> dict:
+    """Phase 8: the state-space mixers at full width and depth through
+    the port's ``Engine`` (zamba2-7b, rwkv6-1.6b: ``ssm_serve_check``),
+    their train steps (``train_check``) and their kernels' rows.  Returns
+    the kernels' JSON rows by name."""
+    from repro_torch.configs import registry
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    rows = {}
+    for arch in SSM_ARCHS:
+        rows.update(ssm_serve_check(arch, dev, card))
+    # (d) a train step at full width: zamba2-7b SSM_TRAIN_LAYERS deep
+    # (each mamba layer and each shared attention recomputed once),
+    # rwkv6-1.6b at full depth
+    for arch in SSM_ARCHS:
+        cfg = registry.get(arch).replace(num_layers=SSM_TRAIN_LAYERS[arch])
+        L, A = cfg.num_layers, attn_calls(cfg)
+        per_step = {"rmsnorm": 2 * norm_calls(cfg) - 1}
+        if A:
+            per_step["flash_attention_tc"] = 2 * A
+        train_check(cfg, per_step, "ssm train", dev, card)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 8: seconds={seconds} ceiling_s={SSM_CEILING_S} "
+          f"card={card}")
     return rows
 
 
@@ -3325,6 +3689,9 @@ def main() -> int:
 
     # ---- phase 7: the MoE decoder at deepseek-moe-16b's full size -------
     rows.update(moe_phase(dev))
+
+    # ---- phase 8: the state-space mixers at full width and depth --------
+    rows.update(ssm_phase(dev))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

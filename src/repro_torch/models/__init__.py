@@ -1,4 +1,4 @@
-"""The LM stack's models, as ``repro.models``: the attention decoders
-(``transformer``, ``attention``, ``mlp``, ``moe``, ``common``) and GQA
-head padding (``padding``).  State-space and RWKV mixers come in ROADMAP
-1.14.3."""
+"""The LM stack's models, as ``repro.models``: the decoder of every
+family (``transformer``), its attention, MLP and experts (``attention``,
+``mlp``, ``moe``), the state-space mixers (``mamba2``, ``rwkv6``), shared
+primitives (``common``) and GQA head padding (``padding``)."""

@@ -1,5 +1,5 @@
-"""Decoder LM, the attention families (dense, moe, audio, vlm), as
-``repro/models/transformer.py``.
+"""Decoder LM covering every family of the registry (dense, moe, audio,
+vlm, hybrid, ssm), as ``repro/models/transformer.py``.
 
 Parameters keep the reference's nested dict and its stacked layer axis
 (``params["layers"]`` leaves are ``[L, ...]``); the layers run in a Python
@@ -11,15 +11,19 @@ head, and :func:`~repro_torch.models.common.cross_entropy`.  The
 reference's ``constrain`` is the identity without a mesh, and the port has
 none, so it is left out (:func:`res_constrain` keeps its name).
 
-A layer's feed-forward half is the SwiGLU MLP or, with ``cfg.moe``, the
-mixture of experts of :mod:`repro_torch.models.moe`, whose load-balance
-term :func:`forward` averages over the layers (``aux``).  Several
-codebooks (``num_codebooks``, musicgen) sum one embedding a codebook and
-give ``[B, S, K, Vp]`` logits from one head a codebook; a patch prefix
-(internvl2) puts the projected ``patch_embeds`` of the batch in front of
-the tokens.  A config with a state-space or RWKV mixer (``ssm``,
-``rwkv``) raises ``NotImplementedError``: those families come in ROADMAP
-1.14.3.
+An attention layer's feed-forward half is the SwiGLU MLP or, with
+``cfg.moe``, the mixture of experts of :mod:`repro_torch.models.moe`,
+whose load-balance term :func:`forward` averages over the layers
+(``aux``).  Several codebooks (``num_codebooks``, musicgen) sum one
+embedding a codebook and give ``[B, S, K, Vp]`` logits from one head a
+codebook; a patch prefix (internvl2) puts the projected ``patch_embeds``
+of the batch in front of the tokens.  With ``cfg.rwkv`` a layer is
+RWKV6's time mix and channel mix (:mod:`repro_torch.models.rwkv6`); with
+``cfg.ssm`` it is a Mamba2 mixer (:mod:`repro_torch.models.mamba2`), and
+with ``cfg.attn_every`` one attention block whose parameters all blocks
+share (``params["shared_attn"]``) runs before every ``attn_every``-th
+layer (zamba2's hybrid layout, :func:`hybrid_blocks`).  Their decode
+caches hold each layer's recurrent state instead of keys and values.
 
 ``mode`` (``repro_torch.kernels.ops.MODES``) reaches every RMSNorm and
 attention call: ``None`` launches the hand-written kernels for tensors on
@@ -45,22 +49,11 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import index
 from repro_torch.core.memory import resolve_device
-from repro_torch.models import attention
+from repro_torch.models import attention, mamba2, rwkv6
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (cross_entropy, dense, rmsnorm,
                                        uniform_init)
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is an attention decoder, the families ported
-    so far (dense, moe, audio, vlm)."""
-    other = [name for name, on in (
-        ("ssm", cfg.ssm is not None), ("rwkv", cfg.rwkv is not None)) if on]
-    if other:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(other)} not ported yet; the port's LM "
-            f"stack serves attention decoders (ROADMAP 1.14.3)")
 
 
 # ---------------------------------------------------------------------------
@@ -68,8 +61,16 @@ def check_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 def _init_layer(cfg: ModelConfig, gen: torch.Generator):
     D = cfg.d_model
-    layer = {"ln1": torch.zeros(D, dtype=torch.float32, device=gen.device),
-             "ln2": torch.zeros(D, dtype=torch.float32, device=gen.device),
+
+    def norm():
+        return torch.zeros(D, dtype=torch.float32, device=gen.device)
+
+    if cfg.rwkv is not None:
+        return {"ln1": norm(), "ln2": norm(),
+                "rwkv": rwkv6.init_rwkv_params(gen, cfg)}
+    if cfg.ssm is not None:  # hybrid: mamba backbone (shared attn is global)
+        return {"ln1": norm(), "mamba": mamba2.init_mamba_params(gen, cfg)}
+    layer = {"ln1": norm(), "ln2": norm(),
              "attn": attention.init_attn_params(gen, cfg)}
     if cfg.moe is not None:
         layer["moe"] = moe_mod.init_moe_params(gen, cfg)
@@ -111,9 +112,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
     device, with the reference's shapes, dtypes and bounds (its values
     come from JAX's generator: carry them with
     ``repro_torch.carry.params_from_reference``).  The draws go embedding
-    (``tok`` or ``codebooks``), ``patch_proj``, the layers in order, then
-    ``lm_head`` or ``lm_heads``."""
-    check_ported(cfg)
+    (``tok`` or ``codebooks``), ``patch_proj``, the layers in order, the
+    hybrid's ``shared_attn``, then ``lm_head`` or ``lm_heads``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     D, Vp, K = cfg.d_model, cfg.padded_vocab, cfg.num_codebooks
@@ -125,6 +125,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
         emb["patch_proj"] = uniform_init(gen, (D, D), 1.0, cfg.pdtype)
     params: dict[str, Any] = {"embed": emb}
     params["layers"] = _init_layers(cfg, gen)
+    if cfg.ssm is not None and cfg.attn_every:
+        params["shared_attn"] = {
+            "ln": torch.zeros(D, dtype=torch.float32, device=dev),
+            "attn": attention.init_attn_params(gen, cfg)}
     params["final_norm"] = torch.zeros(D, dtype=torch.float32, device=dev)
     if K > 1:
         params["lm_heads"] = uniform_init(gen, (K, D, Vp), 1.0, cfg.pdtype)
@@ -145,7 +149,8 @@ def layer_params(params, i: int):
 def _layers(params, L: int) -> list:
     """Every layer's parameters, views of the stacked leaves by one
     ``unbind`` a leaf: under autograd each leaf's gradient is then stacked
-    once, where ``L`` selects would each fill an ``[L, ...]`` zeros."""
+    once, where ``L`` selects would each fill an ``[L, ...]`` zeros; and
+    a decode step enqueues one op a leaf, not one a leaf and layer."""
     def split(tree):
         if isinstance(tree, dict):
             parts = {k: split(v) for k, v in tree.items()}
@@ -246,12 +251,54 @@ def _ffn_half(cfg: ModelConfig, lp, x, mode):
 
 
 def _layer_full(cfg: ModelConfig, plan, lp, x, positions, mode):
-    """One layer, full sequence. Returns (x, aux, (k, v))."""
+    """One layer, full sequence. Returns (x, aux, state): aux the
+    experts' load-balance term, else ``None``; state the attention's
+    ``(k, v)``, RWKV's ``(wkv, last_tm, last_cm)`` or Mamba2's
+    ``(conv, ssm)``."""
+    if cfg.rwkv is not None:
+        h, (wkv, ltm) = rwkv6.time_mix_full(
+            cfg, lp["rwkv"], rmsnorm(x, lp["ln1"], cfg.norm_eps, mode=mode))
+        x = x + h
+        h, lcm = rwkv6.channel_mix(
+            cfg, lp["rwkv"], rmsnorm(x, lp["ln2"], cfg.norm_eps, mode=mode))
+        return x + h, None, (wkv, ltm, lcm)
+    if cfg.ssm is not None:
+        h, state = mamba2.mamba_full(
+            cfg, lp["mamba"], rmsnorm(x, lp["ln1"], cfg.norm_eps, mode=mode),
+            mode=mode)
+        return x + h, None, state
     a, kv = attention.attend_full(
         cfg, plan, lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps, mode=mode),
         positions, mode=mode)
     x, aux = _ffn_half(cfg, lp, x + a, mode)
     return x, aux, kv
+
+
+def hybrid_blocks(cfg: ModelConfig):
+    """zamba2 layout: 81 = full blocks of (shared-attn + k mambas) + tail.
+    Returns ``(k, full, tail)``; the shared attention runs before layer
+    ``i`` when ``i % k == 0``, ``full + (tail > 0)`` times in all."""
+    k = cfg.attn_every
+    full, tail = cfg.num_layers // k, cfg.num_layers % k
+    return k, full, tail
+
+
+def _shared_before(cfg: ModelConfig, params, i: int) -> bool:
+    """Whether the hybrid's shared attention runs before layer ``i``: at
+    the head of each block of ``attn_every`` layers, the tail's too."""
+    return bool(cfg.ssm is not None and cfg.attn_every
+                and "shared_attn" in params and i % cfg.attn_every == 0)
+
+
+def _shared_attn_apply(cfg: ModelConfig, plan, shared, x, positions, *,
+                       mode=None):
+    """The shared attention block over the full sequence: ``(x + attn(
+    norm(x)), (k, v))``."""
+    a, kv = attention.attend_full(
+        cfg, plan, shared["attn"],
+        rmsnorm(x, shared["ln"], cfg.norm_eps, mode=mode), positions,
+        mode=mode)
+    return x + a, kv
 
 
 def _positions(x):
@@ -306,8 +353,10 @@ def forward(cfg: ModelConfig, params, batch, *, mode=None):
     """Full-sequence forward. Returns (logits, aux): aux is the layers'
     expert load-balance terms summed in float32 and divided by L, as the
     reference's scan sums them (0 without experts).  Under autograd each
-    layer runs under ``cfg.remat``."""
-    check_ported(cfg)
+    layer, and each application of the hybrid's shared attention, runs
+    under ``cfg.remat`` as a checkpoint of its own (the reference nests
+    the layers' checkpoints in one of each block; flat, each is
+    recomputed once)."""
     plan = attention.plan_for(cfg)
     x = embed(cfg, params, batch)
     positions = _positions(x)
@@ -316,10 +365,17 @@ def forward(cfg: ModelConfig, params, batch, *, mode=None):
         x, aux, _ = _layer_full(cfg, plan, lp, x, positions, mode)
         return res_constrain(cfg, x), aux
 
-    body = _remat(cfg, body)
+    def shared_body(x):
+        x, _ = _shared_attn_apply(cfg, plan, params["shared_attn"], x,
+                                  positions, mode=mode)
+        return x
+
+    body, shared_body = _remat(cfg, body), _remat(cfg, shared_body)
     x = res_constrain(cfg, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in _layers(params, cfg.num_layers):
+    for i, lp in enumerate(_layers(params, cfg.num_layers)):
+        if _shared_before(cfg, params, i):
+            x = shared_body(x)
         x, a = body(lp, x)
         if a is not None:
             aux = aux + a
@@ -345,15 +401,46 @@ def loss_fn(cfg: ModelConfig, params, batch, aux_weight=0.01, *, mode=None):
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
                device=None):
-    """``{"pos": 0, "k", "v": [L, B, max_len, Hkv_p, hd]}`` zeros in the
-    compute dtype; ``pos`` is a host int."""
-    check_ported(cfg)
+    """Zeros: ``{"pos": 0, "k", "v": [L, B, max_len, Hkv_p, hd]}`` in the
+    compute dtype for the attention families; with RWKV ``"wkv"`` ``[L,
+    B, H, hd, hd]`` in float32 and ``"last_tm"`` / ``"last_cm"`` ``[L, B,
+    1, D]`` in the compute dtype; with Mamba2 ``"conv"`` and ``"ssm"``
+    (``mamba2.state_shapes`` under ``L``) in float32, and the hybrid's
+    ``"k"`` / ``"v"`` over its ``ceil(L / attn_every)`` shared-attention
+    applications.  ``pos`` is a host int."""
     dev = resolve_device(device)
+    L, B, cdt, f32 = cfg.num_layers, batch_size, cfg.cdtype, torch.float32
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if cfg.rwkv is not None:
+        H, hd = rwkv6.rdims(cfg)
+        return {"pos": 0, "wkv": zeros((L, B, H, hd, hd), f32),
+                "last_tm": zeros((L, B, 1, cfg.d_model), cdt),
+                "last_cm": zeros((L, B, 1, cfg.d_model), cdt)}
+    cache: dict[str, Any] = {"pos": 0}
+    if cfg.ssm is not None:
+        conv_s, ssm_s = mamba2.state_shapes(cfg, B)
+        cache["conv"] = zeros((L,) + conv_s, f32)
+        cache["ssm"] = zeros((L,) + ssm_s, f32)
+    cache.update(_kv_zeros(cfg, B, max_len, dev))
+    return cache
+
+
+def _kv_zeros(cfg: ModelConfig, batch_size: int, max_len: int, dev) -> dict:
+    """The cache's ``k`` / ``v`` zeros: one a layer, one a shared-attention
+    application of the hybrid, none for RWKV or a Mamba2 stack alone."""
+    if cfg.rwkv is not None or (cfg.ssm is not None and not cfg.attn_every):
+        return {}
+    napps = cfg.num_layers
+    if cfg.ssm is not None:
+        _, full, tail = hybrid_blocks(cfg)
+        napps = full + (tail > 0)
     plan = attention.plan_for(cfg)
-    shape = (cfg.num_layers, batch_size, max_len, plan.hkv_p, cfg.hd)
-    return {"pos": 0,
-            "k": torch.zeros(shape, dtype=cfg.cdtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.cdtype, device=dev)}
+    shape = (napps, batch_size, max_len, plan.hkv_p, cfg.hd)
+    return {name: torch.zeros(shape, dtype=cfg.cdtype, device=dev)
+            for name in ("k", "v")}
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, *, mode=None):
@@ -361,39 +448,95 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, *, mode=None):
     Returns (logits, cache); experts route every row of the batch, as the
     reference's step does.
 
-    The cache's ``k`` / ``v`` are written in place at ``pos`` (the
-    reference donates them to its jitted step); the returned dict holds
-    the same tensors and ``pos + 1``.  Keys past ``pos`` are never read,
-    so a step may be taken again from the dict it was given."""
-    check_ported(cfg)
+    The cache's ``k`` / ``v`` (the hybrid's too) are written in place at
+    ``pos`` (the reference donates them to its jitted step); the returned
+    dict holds the same tensors, ``pos + 1``, and the recurrent states
+    (``wkv``, ``last_tm``, ``last_cm``; ``conv``, ``ssm``) as new tensors.
+    Keys past ``pos`` are never read and the states given are not
+    written, so a step may be taken again from the dict it was given.  A
+    Mamba2 conv state of fewer than ``conv_dim - 1`` rows (a prefill of a
+    shorter prompt) raises, as the reference's step does."""
     plan = attention.plan_for(cfg)
     x = embed(cfg, params, {"tokens": tokens})
     pos = cache["pos"]
-    for i in range(cfg.num_layers):
-        lp = layer_params(params, i)
+    new_cache = {"pos": pos + 1}
+    if "k" in cache:
+        new_cache.update(k=cache["k"], v=cache["v"])
+    states = []
+    for i, lp in enumerate(_layers(params, cfg.num_layers)):
+        if _shared_before(cfg, params, i):
+            j = i // cfg.attn_every
+            sh = params["shared_attn"]
+            a, _, _ = attention.attend_decode(
+                cfg, plan, sh["attn"],
+                rmsnorm(x, sh["ln"], cfg.norm_eps, mode=mode),
+                cache["k"][j], cache["v"][j], pos, mode=mode)
+            x = x + a
+        xn = rmsnorm(x, lp["ln1"], cfg.norm_eps, mode=mode)
+        if cfg.rwkv is not None:
+            h, wkv, ltm = rwkv6.time_mix_step(
+                cfg, lp["rwkv"], xn, cache["wkv"][i], cache["last_tm"][i])
+            x = x + h
+            h, lcm = rwkv6.channel_mix(
+                cfg, lp["rwkv"], rmsnorm(x, lp["ln2"], cfg.norm_eps,
+                                         mode=mode), cache["last_cm"][i])
+            x = x + h
+            states.append((wkv, ltm.to(cfg.cdtype), lcm.to(cfg.cdtype)))
+            continue
+        if cfg.ssm is not None:
+            h, conv, ssm = mamba2.mamba_step(
+                cfg, lp["mamba"], xn, cache["conv"][i], cache["ssm"][i],
+                mode=mode)
+            x = x + h
+            states.append((conv, ssm))
+            continue
         a, _, _ = attention.attend_decode(
-            cfg, plan, lp["attn"],
-            rmsnorm(x, lp["ln1"], cfg.norm_eps, mode=mode),
-            cache["k"][i], cache["v"][i], pos, mode=mode)
+            cfg, plan, lp["attn"], xn, cache["k"][i], cache["v"][i], pos,
+            mode=mode)
         x, _ = _ffn_half(cfg, lp, x + a, mode)
-    new_cache = {"pos": pos + 1, "k": cache["k"], "v": cache["v"]}
+    _stack_states(cfg, states, new_cache)
     return head(cfg, params, x, mode=mode), new_cache
+
+
+def _stack_states(cfg: ModelConfig, states: list, cache: dict) -> None:
+    """Each layer's recurrent state, stacked into the cache's ``[L, ...]``
+    leaves (none for the attention families)."""
+    if not states:
+        return
+    names = (("wkv", "last_tm", "last_cm") if cfg.rwkv is not None
+             else ("conv", "ssm"))
+    for name, parts in zip(names, zip(*states), strict=True):
+        cache[name] = torch.stack(parts)
 
 
 def prefill(cfg: ModelConfig, params, batch, max_len: int, *, mode=None):
     """Run the prompt (``batch["tokens"]`` and, with a patch prefix,
     ``patch_embeds`` in front), build a decode cache. Returns
-    (logits_last, cache)."""
-    check_ported(cfg)
+    (logits_last, cache).  A Mamba2 layer's conv state is its last
+    ``conv_dim - 1`` input rows, or all ``S`` of a shorter prompt (the
+    reference's, which its decode step then refuses)."""
     plan = attention.plan_for(cfg)
     x = embed(cfg, params, batch)
     B, S = x.shape[:2]
     positions = _positions(x)
-    cache = init_cache(cfg, B, max_len, device=x.device)
-    for i in range(cfg.num_layers):
-        x, _, (k, v) = _layer_full(cfg, plan, layer_params(params, i), x,
-                                   positions, mode)
-        cache["k"][i, :, :S] = k.to(cfg.cdtype)
-        cache["v"][i, :, :S] = v.to(cfg.cdtype)
+    cache = _kv_zeros(cfg, B, max_len, x.device)
+    states = []
+    for i, lp in enumerate(_layers(params, cfg.num_layers)):
+        if _shared_before(cfg, params, i):
+            x, (k, v) = _shared_attn_apply(cfg, plan, params["shared_attn"],
+                                           x, positions, mode=mode)
+            j = i // cfg.attn_every
+            cache["k"][j, :, :S] = k.to(cfg.cdtype)
+            cache["v"][j, :, :S] = v.to(cfg.cdtype)
+        x, _, state = _layer_full(cfg, plan, lp, x, positions, mode)
+        if cfg.rwkv is not None:
+            wkv, ltm, lcm = state
+            states.append((wkv, ltm.to(cfg.cdtype), lcm.to(cfg.cdtype)))
+        elif cfg.ssm is not None:
+            states.append(state)
+        else:
+            cache["k"][i, :, :S] = state[0].to(cfg.cdtype)
+            cache["v"][i, :, :S] = state[1].to(cfg.cdtype)
+    _stack_states(cfg, states, cache)
     cache["pos"] = S
     return head(cfg, params, x[:, -1:, :], mode=mode), cache

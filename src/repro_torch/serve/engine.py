@@ -16,7 +16,9 @@ and block the host only on a true hazard.  Here:
 Batching: fixed-slot continuous batcher - finished slots are refilled from
 the queue, prefill runs per admission, decode advances all slots in one
 eager step through ``models.transformer`` (on the card, its RMSNorm and
-attention are the hand-written kernels).  With experts, a decode step
+attention are the hand-written kernels).  An admitted request's one-row
+cache is spliced into its slot leaf by leaf (``_splice``): keys and
+values, and the state-space and RWKV mixers' recurrent states.  With experts, a decode step
 routes every slot, idle ones included, so an idle slot's token takes
 expert capacity as in the reference (ROADMAP, "Reference caveats").  The
 cache is written in place; no step copies it whole.  ``stats`` counts
@@ -115,15 +117,30 @@ class Engine:
                 r = self.queue.pop(0)
                 nxt, cache1 = self._prefill(r.prompt)
                 self.stats["launches"] += 1
-                # splice the one-row prefill cache into slot i, whole
-                self.cache["k"][:, i] = cache1["k"][:, 0]
-                self.cache["v"][:, i] = cache1["v"][:, 0]
-                self.cache["pos"] = max(self.cache["pos"], cache1["pos"])
+                self._splice(i, cache1)
                 self.tokens[i] = nxt[0]
                 self.lengths[i] = len(r.prompt)
                 self.active[i] = r
                 r.out.append(int(nxt[0, 0]))  # host read: sync point
                 self.stats["syncs"] += 1
+
+    def _splice(self, i: int, cache1: dict) -> None:
+        """Write the one-row prefill cache into slot ``i`` in place, by the
+        reference's rule: each leaf at its first axis whose size is
+        ``slots`` in the engine's cache and 1 in the prefill's (a leaf
+        with no such axis is left), the prefill's rows broadcast along
+        the other axes; ``pos`` the larger of the two.  So a zamba2
+        prompt of one token fills all three conv rows with its one row,
+        and one of two tokens raises, as the reference's does."""
+        for name, c in self.cache.items():
+            if name == "pos":
+                continue
+            c1 = cache1[name]
+            for ax in range(c.ndim):
+                if c.shape[ax] == self.slots and c1.shape[ax] == 1:
+                    c[(slice(None),) * ax + (slice(i, i + 1),)] = c1
+                    break
+        self.cache["pos"] = max(self.cache["pos"], cache1["pos"])
 
     def step(self):
         """One decode step for all active slots (async launch)."""

@@ -38,9 +38,9 @@ PADDED = {"padded-6q2kv": dict(num_heads=6, num_kv_heads=2, head_dim=16,
 EXCLUDED = ["grok-1-314b", "deepseek-moe-16b", "zamba2-7b", "rwkv6-1.6b",
             "musicgen-medium", "internvl2-76b"]
 #: the families of EXCLUDED ported since (experts, codebooks, a patch
-#: prefix); the state-space and RWKV mixers still raise (ROADMAP 1.14.3)
+#: prefix, the state-space and RWKV mixers): all of them
 PORTED = ["grok-1-314b", "deepseek-moe-16b", "musicgen-medium",
-          "internvl2-76b"]
+          "internvl2-76b", "zamba2-7b", "rwkv6-1.6b"]
 
 
 def _jax():
@@ -398,31 +398,23 @@ def test_params_from_reference_keeps_keys_layouts_and_bits():
 
 @pytest.mark.parametrize("arch", EXCLUDED)
 def test_excluded_families_raise_naming_the_roadmap(arch):
-    """The six archs the dense slice refused: the four ported since run
-    through the five entry points; the state-space and RWKV mixers raise
-    naming ROADMAP 1.14.3."""
+    """The six archs the dense slice refused, each ported since (experts,
+    codebooks, a patch prefix, the state-space and RWKV mixers), run
+    through the five entry points."""
+    assert arch in PORTED
     cfg = treg.smoke(arch)
     batch = _batch(cfg, 1, 4)
     toks = batch["tokens"]
-    if arch in PORTED:
-        p = tT.init_params(cfg, 0, device="cpu")
-        assert tT.init_cache(cfg, 1, 8 + cfg.patch_prefix,
-                             device="cpu")["pos"] == 0
-        logits, aux = tT.forward(cfg, p, batch)
-        assert torch.isfinite(logits).all() and torch.isfinite(aux)
-        lg, cache = tT.prefill(cfg, p, batch, 8 + cfg.patch_prefix)
-        assert cache["pos"] == 4 + cfg.patch_prefix
-        lg, cache = tT.decode_step(cfg, p, cache, toks[:, :1])
-        assert torch.isfinite(lg).all() and cache["pos"] == 5 + \
-            cfg.patch_prefix
-        return
-    for call in (lambda: tT.init_params(cfg, 0, device="cpu"),
-                 lambda: tT.init_cache(cfg, 1, 8, device="cpu"),
-                 lambda: tT.forward(cfg, {}, {"tokens": toks}),
-                 lambda: tT.prefill(cfg, {}, {"tokens": toks}, 8),
-                 lambda: tT.decode_step(cfg, {}, {}, toks[:, :1])):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.14\.3"):
-            call()
+    p = tT.init_params(cfg, 0, device="cpu")
+    assert tT.init_cache(cfg, 1, 8 + cfg.patch_prefix,
+                         device="cpu")["pos"] == 0
+    logits, aux = tT.forward(cfg, p, batch)
+    assert torch.isfinite(logits).all() and torch.isfinite(aux)
+    lg, cache = tT.prefill(cfg, p, batch, 8 + cfg.patch_prefix)
+    assert cache["pos"] == 4 + cfg.patch_prefix
+    lg, cache = tT.decode_step(cfg, p, cache, toks[:, :1])
+    assert torch.isfinite(lg).all() and cache["pos"] == 5 + \
+        cfg.patch_prefix
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "granite-3-2b",
