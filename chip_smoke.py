@@ -323,7 +323,18 @@ Phases, each printing its own lines:
    and in float32 at ``[1024, 7168]`` (Mamba2's gated norm, on the
    kernel's two-pass path) (``ssm kernel``); the phase's seconds beside
    its ceiling of ``SSM_CEILING_S``;
-9. the kernels' JSON line (the 27 suite kernels, a row per hot-path
+9. the mesh path (``mesh_phase``): a process group of one rank (NCCL)
+   and a ``1x1`` ``(data, model)`` mesh; phase 6's train step under
+   ``use_mesh`` with ``shard_params``, every launch count set to 0 just
+   before and read just after (rmsnorm 4L + 1, flash_attention_tc 2L and
+   no other kernel), bit for bit the step without a mesh (``mesh
+   main``); ``compressed_psum`` over the group on the step's gradients,
+   timed (``mesh psum``); a checkpoint saved without a mesh restored
+   onto it bit for bit (``mesh restore``); the cost analysis of the step
+   on meta tensors, its argument bytes the card's (``mesh analysis``);
+   one dry-run cell on the 16x16 fake mesh in a child process (``mesh
+   dryrun``); the phase's seconds beside ``MESH_CEILING_S``;
+10. the kernels' JSON line (the 27 suite kernels, a row per hot-path
    call and dtype, named ``<kernel>/<call>/<dtype>``, a row per kernel of
    the LM path, ``<kernel>/lm_qwen2-0.5b/bfloat16``,
    ``<kernel>/lm_deepseek-moe-16b/bfloat16`` and
@@ -1995,8 +2006,8 @@ def moe_routing_check(cfg, params, toks, label, card) -> dict:
     seen = []
     real = moe._route
 
-    def route(c, p, xt):
-        out = real(c, p, xt)
+    def route(c, p, xt, **kw):
+        out = real(c, p, xt, **kw)
         gates = torch.softmax(dense(xt, p["router"],
                                     compute_dtype=torch.float32), dim=-1)
         seen.append((gates, out[1]))
@@ -2604,6 +2615,238 @@ def ssm_phase(dev) -> dict:
     print(f"phase 8: seconds={seconds} ceiling_s={SSM_CEILING_S} "
           f"card={card}")
     return rows
+
+
+#: phase 9's ceiling (s), printed beside its seconds
+MESH_CEILING_S = 60.0
+#: phase 9 (c): timed compressed_psum calls over the step's gradient tree
+PSUM_RUNS = 5
+#: phase 9 (c): a dequantized leaf's distance from its gradient, over its
+#: scale: a half step, widened by the float32 rounding of ``g / scale``
+#: as ``tests/test_property.py::test_quantize_bounded`` widens it
+PSUM_BOUND = 0.5 * 1.001
+#: phase 9 (f): the dry-run cell run in a child process
+DRYRUN_CELL = ("qwen2-0.5b", "decode_32k")
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor of nested dicts / tuples (a named tuple's
+    fields too)."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(tree_bytes(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, np.ndarray):
+        return tree.nbytes
+    return 0
+
+
+def mesh_phase(dev) -> None:
+    """Phase 9: the mesh path on the card.  (a) a process group of one
+    rank (NCCL, a file store in a temporary directory) and a ``1x1``
+    ``(data, model)`` mesh; (b) phase 6's train step (qwen2-0.5b at full
+    width and depth, 4 x 1,024 tokens, ``SEED``) under ``use_mesh`` with
+    ``shard_params`` - every launch count set to 0 just before and read
+    just after: rmsnorm 4L + 1 and flash_attention_tc 2L, no other kernel
+    - its loss, parameters and moments bit for bit the same step without
+    a mesh (or within the gap of two runs without one, printed, where
+    those differ); (c) ``compressed_psum`` over the group on the step's
+    gradients: each leaf's dequantized sum within ``PSUM_BOUND`` scales of
+    the gradient (float32, before the cast to the gradient's dtype, which
+    the reduced leaf equals bit for bit), the error feedback bit for bit
+    the residual rounded once, timed with CUDA events; (d) the parameters
+    saved without a mesh and restored onto it, bit for bit; (e) the cost
+    analysis of the same step on meta tensors: its argument bytes equal
+    the card's parameter, optimizer and batch bytes, its predicted peak
+    and bound step time beside the card's peak and wall; (f) one dry-run
+    cell (``DRYRUN_CELL`` on the 16x16 fake mesh) in a child process.  The
+    phase's seconds beside ``MESH_CEILING_S``."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed import compression
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as train_mod
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    tmp = tempfile.mkdtemp(prefix="mesh_phase_")
+    # (a) a group of one rank and a 1x1 mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = shd.make_mesh((1, 1), ("data", "model"), device="cuda")
+        cfg = registry.get(LM_ARCH)
+        L = cfg.num_layers
+        opt_cfg = adamw.AdamWConfig(total_steps=100, warmup_steps=5,
+                                    schedule=cfg.schedule,
+                                    state_dtype=cfg.opt_state_dtype)
+        per_step = {"rmsnorm": 4 * L + 1, "flash_attention_tc": 2 * L}
+        zero, counts = launch_counters()
+        batch = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                            seed=SEED).batch_at(0)
+        params = T.init_params(cfg, SEED, device=dev)
+        opt = adamw.init_state(opt_cfg, params)
+        step = train_mod.make_train_step(cfg, opt_cfg)
+
+        def leaves(p, o):
+            return adamw.tree_leaves(p) + adamw.tree_leaves(o.m) + \
+                adamw.tree_leaves(o.v)
+
+        # (b) two steps without a mesh, then the step under the mesh
+        plain = [step(params, opt, batch) for _ in range(2)]
+        gap = max(float((a.float() - b.float()).abs().max()) for a, b in zip(
+            leaves(*plain[0][:2]), leaves(*plain[1][:2]), strict=True))
+        gap = max(gap, abs(float(plain[0][2]["loss"])
+                           - float(plain[1][2]["loss"])))
+        with shd.use_mesh(mesh):
+            ps = shd.shard_params(params, mesh)
+            os_ = shd.shard_params(opt, mesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero()
+            t0 = time.perf_counter()
+            p2, o2, m2 = step(ps, os_, batch)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            totals = counts()
+            peak = torch.cuda.max_memory_allocated()
+        if totals != per_step:
+            raise AssertionError(f"mesh: the step launched {totals}, the "
+                                 f"path asks for {per_step}")
+        p1, o1, m1 = plain[0]
+        diff = max(float((a.float() - b.float()).abs().max()) for a, b in
+                   zip(leaves(p1, o1), leaves(p2, o2), strict=True))
+        diff = max(diff, abs(float(m1["loss"]) - float(m2["loss"])))
+        print(f"mesh main {cfg.name}: mesh=1x1 (data, model) group=nccl/1 "
+              f"batch={TRAIN_BATCH}x{TRAIN_SEQ} loss={float(m2['loss'])} "
+              f"plain_loss={float(m1['loss'])} max_diff={diff} "
+              f"gap_of_two_plain_runs={gap} launches={totals} "
+              f"wall_s={wall_s} max_memory_allocated_bytes={peak} "
+              f"card={card}")
+        if diff > gap:
+            raise AssertionError(f"mesh: the step under the 1x1 mesh is "
+                                 f"{diff} from the step without it, two "
+                                 f"steps without it {gap}")
+        del plain, p2, o2, os_, ps
+        torch.cuda.empty_cache()
+
+        # (c) compressed_psum over the group on the step's gradients
+        _, grads = train_mod.value_and_grad(train_mod.make_loss(cfg),
+                                            params, batch)
+        red, err = compression.compressed_psum(grads, dist.group.WORLD)
+        worst, nbytes = 0.0, 0
+        for g, r, e in zip(adamw.tree_leaves(grads), adamw.tree_leaves(red),
+                           adamw.tree_leaves(err), strict=True):
+            # one rank: the group's scale is the leaf's own, the sum q
+            gf = g.float()
+            q, scale = compression.quantize(gf)
+            resid = (gf.double() - q.double() * scale.double()).float()
+            if not torch.equal(e, resid):
+                raise AssertionError("mesh psum: the error feedback is not "
+                                     "the residual's bits")
+            if not torch.equal(r, (q.to(torch.int32).float() * scale
+                                   / 1).to(g.dtype)):
+                raise AssertionError("mesh psum: the reduced leaf is not "
+                                     "its dequantized sum's bits")
+            off = float((compression.dequantize(q, scale) - gf).abs().max())
+            if not off <= PSUM_BOUND * float(scale):
+                raise AssertionError(f"mesh psum: a leaf's dequantized sum "
+                                     f"lies {off} from its gradient, beyond "
+                                     f"{PSUM_BOUND} x scale")
+            worst = max(worst, off / float(scale))
+            nbytes += g.numel() * g.element_size()
+        times = []
+        for _ in range(PSUM_RUNS + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            compression.compressed_psum(grads, dist.group.WORLD, err)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        comp, full = compression.dcn_bytes(grads)
+        print(f"mesh psum: leaves={len(adamw.tree_leaves(grads))} "
+              f"grad_bytes={nbytes} int8_bytes={comp} fp32_bytes={full} "
+              f"worst_err_over_scale={worst} "
+              f"ms={statistics.median(times[1:])} card={card}")
+        del grads, red, err
+
+        # (d) saved without a mesh, restored onto it
+        mgr = CheckpointManager(os.path.join(tmp, "ckpt"))
+        mgr.save(1, params, blocking=True)
+        restored, _ = mgr.restore(params, mesh=mesh)
+        if not all(torch.equal(a, b) for a, b in zip(
+                adamw.tree_leaves(params), adamw.tree_leaves(restored),
+                strict=True)):
+            raise AssertionError("mesh: the restore onto the mesh is not "
+                                 "the saved parameters bit for bit")
+        print(f"mesh restore: leaves={len(adamw.tree_leaves(params))} "
+              f"bytes={tree_bytes(params)} bits=equal card={card}")
+        del restored
+
+        # (e) the cost analysis of the same step on meta tensors
+        card_args = tree_bytes(params) + tree_bytes(opt) + tree_bytes(batch)
+        meta_p = T.abstract_params(cfg)
+        meta_b = {"tokens": torch.empty(TRAIN_BATCH, TRAIN_SEQ,
+                                        dtype=torch.int32, device="meta")}
+        phases = dryrun.train_phases(cfg, opt_cfg, meta_p,
+                                     adamw.init_state(opt_cfg, meta_p),
+                                     meta_b)
+        costs, mem = dryrun.run_phases(phases, None, None, 1)
+        if mem["argument_bytes"] != card_args:
+            raise AssertionError(f"mesh analysis: argument bytes "
+                                 f"{mem['argument_bytes']} against the "
+                                 f"card's {card_args}")
+        bound_s = max(costs.flops / dryrun.PEAK_FLOPS,
+                      costs.bytes / dryrun.HBM_BW)
+        print(f"mesh analysis {cfg.name}: argument_bytes="
+              f"{mem['argument_bytes']} card_argument_bytes={card_args} "
+              f"flops={costs.flops} bytes={costs.bytes} "
+              f"predicted_peak_bytes={mem['peak_bytes']} "
+              f"card_peak_bytes={peak} bound_step_s={bound_s} "
+              f"card_wall_s={wall_s} (derived from counts and datasheet "
+              f"peaks) card={card}")
+        del params, opt
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # (f) one dry-run cell on the 16x16 fake mesh, in a child process
+    arch, shape = DRYRUN_CELL
+    out = os.path.join(tmp, "dryrun")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", out],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC)),
+        capture_output=True, text=True, timeout=300)
+    cell_s = time.perf_counter() - t0
+    path = os.path.join(out, f"{arch}_{shape}_16x16.json")
+    if r.returncode != 0 or not os.path.exists(path):
+        raise AssertionError(f"mesh dryrun: exit {r.returncode} "
+                             f"{r.stderr[-2000:]}")
+    with open(path) as f:
+        rec = json.load(f)
+    if rec["status"] != "ok":
+        raise AssertionError(f"mesh dryrun: {rec.get('error')}")
+    print(f"mesh dryrun {arch} {shape} 16x16: status={rec['status']} "
+          f"seconds={cell_s} peak_per_chip_gb="
+          f"{rec['memory']['peak_per_chip_gb']} dominant="
+          f"{rec['roofline']['dominant']} replicated_work="
+          f"{rec['replicated_work']} (derived)")
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 9: seconds={seconds} ceiling_s={MESH_CEILING_S} "
+          f"card={card}")
 
 
 def layer_us(entry, args: dict, dev, api, carry, kern, n=512) -> dict:
@@ -3692,6 +3935,9 @@ def main() -> int:
 
     # ---- phase 8: the state-space mixers at full width and depth --------
     rows.update(ssm_phase(dev))
+
+    # ---- phase 9: the mesh path: a 1x1 mesh, compression, the dry run --
+    mesh_phase(dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

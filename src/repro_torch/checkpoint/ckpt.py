@@ -18,9 +18,13 @@ a sequence index as itself, a named-tuple field as ``.field`` - so
 ``1_.m_embed_tok``, ...  and a checkpoint either side wrote restores on
 the other.  A bfloat16 leaf is stored as its 16-bit patterns (2-byte
 void items, as NumPy saves ``ml_dtypes``' bfloat16) with ``bfloat16`` in
-the manifest, so neither side needs ``ml_dtypes``.  Leaves are stored
-whole; the port has no mesh (ROADMAP 1.14.5), and ``restore`` refuses
-one.
+the manifest, so neither side needs ``ml_dtypes``.
+
+Leaves are stored whole: ``save`` gathers a DTensor leaf
+(``full_tensor``, a collective every rank joins) and rank 0 writes.
+``restore(mesh=)`` reads the whole and shards it onto the mesh it is
+given by ``distributed.sharding``'s parameter rules - any mesh, not only
+the saver's (the reference's elastic restore).
 """
 from __future__ import annotations
 
@@ -77,6 +81,8 @@ def _to_host(leaf) -> tuple[np.ndarray, str]:
     """``(array, manifest dtype)``: a bfloat16 tensor's 16-bit patterns as
     2-byte void items."""
     if isinstance(leaf, torch.Tensor):
+        if hasattr(leaf, "full_tensor"):          # a DTensor: gather it
+            leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             bits = t.view(torch.int16).numpy()
@@ -99,6 +105,17 @@ def _from_host(arr: np.ndarray, dtype: str, like) -> torch.Tensor:
     return t
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -110,14 +127,21 @@ class CheckpointManager:
     # ------------------------------------------------------------------
     def save(self, step: int, tree: Any, extra: Optional[dict] = None,
              blocking: bool = False):
-        """Snapshot to host, then write asynchronously."""
+        """Snapshot to host, then write asynchronously.  In a process group
+        every rank calls it (DTensor leaves are gathered) and rank 0
+        writes; ``blocking`` then waits for every rank."""
         host = [(n, *_to_host(leaf)) for n, leaf in _leaf_paths(tree)]
+        if _rank() != 0:
+            if blocking:
+                _barrier()
+            return
         self.wait()
         self._thread = threading.Thread(
             target=self._write, args=(step, host, extra or {}), daemon=True)
         self._thread.start()
         if blocking:
             self.wait()
+            _barrier()
 
     def wait(self):
         if self._thread is not None:
@@ -187,11 +211,8 @@ class CheckpointManager:
     def restore(self, template: Any, step: Optional[int] = None,
                 mesh=None) -> tuple[Any, dict]:
         """Restore into the structure of ``template``: each leaf a tensor
-        of the template leaf's dtype on its device."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "restore onto a mesh: the port has none yet (ROADMAP "
-                "1.14.5)")
+        of the template leaf's dtype on its device; with ``mesh``, sharded
+        onto it by the parameter rules (``sharding.shard_params``)."""
         step = step if step is not None else self.latest_valid()
         if step is None:
             raise FileNotFoundError(f"no valid checkpoint in {self.dir}")
@@ -204,4 +225,8 @@ class CheckpointManager:
             meta = manifest["leaves"][name]
             arr = np.load(os.path.join(path, meta["file"]))
             leaves.append(_from_host(arr, meta["dtype"], like))
-        return _rebuild(template, iter(leaves)), manifest["extra"]
+        tree = _rebuild(template, iter(leaves))
+        if mesh is not None:
+            from repro_torch.distributed.sharding import shard_params
+            tree = shard_params(tree, mesh)
+        return tree, manifest["extra"]

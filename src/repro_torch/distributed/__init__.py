@@ -1,3 +1,4 @@
-"""Host-side fault tolerance of the LM stack, as ``repro.distributed``:
-``ft`` (heartbeats and the straggler monitor).  ``sharding`` and
-``compression`` come with ROADMAP 1.14.5."""
+"""The LM stack's distributed parts, as ``repro.distributed``: ``ft``
+(heartbeats and the straggler monitor), ``sharding`` (logical-axis rules
+over DeviceMesh and DTensor) and ``compression`` (int8 gradient reduce
+with error feedback)."""

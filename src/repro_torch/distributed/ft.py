@@ -11,9 +11,9 @@ clocks and wired into launch/train.py:
   mitigation is the *paper's own knob*: reduce the fetch grain so trailing
   workers steal finer-grained work (SIV-A inverted - average fetching is the
   straggler-tolerant end of the trade-off);
-* ``Elastic restart`` - the reference restores onto another mesh through
-  checkpoint/ckpt.py + sharding.param_specs; the port has no mesh yet
-  (ROADMAP 1.14.5), and its checkpoints hold whole tensors.
+* ``Elastic restart`` - a checkpoint restores onto another mesh through
+  checkpoint/ckpt.py (``restore(mesh=)``) + sharding.param_specs; its
+  leaves are stored whole.
 """
 from __future__ import annotations
 

@@ -21,6 +21,13 @@ chunked passes in plain torch (the reference's is plain jnp, not Pallas),
 ``p`` recomputed from ``lse``.  :func:`flash_attention` and
 :func:`_flash_fwd_lse` are the reference's chunked jnp forward as plain
 torch: the oracle the tests hold the rest to.
+
+Under a mesh, ``q``, ``k`` and ``v`` are constrained to ``("batch", "seq",
+"heads", None)`` as the reference's are, and the kernel (forward and
+backward) runs on each device's batch and head shards
+(``sharding.local_call``); where ``Hkv`` does not divide the model axis
+and ``Hq`` does, the query heads are made whole too, so that every shard
+holds its queries' kv heads.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.common import _work_dtype, dense, rope, uniform_init
@@ -84,11 +92,18 @@ def _slot_mask(dummy: torch.Tensor, hd: int, dtype, device) -> torch.Tensor:
 def _project_qkv(cfg: ModelConfig, plan: PadPlan, p, x, positions):
     B, S, _ = x.shape
     hd = cfg.hd
-    q = dense(x, p["wq"], p.get("bq"), cfg.cdtype).reshape(B, S, plan.hq_p, hd)
-    k = dense(x, p["wk"], p.get("bk"), cfg.cdtype).reshape(B, S, plan.hkv_p, hd)
-    v = dense(x, p["wv"], p.get("bv"), cfg.cdtype).reshape(B, S, plan.hkv_p, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q = shd.reshape(dense(x, p["wq"], p.get("bq"), cfg.cdtype),
+                    B, S, plan.hq_p, hd)
+    k = shd.reshape(dense(x, p["wk"], p.get("bk"), cfg.cdtype),
+                    B, S, plan.hkv_p, hd)
+    v = shd.reshape(dense(x, p["wv"], p.get("bv"), cfg.cdtype),
+                    B, S, plan.hkv_p, hd)
+    positions = shd.like_batch(positions, q)
+    q = shd.local_call(rope, q, positions, cfg.rope_theta, keep=(0, 1, 2))
+    k = shd.local_call(rope, k, positions, cfg.rope_theta, keep=(0, 1, 2))
+    q = shd.constrain(q, "batch", "seq", "heads", None)
+    k = shd.constrain(k, "batch", "seq", "heads", None)
+    v = shd.constrain(v, "batch", "seq", "heads", None)
     return q, k, v
 
 
@@ -258,12 +273,33 @@ def attend_heads(q, k, v, *, causal=True, q_chunk=512, kv_chunk=1024,
                  mode=None):
     """Attention in the kernels' layout (q ``[B, H, Sq, d]``, k, v ``[B,
     Hkv, Skv, d]``, contiguous) through ``ops.flash_attention``; inside
-    :class:`FlashAttentionFn` when a gradient is asked for."""
+    :class:`FlashAttentionFn` when a gradient is asked for.  DTensors run
+    shard by shard (:func:`_on_shards`)."""
+    if isinstance(q, shd.DTensor):
+        return _on_shards(attend_heads, q, k, v, causal=causal,
+                          q_chunk=q_chunk, kv_chunk=kv_chunk, mode=mode)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, causal, q_chunk, kv_chunk,
                                       _kernel_fwd(mode))
     return ops.flash_attention(q, k, v, causal=causal, mode=mode,
                                q_blk=q.shape[2], kv_blk=k.shape[2])
+
+
+def _on_shards(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)`` for DTensors q, k, v in the kernels' layout,
+    run on each device's shards: a mesh dim keeps its split only where it
+    splits the batch or the heads of all three alike, and is made whole
+    elsewhere (``sharding.local_call``).  The one place where attention's
+    DTensors become the plain tensors the kernels take."""
+    want = [p if p.is_shard() and p.dim in (0, 1)
+            and p == pk == pv else shd.Replicate()
+            for p, pk, pv in zip(q.placements, k.placements, v.placements,
+                                 strict=True)]
+
+    def to(t):
+        return (t if list(t.placements) == want
+                else t.redistribute(t.device_mesh, want))
+    return shd.local_call(fn, to(q), to(k), to(v), keep=(0, 1), **kw)
 
 
 def flash_attention_trainable(q, k, v, *, causal=True, q_chunk=512,
@@ -300,7 +336,7 @@ def _output(cfg: ModelConfig, plan: PadPlan, p, out):
     out = out.transpose(1, 2)
     if not all(plan.head_mask):
         mask = _head_mask(plan.head_mask, out.dtype, out.device)
-        out = out * mask[None, None, :, None]
+        out = out * shd.whole_like(mask, out)[None, None, :, None]
     return dense(out.reshape(B, S, plan.hq_p * hd), p["wo"],
                  compute_dtype=cfg.cdtype)
 
@@ -319,7 +355,8 @@ def attend_full(cfg: ModelConfig, plan: PadPlan, p, x, positions, *,
     out = attend_heads(_heads_first(q), _heads_first(k), _heads_first(v),
                        causal=True, q_chunk=cfg.q_chunk,
                        kv_chunk=cfg.kv_chunk, mode=mode)
-    return _output(cfg, plan, p, out), (k, v)
+    y = shd.constrain(_output(cfg, plan, p, out), "batch", "seq", None)
+    return y, (k, v)
 
 
 def attend_decode(cfg: ModelConfig, plan: PadPlan, p, x1, k_cache, v_cache,
@@ -337,10 +374,13 @@ def attend_decode(cfg: ModelConfig, plan: PadPlan, p, x1, k_cache, v_cache,
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x1.device)
     q, k1, v1 = _project_qkv(cfg, plan, p, x1, positions)
     at, kv_len = min(pos, Smax - 1), min(pos + 1, Smax)
-    k_cache[:, at] = k1[:, 0].to(k_cache.dtype)
-    v_cache[:, at] = v1[:, 0].to(v_cache.dtype)
+    shd.assign(k_cache, (slice(None), at), k1[:, 0].to(k_cache.dtype))
+    shd.assign(v_cache, (slice(None), at), v1[:, 0].to(v_cache.dtype))
+    qq = _heads_first(q)
     kk = _heads_first(k_cache[:, :kv_len])
     vv = _heads_first(v_cache[:, :kv_len])
-    out = ops.flash_attention(_heads_first(q), kk, vv, causal=False,
-                              mode=mode, q_blk=1, kv_blk=kv_len)
+    decode = functools.partial(ops.flash_attention, causal=False, mode=mode,
+                               q_blk=1, kv_blk=kv_len)
+    out = (_on_shards(decode, qq, kk, vv) if isinstance(qq, shd.DTensor)
+           else decode(qq, kk, vv))
     return _output(cfg, plan, p, out), k_cache, v_cache

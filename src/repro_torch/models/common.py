@@ -7,6 +7,11 @@ asks for (``ops.MODES``); under autograd its gradient is the plain
 float32 formula's (:class:`RMSNormFn`).  The projections stay
 ``torch.matmul``, as the reference's are ``jnp.einsum`` outside any
 Pallas kernel.
+
+Under a mesh (``distributed.sharding``) the stream is a DTensor:
+:func:`rmsnorm` and :func:`cross_entropy` run on its local shards
+(``sharding.local_call``, every dim but the last kept split), the
+products go through DTensor's own sharding rules.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import functools
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 
 
@@ -58,7 +64,12 @@ def rmsnorm(x, scale, eps=1e-5, *, mode=None):
     """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` over the last axis in
     float32, in ``x``'s dtype: the stream as a contiguous ``[rows, D]``
     (the only layout the kernel takes) through ``ops.rmsnorm``, inside
-    :class:`RMSNormFn` when a gradient is asked for."""
+    :class:`RMSNormFn` when a gradient is asked for.  A DTensor stream
+    is normalised shard by shard, its rows' splits kept."""
+    if isinstance(x, shd.DTensor):
+        return shd.local_call(rmsnorm, x, scale, eps,
+                              keep=tuple(range(x.dim() - 1)), whole=(1,),
+                              mode=mode)
     rows = x.reshape(-1, x.shape[-1]).contiguous()
     fwd = functools.partial(ops.rmsnorm, mode=mode)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
@@ -91,7 +102,21 @@ def cross_entropy(logits, targets, mask=None, real_vocab=None):
     """Mean next-token cross-entropy in float32 over ``logits[..., Vp]``;
     the padded vocabulary past ``real_vocab`` gets ``-1e9`` added, as the
     reference adds it.  With ``mask``, the mean over its nonzero places
-    (at least one)."""
+    (at least one).  DTensor logits are taken shard by shard over the
+    batch and sequence (the vocabulary made whole), then averaged."""
+    nll = shd.local_call(_nll, logits, shd.like_batch(
+        torch.as_tensor(targets, device=logits.device), logits)
+        if not isinstance(targets, shd.DTensor) else targets,
+        real_vocab, keep=(0, 1))
+    if mask is None:
+        return nll.mean()
+    mask = shd.like_batch(
+        torch.as_tensor(mask, device=logits.device).float(), nll)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _nll(logits, targets, real_vocab):
+    """Each place's negative log-likelihood of its target, in float32."""
     logits = logits.float()
     vp = logits.shape[-1]
     if real_vocab is not None and real_vocab < vp:
@@ -101,11 +126,7 @@ def cross_entropy(logits, targets, mask=None, real_vocab=None):
     targets = torch.as_tensor(targets, device=logits.device).long()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
-    nll = lse - gold
-    if mask is None:
-        return nll.mean()
-    mask = torch.as_tensor(mask, device=logits.device).float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return lse - gold
 
 
 def dense(x, w, b=None, compute_dtype=None):
@@ -116,10 +137,20 @@ def dense(x, w, b=None, compute_dtype=None):
     return y
 
 
+class MetaDraws:
+    """Stands in for a ``torch.Generator`` on the meta device, where
+    nothing is drawn (``transformer.abstract_params``)."""
+    device = torch.device("meta")
+
+
 def uniform_init(gen: torch.Generator, shape, scale, dtype):
     """Uniform in ``[-scale / sqrt(fan_in), scale / sqrt(fan_in))``, drawn
     in float32 from ``gen`` on its device, then cast to ``dtype``.
-    ``fan_in`` is ``shape[-2]`` (``shape[-1]`` for a vector)."""
+    ``fan_in`` is ``shape[-2]`` (``shape[-1]`` for a vector).  A ``gen``
+    on the meta device (:class:`MetaDraws`) draws nothing: an empty meta
+    tensor of the shape and dtype."""
+    if gen.device.type == "meta":           # shapes only: nothing drawn
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     bound = scale / (fan_in ** 0.5)
     u = torch.rand(shape, generator=gen, dtype=torch.float32,

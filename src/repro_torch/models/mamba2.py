@@ -28,6 +28,12 @@ forward's values are the reference's, bit for bit, and the gradient is
 The scan is plain torch, as the reference's is jnp outside any Pallas
 kernel; the gated norm is :func:`~repro_torch.models.common.rmsnorm` (the
 hand-written kernel on the card).
+
+Under a mesh the split, the conv and the chunk scan (no DTensor sharding
+rule for the chunked form) run on each device's batch rows with their
+small parameters made whole (``sharding.local_call``); the projections
+and the gated norm are DTensor ops, and the output is constrained where
+the reference constrains it.
 """
 from __future__ import annotations
 
@@ -35,6 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.common import dense, rmsnorm, silu, uniform_init
 
 
@@ -128,14 +136,31 @@ def mamba_full(cfg: ModelConfig, p, x, state=None, *, mode=None):
     ``conv_state`` is the last ``conv_dim - 1`` rows of the conv's input,
     or all ``S`` of them when the prompt is shorter (the reference's
     slice; a decode step then refuses the state, as the reference's)."""
+    zxbcdt = dense(x, p["in_proj"], compute_dtype=cfg.cdtype)
+    y, z, conv_state, Sprev = shd.local_call(
+        _ssd_full, cfg, _small(p), zxbcdt, state, keep=(0,), out_like=2,
+        whole=(1,))
+    out = _gate_out(cfg, p, y, z, mode)
+    return constrain(out, "batch", "seq", None), (conv_state, Sprev)
+
+
+#: the mixer's small parameters, replicated under a mesh
+_SMALL = ("conv_w", "conv_b", "A_log", "dt_bias", "D_skip")
+
+
+def _small(p) -> dict:
+    return {k: p[k] for k in _SMALL}
+
+
+def _ssd_full(cfg: ModelConfig, p, zxbcdt, state):
+    """The split, conv and chunk scan of :func:`mamba_full`: ``(y, z,
+    conv_state, final ssm state)``."""
     s = cfg.ssm
     d_inner, H, conv_ch, _ = dims(cfg)
     G, Hg = s.ngroups, H // s.ngroups
-    B_, S_, D = x.shape
+    B_, S_, _ = zxbcdt.shape
     c = s.chunk if S_ % s.chunk == 0 else S_
     nc = S_ // c
-
-    zxbcdt = dense(x, p["in_proj"], compute_dtype=cfg.cdtype)
     z, xBC, dt_raw = _split_proj(cfg, zxbcdt)
     xBC_in = xBC.float()
     xBC = _conv_full(p, xBC_in, s.conv_dim)
@@ -148,7 +173,8 @@ def mamba_full(cfg: ModelConfig, p, x, state=None, *, mode=None):
 
     xs_c, B_c, C_c, dt_c = map(by_chunk, (xs, Bm, Cm, dt))
     cum = torch.cumsum(by_chunk(dA), dim=2)                  # [B,n,c,G,Hg]
-    tril = torch.tril(torch.ones(c, c, dtype=torch.bool, device=x.device))
+    tril = torch.tril(torch.ones(c, c, dtype=torch.bool,
+                                 device=zxbcdt.device))
     # intra: Y[t] = sum_{i<=t} exp(cum_t - cum_i) (C_t.B_i) dt_i x_i; the
     # exponent masked before exp too, so no inf meets the mask's 0 in the
     # backward (the reference's 0 * inf = NaN)
@@ -166,7 +192,7 @@ def mamba_full(cfg: ModelConfig, p, x, state=None, *, mode=None):
     decay = torch.exp(cum[:, :, -1])[..., None, None]        # [B,n,G,Hg,1,1]
     # the scan: the state entering each chunk
     Sprev = (torch.zeros(B_, G, Hg, s.state_dim, s.head_dim,
-                         dtype=torch.float32, device=x.device)
+                         dtype=torch.float32, device=zxbcdt.device)
              if state is None else state.float())
     entering = []
     for n in range(nc):
@@ -177,20 +203,26 @@ def mamba_full(cfg: ModelConfig, p, x, state=None, *, mode=None):
                          torch.stack(entering, 1)) * torch.exp(cum)[..., None]
     y = y + p["D_skip"].reshape(G, Hg)[None, None, None, :, :, None] * xs_c
     y = y.reshape(B_, S_, d_inner)
-    out = _gate_out(cfg, p, y, z, mode)
-
-    conv_state = xBC_in[:, -(s.conv_dim - 1):, :]
-    return out, (conv_state, Sprev)
+    return y, z, xBC_in[:, -(s.conv_dim - 1):, :], Sprev
 
 
 def mamba_step(cfg: ModelConfig, p, x1, conv_state, ssm_state, *,
                mode=None):
     """Decode one token. x1: [B,1,D] -> (y1, conv_state, ssm_state)."""
+    zxbcdt = dense(x1, p["in_proj"], compute_dtype=cfg.cdtype)
+    y, z, window, ssm_state = shd.local_call(
+        _ssd_token, cfg, _small(p), zxbcdt, conv_state, ssm_state,
+        keep=(0,), out_like=2, whole=(1,))
+    return _gate_out(cfg, p, y, z, mode), window[:, 1:], ssm_state
+
+
+def _ssd_token(cfg: ModelConfig, p, zxbcdt, conv_state, ssm_state):
+    """One token's split, conv and state update: ``(y1, z, conv window,
+    ssm state)``."""
     s = cfg.ssm
     d_inner, H, conv_ch, _ = dims(cfg)
     G, Hg = s.ngroups, H // s.ngroups
-    B_ = x1.shape[0]
-    zxbcdt = dense(x1, p["in_proj"], compute_dtype=cfg.cdtype)
+    B_ = zxbcdt.shape[0]
     z, xBC, dt_raw = _split_proj(cfg, zxbcdt)
     window = torch.cat([conv_state, xBC.float()], dim=1)
     conv = torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"]
@@ -205,5 +237,4 @@ def mamba_step(cfg: ModelConfig, p, x1, conv_state, ssm_state, *,
                  * xf[:, :, :, None, :])
     y = torch.einsum("bgN,bghNp->bghp", Cf, ssm_state) \
         + p["D_skip"].reshape(G, Hg)[None, :, :, None] * xf
-    y = y.reshape(B_, 1, d_inner)
-    return _gate_out(cfg, p, y, z, mode), window[:, 1:], ssm_state
+    return y.reshape(B_, 1, d_inner), z, window, ssm_state

@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.common import dense, silu, uniform_init
 
 
@@ -18,4 +19,6 @@ def init_mlp_params(gen: torch.Generator, d_model, d_ff, dtype):
 def mlp_block(cfg: ModelConfig, p, x):
     h = silu(dense(x, p["w_gate"], compute_dtype=cfg.cdtype)) * dense(
         x, p["w_up"], compute_dtype=cfg.cdtype)
-    return dense(h, p["w_down"], compute_dtype=cfg.cdtype)
+    h = constrain(h, "batch", "seq", "tp")
+    y = dense(h, p["w_down"], compute_dtype=cfg.cdtype)
+    return constrain(y, "batch", "seq", None)

@@ -24,6 +24,14 @@ tokens capacity drops:
   of range), and each token's k contributions are added in the order of
   their places in the sorted array, the order JAX's CPU scatter-add
   applies them (``index_add_`` on CUDA has no fixed order).
+
+Under a mesh the groups are constrained to ``"batch"`` and the experts'
+slots to ``"expert"``, as the reference's are; the routing, the dispatch
+and the combine (sorts, scatters and one-hot counts, which have no
+DTensor sharding rule) run on each device's groups
+(``sharding.local_call``, the router made whole), and the expert
+products on DTensors.  The load-balance term is then taken from each
+group's mean counts and gates, averaged over the groups.
 """
 from __future__ import annotations
 
@@ -32,6 +40,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import index
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.common import dense, silu, uniform_init
 from repro_torch.models.mlp import init_mlp_params, mlp_block
 
@@ -64,10 +74,16 @@ def _capacity(group, top_k, num_experts, factor):
 def _expert_ffn(cfg, p, xe):
     """xe: [G, E, C, D] -> [G, E, C, D] through every expert's SwiGLU."""
     w = p["experts"]
-    h = silu(torch.einsum("gecd,edf->gecf", xe,
-                          w["w_gate"].to(cfg.cdtype))) * \
-        torch.einsum("gecd,edf->gecf", xe, w["w_up"].to(cfg.cdtype))
-    return torch.einsum("gecf,efd->gecd", h, w["w_down"].to(cfg.cdtype))
+    # DTensor weights are gathered over their FSDP dim first (the expert
+    # and ff splits kept), as the products need
+    wg, wu = (shd.keep_split(w[k], (0, 2)) for k in ("w_gate", "w_up"))
+    wd = shd.keep_split(w["w_down"], (0, 1))
+    xe = constrain(xe, "batch", "expert", None, None)
+    h = silu(torch.einsum("gecd,edf->gecf", xe, wg.to(cfg.cdtype))) * \
+        torch.einsum("gecd,edf->gecf", xe, wu.to(cfg.cdtype))
+    h = constrain(h, "batch", "expert", None, "tp")
+    ye = torch.einsum("gecf,efd->gecd", h, wd.to(cfg.cdtype))
+    return constrain(ye, "batch", "expert", None, None)
 
 
 def top_k(gates, k):
@@ -77,24 +93,30 @@ def top_k(gates, k):
     return vals[..., :k], idx[..., :k]
 
 
-def _route(cfg, p, xt):
-    """xt: [G, gs, D] -> (top_w, top_idx [G, gs, k], aux)."""
+def _route(cfg, p, xt, stats=False):
+    """xt: [G, gs, D] -> (top_w, top_idx [G, gs, k], aux); with
+    ``stats``, in place of aux each group's mean first-choice counts and
+    mean gates, ``[G, E]`` each."""
     m = cfg.moe
     logits = dense(xt, p["router"], compute_dtype=torch.float32)
     gates = torch.softmax(logits, dim=-1)                    # [G, gs, E]
     top_w, top_idx = top_k(gates, m.top_k)                   # [G, gs, k]
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
-    f = F.one_hot(top_idx[..., 0], m.num_experts).float().mean((0, 1))
+    first = F.one_hot(top_idx[..., 0], m.num_experts).float()
+    if stats:
+        return top_w, top_idx, (first.mean(1), gates.mean(1))
+    f = first.mean((0, 1))
     aux = m.num_experts * torch.sum(f * gates.mean((0, 1)))
     return top_w, top_idx, aux
 
 
-def _einsum_moe(cfg, p, xt, C):
-    """GShard one-hot dispatch over [G, gs, E, C] (baseline)."""
+def _einsum_dispatch(cfg, p, xt, C):
+    """The one-hot dispatch: ``(xe [G, E, C, D], combine, stats)``, the
+    stats :func:`_route`'s per group."""
     m = cfg.moe
     G, gs, D = xt.shape
     E, dev = m.num_experts, xt.device
-    top_w, top_idx, aux = _route(cfg, p, xt)
+    top_w, top_idx, stats = _route(cfg, p, xt, stats=True)
     running = torch.zeros((G, 1, E), dtype=torch.long, device=dev)
     dispatch = torch.zeros((G, gs, E, C), dtype=xt.dtype, device=dev)
     combine = torch.zeros((G, gs, E, C), dtype=torch.float32, device=dev)
@@ -108,10 +130,17 @@ def _einsum_moe(cfg, p, xt, C):
         combine = combine + top_w[..., j, None, None] * slot.float()
         running = running + oh.sum(1, keepdim=True)
     xe = torch.einsum("gtec,gtd->gecd", dispatch, xt)        # [G, E, C, D]
-    ye = _expert_ffn(cfg, p, xe)
-    yt = torch.einsum("gtec,gecd->gtd", combine.to(cfg.cdtype),
-                      ye.to(cfg.cdtype))
-    return yt, aux
+    return xe, combine, stats
+
+
+def _einsum_combine(cfg, ye, combine):
+    return torch.einsum("gtec,gecd->gtd", combine.to(cfg.cdtype),
+                        ye.to(cfg.cdtype))
+
+
+def _einsum_moe(cfg, p, xt, C):
+    """GShard one-hot dispatch over [G, gs, E, C] (baseline)."""
+    return _moe(cfg, p, xt, C, _einsum_dispatch, _einsum_combine)
 
 
 def _ordered_token_sum(contrib, order, gs, k, dtype):
@@ -130,12 +159,14 @@ def _ordered_token_sum(contrib, order, gs, k, dtype):
     return yt
 
 
-def _sort_moe(cfg, p, xt, C):
-    """Sort-based dispatch: one flat gather / scatter."""
+def _sort_dispatch(cfg, p, xt, C):
+    """Sort-based dispatch, one flat gather / scatter: ``(xe [G, E, C,
+    D], (slot, keep, sw, order), stats)``, the stats :func:`_route`'s per
+    group."""
     m = cfg.moe
     G, gs, D = xt.shape
     E, k, dev = m.num_experts, m.top_k, xt.device
-    top_w, top_idx, aux = _route(cfg, p, xt)
+    top_w, top_idx, stats = _route(cfg, p, xt, stats=True)
     flat_e = top_idx.reshape(G, gs * k)
     flat_w = top_w.reshape(G, gs * k)
     flat_tok = torch.arange(gs, device=dev).repeat_interleave(k).expand(
@@ -153,10 +184,38 @@ def _sort_moe(cfg, p, xt, C):
     gathered = xt.gather(1, stok[..., None].expand(G, gs * k, D))
     xe = index.put(torch.zeros((G, E * C, D), dtype=xt.dtype, device=dev),
                    (gidx, slot), gathered).reshape(G, E, C, D)
-    ye = _expert_ffn(cfg, p, xe).reshape(G, E * C, D)
-    at = torch.clamp(slot, max=E * C - 1)[..., None].expand(G, gs * k, D)
+    return xe, (slot, keep, sw, order), stats
+
+
+def _sort_combine(cfg, ye, ctx):
+    """Each token's experts' outputs back in its place, by weight."""
+    slot, keep, sw, order = ctx
+    G, E, C, D = ye.shape
+    gs = order.shape[1] // cfg.moe.top_k
+    ye = ye.reshape(G, E * C, D)
+    at = torch.clamp(slot, max=E * C - 1)[..., None].expand(
+        G, gs * cfg.moe.top_k, D)
     contrib = ye.gather(1, at) * (sw * keep).to(cfg.cdtype)[..., None]
-    return _ordered_token_sum(contrib, order, gs, k, cfg.cdtype), aux
+    return _ordered_token_sum(contrib, order, gs, cfg.moe.top_k, cfg.cdtype)
+
+
+def _sort_moe(cfg, p, xt, C):
+    """Sort-based dispatch: one flat gather / scatter."""
+    return _moe(cfg, p, xt, C, _sort_dispatch, _sort_combine)
+
+
+def _moe(cfg, p, xt, C, dispatch, combine):
+    """``(yt, aux)``: ``dispatch``, the experts, ``combine``.  DTensor
+    groups are dispatched and combined shard by shard (module docstring;
+    plain groups in one plain call each); aux is taken from each group's
+    mean first-choice counts and gates, averaged over the groups."""
+    xe, ctx, (f_g, gm_g) = shd.local_call(
+        dispatch, cfg, {"router": p["router"]}, xt, C, keep=(0,),
+        out_like=2, whole=(1,))
+    ye = shd.keep_split(_expert_ffn(cfg, p, xe), (0,))
+    yt = shd.local_call(combine, cfg, ye, ctx, keep=(0,), out_like=1)
+    aux = cfg.moe.num_experts * torch.sum(f_g.mean(0) * gm_g.mean(0))
+    return yt, aux
 
 
 def group_of(m, tokens: int) -> tuple[int, int]:
@@ -174,10 +233,10 @@ def moe_block(cfg: ModelConfig, p, x):
     m = cfg.moe
     B, S, D = x.shape
     gs, C = group_of(m, B * S)
-    xt = x.reshape(B * S // gs, gs, D)
+    xt = constrain(shd.reshape(x, B * S // gs, gs, D), "batch", None, None)
     fn = _sort_moe if m.dispatch == "sort" else _einsum_moe
     yt, aux = fn(cfg, p, xt, C)
-    y = yt.reshape(B, S, D)
+    y = shd.reshape(yt, B, S, D)
     if m.num_shared:
         y = y + mlp_block(cfg, p["shared"], x)
-    return y, aux
+    return constrain(y, "batch", "seq", None), aux

@@ -16,12 +16,20 @@ Everything here is plain torch, as the reference's is jnp outside any
 Pallas kernel.  :func:`_head_norm` normalises each head and scales by the
 ``D``-wide ``ln_x``: the reference's own jnp, not ``common.rmsnorm``, so
 the RMSNorm kernel (one ``[D]`` scale over one row) does not take it.
+
+Under a mesh the time mix's projections, chunk scan and head norm (no
+DTensor sharding rule for the chunked form) run on each device's batch
+rows with their parameters made whole (``sharding.local_call``); ``wo``
+and the channel mix are DTensor products, constrained where the
+reference constrains them.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.common import dense, silu, uniform_init
 
 LOG_CLAMP = -40.0
@@ -95,13 +103,29 @@ def _head_norm(cfg, y, p):
     return yn.reshape(B_, S_, H * hd) * (1.0 + p["ln_x"])
 
 
+#: the time mix's parameters that its local part reads
+_CORE = ("mu", "rkvg", "w1", "w2", "w_base", "u", "ln_x")
+
+
+def _core(p) -> dict:
+    return {k: p[k] for k in _CORE}
+
+
 def time_mix_full(cfg: ModelConfig, p, x, state=None, last=None):
     """x: [B,S,D] -> (y, (wkv_state [B,H,hd,hd], last_token [B,1,D]))."""
+    xprev = _shift(x, last)
+    y, Sprev = shd.local_call(_time_mix_chunks, cfg, _core(p), x, xprev,
+                              state, keep=(0,), out_like=2, whole=(1,))
+    out = dense(y.to(cfg.cdtype), p["wo"], compute_dtype=cfg.cdtype)
+    return constrain(out, "batch", "seq", None), (Sprev, x[:, -1:, :])
+
+
+def _time_mix_chunks(cfg: ModelConfig, p, x, xprev, state):
+    """The time mix before ``wo``: ``(y, final state)``."""
     B_, S_, D = x.shape
     H, hd = rdims(cfg)
     c = cfg.rwkv.chunk if S_ % cfg.rwkv.chunk == 0 else S_
     nc = S_ // c
-    xprev = _shift(x, last)
     r, k, v, g, logw = _rkvgw(cfg, p, x, xprev)
     u = p["u"]
 
@@ -139,25 +163,30 @@ def time_mix_full(cfg: ModelConfig, p, x, state=None, last=None):
     # inter-chunk: y_t += (r_t * exp(lprev_t)) . S_prev
     y = y + torch.einsum("bnthk,bnhkv->bnthv", rt, torch.stack(entering, 1))
     y = y.reshape(B_, S_, H, hd)
-    y = _head_norm(cfg, y, p) * g.reshape(B_, S_, D)
-    out = dense(y.to(cfg.cdtype), p["wo"], compute_dtype=cfg.cdtype)
-    return out, (Sprev, x[:, -1:, :])
+    return _head_norm(cfg, y, p) * g.reshape(B_, S_, D), Sprev
 
 
 def time_mix_step(cfg: ModelConfig, p, x1, state, last):
     """Decode one token. Returns (y1, state, new_last)."""
+    y, state = shd.local_call(_time_mix_token, cfg, _core(p), x1,
+                              last.to(x1.dtype), state, keep=(0,),
+                              out_like=2, whole=(1,))
+    out = dense(y.to(cfg.cdtype), p["wo"], compute_dtype=cfg.cdtype)
+    return out, state, x1[:, -1:, :]
+
+
+def _time_mix_token(cfg: ModelConfig, p, x1, last, state):
+    """One token's time mix before ``wo``: ``(y1, state)``."""
     B_ = x1.shape[0]
     H, hd = rdims(cfg)
-    r, k, v, g, logw = _rkvgw(cfg, p, x1, last.to(x1.dtype))
+    r, k, v, g, logw = _rkvgw(cfg, p, x1, last)
     r1, k1, v1, lw1 = (a[:, 0].reshape(B_, H, hd) for a in (r, k, v, logw))
     kv = torch.einsum("bhk,bhv->bhkv", k1, v1)
     y = torch.einsum("bhk,bhkv->bhv", r1,
                      state + p["u"][None, :, :, None] * kv)
     state = torch.exp(lw1)[..., None] * state + kv
     y = y.reshape(B_, 1, H, hd)
-    y = _head_norm(cfg, y, p) * g.reshape(B_, 1, -1)
-    out = dense(y.to(cfg.cdtype), p["wo"], compute_dtype=cfg.cdtype)
-    return out, state, x1[:, -1:, :]
+    return _head_norm(cfg, y, p) * g.reshape(B_, 1, -1), state
 
 
 def channel_mix(cfg: ModelConfig, p, x, last=None):
@@ -168,6 +197,7 @@ def channel_mix(cfg: ModelConfig, p, x, last=None):
     xr = _mix(x, xprev, mu[3])
     k = torch.square(torch.relu(dense(xk, p["cm_k"],
                                       compute_dtype=cfg.cdtype)))
+    k = constrain(k, "batch", "seq", "tp")
     v = dense(k, p["cm_v"], compute_dtype=cfg.cdtype)
     r = torch.sigmoid(dense(xr, p["cm_r"], compute_dtype=cfg.cdtype).float())
     return (r * v.float()).to(x.dtype), x[:, -1:, :]

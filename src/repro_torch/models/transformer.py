@@ -7,9 +7,15 @@ loop over views of it (one ``unbind`` a leaf, so a backward stacks each
 leaf's gradient once).  Training goes through :func:`loss_fn`: the same
 forward under ``cfg.remat`` (:func:`_remat`: ``torch.utils.checkpoint``
 around each layer), the gradient cast of :func:`_grad_cast` before the
-head, and :func:`~repro_torch.models.common.cross_entropy`.  The
-reference's ``constrain`` is the identity without a mesh, and the port has
-none, so it is left out (:func:`res_constrain` keeps its name).
+head, and :func:`~repro_torch.models.common.cross_entropy`.
+
+Under a mesh (``distributed.sharding.use_mesh``, the parameters
+``shard_params``'d into DTensors) the stream is constrained where the
+reference constrains it (the embedding, the residual stream between
+layers - :func:`res_constrain`, split on the sequence under
+``cfg.seq_parallel`` - and the logits); the embedding's gather runs on
+the whole table and each device's rows (``sharding.local_call``).
+Without a mesh, or on one device, every ``constrain`` is the identity.
 
 An attention layer's feed-forward half is the SwiGLU MLP or, with
 ``cfg.moe``, the mixture of experts of :mod:`repro_torch.models.moe`,
@@ -32,6 +38,7 @@ the card and runs their plain versions for tensors on the CPU;
 
 Entry points:
   init_params(cfg, seed, *, device)               -> params
+  abstract_params(cfg)                            -> params on meta
   forward(cfg, params, batch, *, mode)            -> (logits, aux)
   loss_fn(cfg, params, batch, *, mode)            -> (loss, metrics)
   init_cache(cfg, batch, max_len, *, device)      -> decode cache
@@ -49,11 +56,13 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import index
 from repro_torch.core.memory import resolve_device
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention, mamba2, rwkv6
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.common import (cross_entropy, dense, rmsnorm,
-                                       uniform_init)
+from repro_torch.models.common import (MetaDraws, cross_entropy, dense,
+                                       rmsnorm, uniform_init)
 
 
 # ---------------------------------------------------------------------------
@@ -113,9 +122,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
     come from JAX's generator: carry them with
     ``repro_torch.carry.params_from_reference``).  The draws go embedding
     (``tok`` or ``codebooks``), ``patch_proj``, the layers in order, the
-    hybrid's ``shared_attn``, then ``lm_head`` or ``lm_heads``."""
+    hybrid's ``shared_attn``, then ``lm_head`` or ``lm_heads``.  On the
+    meta device nothing is drawn (:func:`abstract_params`)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (MetaDraws() if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     D, Vp, K = cfg.d_model, cfg.padded_vocab, cfg.num_codebooks
     if K > 1:
         emb = {"codebooks": uniform_init(gen, (K, Vp, D), 1.0, cfg.pdtype)}
@@ -135,6 +146,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
     elif not cfg.tie_embeddings:
         params["lm_head"] = uniform_init(gen, (D, Vp), 1.0, cfg.pdtype)
     return params
+
+
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree on the meta device: :func:`init_params`' shapes
+    and dtypes, nothing allocated or drawn (the reference's
+    ``jax.eval_shape`` of its init)."""
+    return init_params(cfg, device="meta")
 
 
 def layer_params(params, i: int):
@@ -187,21 +205,37 @@ def embed(cfg: ModelConfig, params, batch):
     e = params["embed"]
     if cfg.num_codebooks > 1:
         books = e["codebooks"]
-        ids = torch.as_tensor(batch["tokens"], device=books.device).long()
-        x = _gather(books[0], ids[..., 0])
+        ids = _on(batch["tokens"], books).long()
+        x = _rows(books[0], ids[..., 0])
         for k in range(1, cfg.num_codebooks):
-            x = x + _gather(books[k], ids[..., k])
+            x = x + _rows(books[k], ids[..., k])
     else:
         tok = e["tok"]
-        ids = torch.as_tensor(batch["tokens"], device=tok.device).long()
-        x = _gather(tok, ids)
+        ids = _on(batch["tokens"], tok).long()
+        x = _rows(tok, ids)
     x = x.to(cfg.cdtype)                                  # [B, S, D]
     if cfg.patch_prefix and "patch_embeds" in batch:
-        pe = torch.as_tensor(batch["patch_embeds"], device=x.device)
+        pe = _on(batch["patch_embeds"], x)
         pe = dense(pe.to(cfg.cdtype), e["patch_proj"],
                    compute_dtype=cfg.cdtype)
         x = torch.cat([pe, x], dim=1)
-    return x
+    return constrain(x, "batch", "seq", None)
+
+
+def _on(t, like):
+    """A batch leaf on ``like``'s device; a DTensor leaf as it is."""
+    if isinstance(t, shd.DTensor):
+        return t
+    return torch.as_tensor(t, device=like.device)
+
+
+def _rows(table, ids):
+    """:func:`_gather`; a DTensor table is made whole and gathered by each
+    device's ids (the batch split kept)."""
+    if not isinstance(table, shd.DTensor):
+        return _gather(table, ids)
+    return shd.local_call(_gather, table, shd.like_batch(ids, table),
+                          keep=(0,), out_like=1, whole=(0,))
 
 
 class _GradCast(torch.autograd.Function):
@@ -230,11 +264,18 @@ def head(cfg: ModelConfig, params, x, *, mode=None):
         x = _grad_cast(cfg.compute_dtype)(x)
     xn = rmsnorm(x, params["final_norm"], cfg.norm_eps, mode=mode)
     if cfg.num_codebooks > 1:                    # audio: [B, S, K, Vp]
-        return torch.einsum("bsd,kdv->bskv", xn.to(cfg.cdtype),
-                            params["lm_heads"].to(cfg.cdtype)).float()
+        heads = params["lm_heads"].to(cfg.cdtype)
+        if isinstance(xn, shd.DTensor):          # one product a codebook
+            logits = torch.stack([xn.to(cfg.cdtype) @ heads[k] for k in
+                                  range(cfg.num_codebooks)], 2).float()
+        else:
+            logits = torch.einsum("bsd,kdv->bskv", xn.to(cfg.cdtype),
+                                  heads).float()
+        return constrain(logits, "batch", "seq", None, "vocab")
     w = (params["embed"]["tok"].t() if cfg.tie_embeddings
          else params["lm_head"])
-    return dense(xn, w, compute_dtype=cfg.cdtype).float()
+    logits = dense(xn, w, compute_dtype=cfg.cdtype).float()
+    return constrain(logits, "batch", "seq", "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -308,9 +349,13 @@ def _positions(x):
 
 
 def res_constrain(cfg: ModelConfig, x):
-    """Residual-stream sharding between layers: the identity, as the
-    reference's ``constrain`` is without a mesh (the port has none)."""
-    return x
+    """Residual-stream sharding between layers.
+
+    With ``cfg.seq_parallel`` the sequence axis shards over 'model'
+    (Megatron sequence parallelism): norms and elementwise work and the
+    residual carried between layers shrink by the TP degree."""
+    return constrain(x, "batch", "seq_sp" if cfg.seq_parallel else "seq",
+                     None)
 
 
 #: the ops whose outputs remat ``dots`` keeps (``checkpoint_dots``: the
@@ -389,9 +434,10 @@ def loss_fn(cfg: ModelConfig, params, batch, aux_weight=0.01, *, mode=None):
     else over the logits after the patch prefix (whose positions predict
     no token).  Returns ``(loss, {"ce", "aux"})``."""
     logits, aux = forward(cfg, params, batch, mode=mode)
-    toks = torch.as_tensor(batch["tokens"], device=logits.device)
+    toks = _on(batch["tokens"], logits)
     lg = logits if cfg.num_codebooks > 1 else logits[:, cfg.patch_prefix:]
     ce = cross_entropy(lg[:, :-1], toks[:, 1:], real_vocab=cfg.vocab_size)
+    ce, aux = shd.replicate(ce), shd.replicate(aux)
     loss = ce + aux_weight * aux
     return loss, {"ce": ce, "aux": aux}
 
@@ -430,7 +476,9 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
 
 def _kv_zeros(cfg: ModelConfig, batch_size: int, max_len: int, dev) -> dict:
     """The cache's ``k`` / ``v`` zeros: one a layer, one a shared-attention
-    application of the hybrid, none for RWKV or a Mamba2 stack alone."""
+    application of the hybrid, none for RWKV or a Mamba2 stack alone.
+    ``dev`` is a device, or the stream as a DTensor (the zeros then split
+    by ``sharding.cache_placements``)."""
     if cfg.rwkv is not None or (cfg.ssm is not None and not cfg.attn_every):
         return {}
     napps = cfg.num_layers
@@ -439,7 +487,8 @@ def _kv_zeros(cfg: ModelConfig, batch_size: int, max_len: int, dev) -> dict:
         napps = full + (tail > 0)
     plan = attention.plan_for(cfg)
     shape = (napps, batch_size, max_len, plan.hkv_p, cfg.hd)
-    return {name: torch.zeros(shape, dtype=cfg.cdtype, device=dev)
+    like = dev if isinstance(dev, shd.DTensor) else torch.empty(0, device=dev)
+    return {name: shd.zeros(shape, cfg.cdtype, like, name)
             for name in ("k", "v")}
 
 
@@ -519,15 +568,18 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int, *, mode=None):
     x = embed(cfg, params, batch)
     B, S = x.shape[:2]
     positions = _positions(x)
-    cache = _kv_zeros(cfg, B, max_len, x.device)
+    cache = _kv_zeros(cfg, B, max_len,
+                      x if isinstance(x, shd.DTensor) else x.device)
     states = []
     for i, lp in enumerate(_layers(params, cfg.num_layers)):
         if _shared_before(cfg, params, i):
             x, (k, v) = _shared_attn_apply(cfg, plan, params["shared_attn"],
                                            x, positions, mode=mode)
             j = i // cfg.attn_every
-            cache["k"][j, :, :S] = k.to(cfg.cdtype)
-            cache["v"][j, :, :S] = v.to(cfg.cdtype)
+            shd.assign(cache["k"], (j, slice(None), slice(0, S)),
+                       k.to(cfg.cdtype))
+            shd.assign(cache["v"], (j, slice(None), slice(0, S)),
+                       v.to(cfg.cdtype))
         x, _, state = _layer_full(cfg, plan, lp, x, positions, mode)
         if cfg.rwkv is not None:
             wkv, ltm, lcm = state
@@ -535,8 +587,10 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int, *, mode=None):
         elif cfg.ssm is not None:
             states.append(state)
         else:
-            cache["k"][i, :, :S] = state[0].to(cfg.cdtype)
-            cache["v"][i, :, :S] = state[1].to(cfg.cdtype)
+            shd.assign(cache["k"], (i, slice(None), slice(0, S)),
+                       state[0].to(cfg.cdtype))
+            shd.assign(cache["v"], (i, slice(None), slice(0, S)),
+                       state[1].to(cfg.cdtype))
     _stack_states(cfg, states, cache)
     cache["pos"] = S
     return head(cfg, params, x[:, -1:, :], mode=mode), cache

@@ -5,7 +5,8 @@ Parameters, gradients and moments are the model's nested dicts of
 tensors.  The arithmetic is the reference's, in float32, leaf by leaf:
 every schedule value, bias correction and update is a float32 tensor
 (the reference's jnp scalars are float32), and the moments are stored in
-``state_dtype``.
+``state_dtype``.  DTensor parameters (under a mesh) give moments of the
+same placements; the global norm is reduced to a plain scalar.
 """
 from __future__ import annotations
 
@@ -90,15 +91,14 @@ def init_state(cfg: AdamWConfig, params) -> AdamWState:
     first = tree_leaves(params)[0]
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=first.device),
-        m=tree_map(lambda p: torch.zeros(p.shape, dtype=dt,
-                                         device=p.device), params),
-        v=tree_map(lambda p: torch.zeros(p.shape, dtype=dt,
-                                         device=p.device), params))
+        m=tree_map(lambda p: torch.zeros_like(p, dtype=dt), params),
+        v=tree_map(lambda p: torch.zeros_like(p, dtype=dt), params))
 
 
 def global_norm(tree):
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+    n = torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                       for x in tree_leaves(tree)))
+    return n.full_tensor() if hasattr(n, "full_tensor") else n
 
 
 def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState):

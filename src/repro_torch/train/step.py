@@ -7,6 +7,11 @@ every parameter leaf (the reference's ``jax.value_and_grad``), then
 parameters' device once a step.  ``mode`` (``kernels.ops.MODES``)
 reaches the model's RMSNorm and attention: ``None`` launches the
 hand-written kernels for tensors on the card.
+
+Under a mesh (``distributed.sharding.use_mesh``) with DTensor parameters
+the batch is split by ``sharding.batch_placements`` and each gradient is
+brought to its parameter's placements (the FSDP reduce-scatter) before
+the update.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import functools
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 
@@ -26,7 +32,18 @@ def make_loss(cfg: ModelConfig, *, mode=None):
 
 
 def _on(batch, device) -> dict:
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    """The batch's leaves on ``device``; under a mesh of several devices,
+    DTensors split by ``sharding.batch_placements``."""
+    mesh = shd.active_mesh()
+    out = {}
+    for k, v in batch.items():
+        if not isinstance(v, shd.DTensor):
+            v = torch.as_tensor(v, device=device)
+            if mesh is not None and shd.mesh_size(mesh) > 1:
+                v = shd.distribute(v, mesh, shd.batch_placements(mesh,
+                                                                 v.shape))
+        out[k] = v
+    return out
 
 
 def value_and_grad(loss, params, batch):
@@ -40,6 +57,9 @@ def value_and_grad(loss, params, batch):
     with torch.enable_grad():
         l, metrics = loss(tracked, batch)
         grads = torch.autograd.grad(l, live)
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             if isinstance(p, shd.DTensor) else g
+             for p, g in zip(live, grads, strict=True)]
     it = iter(grads)
     return ((l.detach(), {k: v.detach() for k, v in metrics.items()}),
             adamw.tree_map(lambda _: next(it), params))
@@ -60,8 +80,8 @@ def train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, params,
             n = x.shape[0] // microbatches
             return x[i * n:(i + 1) * n]
 
-        gsum = adamw.tree_map(lambda p: torch.zeros(
-            p.shape, dtype=torch.float32, device=p.device), params)
+        gsum = adamw.tree_map(
+            lambda p: torch.zeros_like(p, dtype=torch.float32), params)
         lsum = 0.0
         for i in range(microbatches):
             mb = {k: split(v, i) for k, v in batch.items()}

@@ -138,8 +138,18 @@ def test_ckpt_corruption_fallback(tmp_path):
     assert torch.equal(out["w"], _tree(1)["w"])
     with pytest.raises(IOError):
         mgr.restore(_zeros_like(_tree()), step=2)
-    with pytest.raises(NotImplementedError, match=r"1\.14\.5"):
-        mgr.restore(_zeros_like(_tree()), mesh=object())
+    # onto a mesh of one device: the leaves stay plain tensors on it
+    out, _ = mgr.restore(_zeros_like(_tree()), mesh=_OneDevice())
+    assert torch.equal(out["w"], _tree(1)["w"])
+
+
+class _OneDevice:
+    """A one-device mesh, as ``sharding.axis_sizes`` reads one."""
+    axis_names = ("data",)
+    device_type = "cpu"
+
+    class devices:
+        shape = (1,)
 
 
 @pytest.fixture(scope="module")

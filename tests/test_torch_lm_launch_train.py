@@ -4,8 +4,8 @@ checkpoints, resumes and stops as the reference's does.
 ``tests/test_system.py::test_train_resume_exact``'s counterpart, made
 exact: a run cut at step 6 and resumed to 10 restores the parameters and
 optimizer state the first run ended with, bit for bit, and resumes the
-data stream at the saved step.  Also the emergency save on SIGTERM, the
-refused mesh and the command line.
+data stream at the saved step.  Also the emergency save on SIGTERM, a
+mesh larger than the world and the command line.
 """
 import os
 import signal
@@ -118,8 +118,14 @@ def test_sigterm_saves_an_emergency_checkpoint_and_stops(tmp_path,
 
 
 def test_a_mesh_is_refused_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.14\.5"):
+    """A mesh larger than the world is refused, naming its ranks, before
+    any process group starts (``--mesh 2x2`` runs at 4 ranks in
+    ``test_torch_distributed_ranks.py``)."""
+    import torch.distributed as dist
+    with pytest.raises(RuntimeError, match=r"needs a process group of 4 "
+                                           r"ranks, have 1"):
         tlaunch.main(ARGS + ["--mesh", "2x2", "--steps", "1"])
+    assert not dist.is_initialized()
 
 
 def test_train_command_runs_with_microbatches():

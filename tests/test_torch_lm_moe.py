@@ -69,8 +69,8 @@ def _record(mod, seen):
     undo."""
     route, ffn = mod._route, mod._expert_ffn
 
-    def _route(cfg, p, xt):
-        out = route(cfg, p, xt)
+    def _route(cfg, p, xt, **kw):
+        out = route(cfg, p, xt, **kw)
         seen["idx"] = _np(out[1]).astype(np.int64)
         return out
 

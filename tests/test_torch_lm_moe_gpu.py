@@ -141,8 +141,8 @@ def test_float32_logits_and_routing_hold_the_plain_versions(card, dispatch):
     routes = []
     real = moe._route
 
-    def record(c, p, xt):
-        out = real(c, p, xt)
+    def record(c, p, xt, **kw):
+        out = real(c, p, xt, **kw)
         routes.append(out[1].sort(-1).values)
         return out
     moe._route = record
