@@ -201,9 +201,11 @@ Phases, each printing its own lines:
    launch exactly once, no other.  The CUDA-core matmul's line gives its
    CTA count (one a 128 x 128 tile of c, fed by 16-byte loads issued a
    slice ahead into two shared buffers), rmsnorm's its (8 rows a CTA,
-   a row in a warp's registers), and the CUDA-core prefill's its CTA
-   count and query tile (256 queries a CTA at d = 64, register outer
-   products, the next K/V tile in flight by cp.async).  Each output is
+   a row in a warp's registers), and each prefill's its CTA count and
+   query tile (the CUDA-core kernel's 256 queries a CTA at d = 64,
+   register outer products, the next K/V tile in flight by cp.async; the
+   tensor-core kernel's 192 at d = 64, three consumer warpgroups on wgmma
+   fed by a TMA producer).  Each output is
    held against that kernel's plain version (flash attention at
    ``flash_attention.PLAIN_TOL``, the others at ``hot_tol``) and the
    ``ref`` oracle (``hot_tol``) on the card, then kernel, plain version
@@ -1207,6 +1209,10 @@ def hot_phase(host: dict, dev, matmul_tol) -> dict:
                 B, H, Sq, d = t[0].shape
                 ctas = (f" ctas={flash_attention.simt_ctas(B, H, Sq, d)} "
                         f"q_tile={flash_attention.simt_q_tile(d)}")
+            elif kname == "flash_attention_tc":
+                B, H, Sq, d = t[0].shape
+                q_tile = flash_attention.tc_q_tile(d)
+                ctas = f" ctas={B * H * -(-Sq // q_tile)} q_tile={q_tile}"
             name = f"{kname}/{call}/{dname}"
             rows[name] = kernel_row("hot", name, kname, fn, HOT[call],
                                     dtype, tuple(fns), (plain_tol, tol),

@@ -263,7 +263,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+}  // namespace
+
+// cuTensorMapEncodeTiled, fetched once from the driver (the library links
+// only the runtime), or null; csrc/flash_attention_tc.cu encodes its maps
+// with it too
+PFN_cuTensorMapEncodeTiled_v12000 cupbop_tensor_map_encoder() {
   static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;
@@ -283,10 +288,12 @@ PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
   return fn;
 }
 
+namespace {
+
 // a row-major bf16 [rows, cols] tensor in boxes of box_rows x 64 columns
 bool encode(CUtensorMap* map, const void* ptr, int rows, int cols,
             int box_rows) {
-  auto fn = encode_fn();
+  auto fn = cupbop_tensor_map_encoder();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};

@@ -36,6 +36,8 @@ from typing import Optional
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.core.memory import resolve_device
+
 # logical axis -> ordered mesh-axis candidates (prefix-greedy)
 RULES: dict[str, tuple[str, ...]] = {
     "batch": ("pod", "data"),
@@ -100,11 +102,11 @@ def mesh_size(mesh) -> int:
 
 
 def device_type(device=None) -> str:
-    """The mesh's device type: ``device``'s, else the card's when there is
-    one, else the CPU's."""
-    if device is not None:
-        return torch.device(device).type
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    """The mesh's device type, by the port's rule
+    (:func:`repro_torch.core.memory.resolve_device`): ``device``'s when
+    given (an explicit ``"cpu"`` is honoured), else the card's; raises
+    when no card is present and none was asked for."""
+    return resolve_device(device).type
 
 
 def make_mesh(shape, axes, *, device=None):

@@ -14,16 +14,20 @@ tiles, and any ``d`` up to 128.  Three kernels, chosen by :func:`route`:
   kv axis over warps, each reading its keys once for the whole group, and
   merges the splits in the same launcher call; float32 arithmetic, either
   dtype.  Its plain version is :func:`flash_decode_plain`;
-* ``"tc"`` - bfloat16 prefill whose rows cp.async can copy:
-  ``csrc/flash_attention_tc.cu``, mma.sync on the tensor cores with p
-  rounded to bfloat16 for the product with v;
+* ``"tc"`` - bfloat16 prefill whose tensors TMA can address:
+  ``csrc/flash_attention_tc.cu``, FlashAttention-3's design on Hopper (a
+  producer warpgroup keeping K and V tiles of ``TC_KV_TILE`` keys in
+  flight by TMA, consumer warpgroups on wgmma) with p rounded to bfloat16
+  for the product with v;
 * ``"simt"`` - everything else (float32 prefill in full float32):
   ``csrc/flash_attention.cu`` on the CUDA cores, register outer products
   over :func:`simt_q_tile` queries (256 at d = 64, 128 at d <= 32, 64 at
   d = 128) and 64 keys a CTA.
 
-The prefill kernels walk the kv axis in tiles of ``KV_TILE`` keys, and
-:func:`flash_attention_plain` is their plain version.
+The prefill kernels walk the kv axis in tiles of keys, ``KV_TILE`` on
+the ``"simt"`` route and ``TC_KV_TILE`` on ``"tc"``, and
+:func:`flash_attention_plain` is their plain version, walking the same
+tiles.
 
 ``with_lse=True`` asks every route for each row's logsumexp as well,
 float32 ``lse[B, H, Sq]``: the natural log of the softmax's denominator
@@ -49,14 +53,19 @@ KERNEL = Launcher(symbol="launch_flash_attention",
                   argtypes=(P,) * 4 + (I,) * 7 + (F, I, P, P),
                   source="src/repro_torch/csrc/flash_attention.cu")
 KERNEL_TC = Launcher(symbol="launch_flash_attention_tc",
-                     argtypes=(P,) * 4 + (I,) * 7 + (F, P, P),
+                     argtypes=(P,) * 4 + (I,) * 7 + (F, I, P, P),
                      source="src/repro_torch/csrc/flash_attention_tc.cu")
 KERNEL_DECODE = Launcher(symbol="launch_flash_decode",
                          argtypes=(P,) * 7 + (I,) * 7 + (F,) + (I,) * 4
                          + (P, P),
                          source="src/repro_torch/csrc/flash_decode.cu")
-#: the prefill kernels' kv tile: the plain version walks the same tiles
+#: the "simt" prefill kernel's kv tile: the plain version walks the same
+#: tiles
 KV_TILE = 64
+#: the "tc" prefill kernel's kv tile (its wgmma's N for q k^T).  The
+#: wrapper passes it to the launcher, which refuses any other, and the
+#: plain version walks the same tiles on that route
+TC_KV_TILE = 128
 #: the widest head the kernels' registers and shared memory are laid out for
 MAX_D = 128
 #: the most query rows of one kv group (heads times queries) that the
@@ -75,9 +84,9 @@ DECODE_WARPS = 132 * 16
 #: (exp) can round to neighbouring bfloat16 values, and such steps add up
 #: where an output cancels to near 0: tools/flash_plain_err.py measured at
 #: worst an atol of 1.1e-3 there (granite-3-2b's prefill, 3 seeds, on an
-#: H100), 1.7e-7 on the "simt" route and 4e-9 on "decode"; the atols
-#: below keep room of 2.7x and more.  float32 keeps tests/test_kernels.py's
-#: 2e-5.
+#: H100; the wgmma kernel on 128-key tiles as the mma.sync kernel on 64),
+#: 1.7e-7 on the "simt" route and 4e-9 on "decode"; the atols below keep
+#: room of 2.7x and more.  float32 keeps tests/test_kernels.py's 2e-5.
 PLAIN_TOL = {**{(r, torch.float32): (2e-5, 2e-5)
                 for r in ("simt", "tc", "decode")},
              ("simt", torch.bfloat16): (1e-2, 1e-4),
@@ -96,6 +105,13 @@ def simt_ctas(B: int, H: int, Sq: int, d: int) -> int:
     """The CTAs that the ``"simt"`` kernel's launcher starts for ``B * H``
     heads of ``Sq`` queries, as its ``flash_attention_ctas`` gives them."""
     return _native.function("flash_attention_ctas", (I,) * 4)(B, H, Sq, d)
+
+
+def tc_q_tile(d: int) -> int:
+    """The query rows a CTA of the ``"tc"`` kernel owns at head width
+    ``d``, as its launcher's ``flash_attention_tc_q_tile`` gives them
+    (builds the kernels' library at first use)."""
+    return _native.function("flash_attention_tc_q_tile", (I,))(d)
 
 
 def _padded(d: int) -> int:
@@ -177,15 +193,17 @@ def _lse(m, l):
 def flash_attention_plain(q, k, v, *, causal=True, q_blk=128, kv_blk=128,
                           with_lse=False):
     """The prefill kernels' arithmetic in PyTorch: float32 throughout, the
-    kv axis walked in the kernels' tiles of ``KV_TILE`` keys with the same
-    online softmax (masked scores ``-1e30``, output ``acc / max(l,
-    1e-30)``).  When the call's route is ``"tc"``, p is rounded to
+    kv axis walked in the routed kernel's tiles (``TC_KV_TILE`` keys on
+    the ``"tc"`` route, ``KV_TILE`` otherwise) with the same online
+    softmax (masked scores ``-1e30``, output ``acc / max(l, 1e-30)``).
+    When the call's route is ``"tc"``, p is rounded to
     bfloat16 before the product with v, as the tensor-core kernel rounds
     it (its sum ``l`` stays float32).  Tiles above every query's diagonal
     are skipped, as the kernels skip them tile by tile.  ``with_lse``
     returns ``(out, lse)``."""
     _check(q, k, v, q_blk, kv_blk)
     round_p = route(q, k, v) == "tc"
+    tile = TC_KV_TILE if round_p else KV_TILE
     B, H, Sq, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     g = H // Hkv
@@ -197,8 +215,8 @@ def flash_attention_plain(q, k, v, *, causal=True, q_blk=128, kv_blk=128,
     acc = torch.zeros(B, Hkv, g, Sq, d, device=q.device)
     qpos = torch.arange(Sq, device=q.device)[:, None]
     kend = min(Skv, Sq) if causal else Skv
-    for k0 in range(0, kend, KV_TILE):
-        kt, vt = kf[:, :, k0:k0 + KV_TILE], vf[:, :, k0:k0 + KV_TILE]
+    for k0 in range(0, kend, tile):
+        kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
         s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kt) * scale
         if causal:
             kpos = k0 + torch.arange(kt.shape[2], device=q.device)[None, :]
@@ -321,8 +339,8 @@ def flash_attention(q, k, v, *, causal=True, q_blk=128, kv_blk=128,
                       decode_tile(q.dtype, d),
                       dtype_code("flash_attention", q), lse_ptr, device=dev)
     elif which == "tc":
-        KERNEL_TC(*ptrs, B, H, Hkv, Sq, Skv, d, int(causal), scale, lse_ptr,
-                  device=dev)
+        KERNEL_TC(*ptrs, B, H, Hkv, Sq, Skv, d, int(causal), scale,
+                  TC_KV_TILE, lse_ptr, device=dev)
     else:
         KERNEL(*ptrs, B, H, Hkv, Sq, Skv, d, int(causal), scale,
                dtype_code("flash_attention", q), lse_ptr, device=dev)

@@ -21,7 +21,8 @@ from repro_torch.distributed import sharding as shd
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):
     """The (16, 16) or (2, 16, 16) mesh over the default group's first
-    256 or 512 ranks."""
+    256 or 512 ranks, on ``device`` (``sharding.device_type``: the card
+    unless the caller asks for another; raises without a card)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
     shape = (2, 16, 16) if multi_pod else (16, 16)
@@ -42,6 +43,7 @@ def make_production_mesh(*, multi_pod: bool = False, device=None):
 
 
 def make_test_mesh(shape=(2, 2), axes=("data", "model"), *, device=None):
-    """A small mesh for multi-rank CPU tests (the group is started by the
-    test's ranks)."""
+    """A small mesh for multi-rank tests (the group is started by the
+    test's ranks), on ``device`` as :func:`make_production_mesh`: the CPU
+    tests pass ``device="cpu"``."""
     return shd.make_mesh(tuple(shape), tuple(axes), device=device)

@@ -96,6 +96,20 @@ def test_use_mesh_restores_the_rules():
     assert tshd.RULES == before and tshd.active_mesh() is None
 
 
+def test_device_type_is_the_card_or_an_error(monkeypatch):
+    # the port's rule (core.memory.resolve_device): no device asked for
+    # means the card, and without one it raises; "cpu" is honoured
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tshd.device_type()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tshd.device_type("cuda")
+    assert tshd.device_type("cpu") == "cpu"
+    assert tshd.device_type(torch.device("meta")) == "meta"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert tshd.device_type() == "cuda"
+
+
 def test_constrain_is_the_identity_without_a_dtensor():
     x = torch.ones(4, 4)
     assert tshd.constrain(x, "batch", None) is x

@@ -7,7 +7,8 @@ shapes and alignment alone; the tests here pin that table.  On the CPU,
 against the reference's ``ops.flash_attention(mode="interpret")`` at
 ``tests/test_kernels.py``'s tolerances (2e-5 float32, 2e-2 bfloat16), and
 ``flash_attention_plain``'s bfloat16 rounding of p (the tensor-core
-kernel's) against the same reference.
+kernel's) against the same reference, on the tensor-core kernel's tile
+edges too, and each prefill walk's tile.
 
 The tests marked ``gpu`` hold each route's kernel against its plain
 version on the card (flash attention at ``flash_attention.PLAIN_TOL``,
@@ -47,6 +48,17 @@ DECODE = [(2, 8, 2, 1, 1, 64, False),
 SIMT_RAGGED = [(1, 4, 1, 300, 300, 64, True), (1, 4, 2, 130, 77, 64, False),
                (1, 2, 2, 129, 260, 16, True), (1, 4, 2, 100, 333, 48, True),
                (1, 2, 1, 70, 150, 128, True), (2, 2, 1, 65, 65, 128, False)]
+#: the "tc" kernel's edges: Sq and Skv one short of, on and one past its
+#: kv tile (TC_KV_TILE = 128) and its query tile (192 at d <= 64, 128
+#: above), causal with Sq < Skv and Sq > Skv and not, d 32 / 64 / 80 /
+#: 112 / 128, GQA 1, 4 and 8
+TC_EDGES = [(1, 2, 2, 127, 127, 128, True), (1, 4, 1, 128, 129, 112, True),
+            (1, 8, 1, 129, 128, 80, True), (1, 4, 1, 191, 127, 32, True),
+            (1, 8, 1, 192, 257, 64, True), (1, 2, 2, 193, 256, 64, False),
+            (1, 4, 4, 129, 383, 128, False), (2, 8, 2, 130, 129, 32, True)]
+#: the gap within which a kernel's lse holds its plain version's
+#: (chip_smoke.py's LSE_TOL)
+LSE_TOL = 1e-4
 #: tests/test_kernels.py's matmul sweep (M, N, K, grain) and wider ones
 MATMUL = [(128, 128, 128, 1), (256, 128, 64, 2), (64, 256, 128, 1),
           (72, 200, 40, 1), (1024, 1024, 4096, 1), (8192, 2048, 8192, 1)]
@@ -197,7 +209,7 @@ def test_flash_decode_plain_merges_splits_the_mask_hides():
                                rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,d,causal", FLASH)
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,d,causal", FLASH + TC_EDGES)
 def test_flash_plain_rounds_p_to_bfloat16(B, H, Hkv, Sq, Skv, d, causal):
     arrays = _flash_inputs(B, H, Hkv, Sq, Skv, d)
     q, k, v = _to_torch(arrays, "bfloat16")
@@ -214,6 +226,24 @@ def test_flash_plain_rounds_p_to_bfloat16(B, H, Hkv, Sq, Skv, d, causal):
         (tfa.route(q, k, v) != "tc")
     _close(got, _reference_flash(arrays, "bfloat16", causal, Sq, Skv),
            TOL["bfloat16"])
+
+
+def test_flash_plain_walks_the_routed_kernels_tile(monkeypatch):
+    # bfloat16 prefill walks the "tc" kernel's TC_KV_TILE keys a tile,
+    # float32 the "simt" kernel's KV_TILE; each walk reads its own tile
+    # and not the other's
+    q, k, v = _to_torch(_flash_inputs(1, 4, 1, 40, 256, 64), "bfloat16")
+    qf, kf, vf = q.float(), k.float(), v.float()
+    assert tfa.route(q, k, v) == "tc" and tfa.route(qf, kf, vf) == "simt"
+    assert (tfa.TC_KV_TILE, tfa.KV_TILE) == (128, 64)
+    kw = dict(causal=False, q_blk=40, kv_blk=256)
+    tc = tfa.flash_attention_plain(q, k, v, **kw)
+    simt = tfa.flash_attention_plain(qf, kf, vf, **kw)
+    monkeypatch.setattr(tfa, "KV_TILE", 32)
+    assert torch.equal(tfa.flash_attention_plain(q, k, v, **kw), tc)
+    assert not torch.equal(tfa.flash_attention_plain(qf, kf, vf, **kw), simt)
+    monkeypatch.setattr(tfa, "TC_KV_TILE", 64)
+    assert not torch.equal(tfa.flash_attention_plain(q, k, v, **kw), tc)
 
 
 @pytest.mark.parametrize("B,H,Hkv,Sq,Skv,d,causal", SIMT_RAGGED)
@@ -277,24 +307,81 @@ def test_matmul_shapes_tma_cannot_take_run_the_simt_kernel(card, M, N, K,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,d,causal", PREFILL + [
-    (1, 4, 1, 100, 300, 64, True),     # Sq < Skv: top-left, not bottom-right
-    (1, 4, 1, 300, 100, 64, True),     # Sq > Skv
-    (2, 4, 2, 128, 128, 32, True), (2, 4, 2, 128, 128, 64, False),
-    (1, 4, 1, 80, 70, 80, True), (1, 4, 1, 80, 70, 128, True)])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,d,causal,with_lse", [
+    (*s, False) for s in PREFILL + [
+        (1, 4, 1, 100, 300, 64, True),  # Sq < Skv: top-left, not bottom-right
+        (1, 4, 1, 300, 100, 64, True),  # Sq > Skv
+        (2, 4, 2, 128, 128, 32, True), (2, 4, 2, 128, 128, 64, False),
+        (1, 4, 1, 80, 70, 80, True), (1, 4, 1, 80, 70, 128, True)]]
+    + [(*s, True) for s in TC_EDGES])
 def test_tc_prefill_matches_its_plain_version(card, B, H, Hkv, Sq, Skv, d,
-                                              causal):
+                                              causal, with_lse):
     q, k, v = _to_torch(_flash_inputs(B, H, Hkv, Sq, Skv, d), "bfloat16",
                         card)
     assert tfa.route(q, k, v) == "tc"
-    kw = dict(causal=causal, q_blk=Sq, kv_blk=Skv)
+    kw = dict(causal=causal, q_blk=Sq, kv_blk=Skv, with_lse=with_lse)
     got = _launch_once("flash_attention_tc",
                        lambda: tops.flash_attention(q, k, v, **kw))
     want = tfa.flash_attention_plain(q, k, v, **kw)
+    if with_lse:
+        (got, lse), (want, want_lse) = got, want
+        assert lse.dtype == torch.float32 and lse.shape == (B, H, Sq)
+        assert float((lse - want_lse).abs().max()) <= LSE_TOL
     assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
     _close_to_plain(got, want, "tc")
     _close(got, tref.flash_attention_ref(q, k, v, causal=causal).float()
            .cpu().numpy(), TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+def test_tc_prefill_with_no_keys_writes_zeros(card):
+    # Skv = 0 (the wrappers refuse it, as the reference's does: its kv
+    # tile clamps to 0): the launcher encodes no map over the empty k and
+    # v, and every row is 0 with the plain version's lse of a row that saw
+    # no key, -1e30 + ln 1e-30 in float32
+    q = _to_torch(_draw(3, (1, 4, 70, 64)), "bfloat16", card)[0]
+    kv = torch.empty(1, 1, 0, 64, dtype=torch.bfloat16, device=card)
+    out = torch.full_like(q, float("nan"))
+    lse = torch.empty(1, 4, 70, device=card)
+    _launch_once("flash_attention_tc", lambda: tfa.KERNEL_TC(
+        q.data_ptr(), kv.data_ptr(), kv.data_ptr(), out.data_ptr(), 1, 4, 1,
+        70, 0, 64, 1, 0.125, tfa.TC_KV_TILE, lse.data_ptr(), device=card))
+    assert torch.equal(out, torch.zeros_like(q))
+    assert torch.equal(lse, torch.full_like(lse, -1e30))
+
+
+@pytest.mark.gpu
+def test_tc_prefill_ragged_tile_reads_no_other_heads_rows(card):
+    # batch 0's last kv tile holds keys 128..255 of which 2 exist: mapped as
+    # [B Hkv, Skv, d] its other rows arrive as TMA's zeros; a 2-D map would
+    # read batch 1's first 126 rows, whose inf v would turn the masked keys'
+    # p = 0 into NaN.  Sq = 100 is ragged too (its tile's other rows would
+    # be batch 0's next head's)
+    B, H, Hkv, Sq, Skv, d = 2, 4, 1, 100, 130, 64
+    q, k, v = _to_torch(_flash_inputs(B, H, Hkv, Sq, Skv, d), "bfloat16",
+                        card)
+    v[1] = float("inf")
+    kw = dict(causal=False, q_blk=Sq, kv_blk=Skv)
+    got = _launch_once("flash_attention_tc",
+                       lambda: tops.flash_attention(q, k, v, **kw))[:1]
+    q0, k0, v0 = q[:1], k[:1], v[:1]
+    assert torch.isfinite(got).all()
+    _close_to_plain(got, tfa.flash_attention_plain(q0, k0, v0, **kw), "tc")
+    _close(got, tref.flash_attention_ref(q0, k0, v0, causal=False).float()
+           .cpu().numpy(), TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+def test_tc_launcher_refuses_another_kv_tile(card):
+    # the plain version walks TC_KV_TILE keys a tile: a launch asked for
+    # any other never runs
+    q = torch.zeros(1, 4, 64, 64, dtype=torch.bfloat16, device=card)
+    before = tops.KERNELS["flash_attention_tc"].launches
+    for tile in (tfa.KV_TILE, tfa.TC_KV_TILE * 2):
+        with pytest.raises(RuntimeError, match="launch_flash_attention_tc"):
+            tfa.KERNEL_TC(*(q.data_ptr(),) * 4, 1, 4, 4, 64, 64, 64, 1,
+                          0.125, tile, None, device=card)
+    assert tops.KERNELS["flash_attention_tc"].launches == before
 
 
 @pytest.mark.gpu
@@ -356,3 +443,12 @@ def test_simt_ctas_own_the_query_tile(card, d, want):
     assert tfa.simt_q_tile(d) == want
     assert tfa.simt_ctas(2, 4, 300, d) == 2 * 4 * -(-300 // want)
     assert tfa.simt_ctas(2, 32, 4096, 64) == 2 * 32 * 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,want", ((8, 192), (32, 192), (64, 192),
+                                    (72, 128), (112, 128), (128, 128)))
+def test_tc_ctas_own_the_query_tile(card, d, want):
+    # the launcher's choice: three consumer warpgroups of 64 rows at
+    # d <= 64, two above
+    assert tfa.tc_q_tile(d) == want

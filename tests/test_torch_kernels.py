@@ -518,8 +518,8 @@ def test_cuda_mode_never_falls_back(card):
         tops.flash_attention(q, q, q)
     assert tops.default_mode(q) == "cuda"
     # each route's launcher refuses what its kernel does not take, rather
-    # than compute it another way: TMA's N % 8, cp.async's d % 8, the
-    # decode kernel's rows of a kv group
+    # than compute it another way: TMA's N % 8 and d % 8, the decode
+    # kernel's rows of a kv group
     bf = torch.ones(16, 16, dtype=torch.bfloat16, device=card)
     with pytest.raises(RuntimeError, match="launch_matmul_tc"):
         tmm.KERNEL_TC(bf.data_ptr(), bf.data_ptr(), bf.data_ptr(), 16, 12,
@@ -527,7 +527,7 @@ def test_cuda_mode_never_falls_back(card):
     qb = torch.ones(1, 1, 8, 12, dtype=torch.bfloat16, device=card)
     with pytest.raises(RuntimeError, match="launch_flash_attention_tc"):
         tfa.KERNEL_TC(*(qb.data_ptr(),) * 4, 1, 1, 1, 8, 8, 12, 1, 0.3,
-                      None, device=card)
+                      tfa.TC_KV_TILE, None, device=card)
     with pytest.raises(RuntimeError, match="launch_flash_decode"):
         tfa.KERNEL_DECODE(*(qb.data_ptr(),) * 7, 1, 16, 1, 1, 8, 8, 0, 0.3,
                           32, 1, 32, 1, None, device=card)
