@@ -196,12 +196,15 @@ Phases, each printing its own lines:
    to 0 just before and read just after.  matmul and flash attention
    choose one of their kernels by ``route``; ``HOT_KERNELS`` says which
    kernel each call and dtype must take (bfloat16 matmul and prefill the
-   tensor-core kernels, decode the split-kv kernel in both dtypes,
+   tensor-core kernels, decode the cluster kernel in bfloat16 and the
+   split-kv kernel with its merge in float32,
    float32 matmul and prefill the CUDA-core kernels), and that kernel must
    launch exactly once, no other.  The CUDA-core matmul's line gives its
    CTA count (one a 128 x 128 tile of c, fed by 16-byte loads issued a
-   slice ahead into two shared buffers), rmsnorm's its (8 rows a CTA,
-   a row in a warp's registers), and each prefill's its CTA count and
+   slice ahead into two shared buffers), rmsnorm's its and its path
+   (8 rows a CTA, a row in a warp's registers), the decode's its CTAs
+   and parts of a kv group (a cluster's ranks in bfloat16, splits in
+   float32) and their keys, and each prefill's its CTA count and
    query tile (the CUDA-core kernel's 256 queries a CTA at d = 64,
    register outer products, the next K/V tile in flight by cp.async; the
    tensor-core kernel's 192 at d = 64, three consumer warpgroups on wgmma
@@ -212,7 +215,10 @@ Phases, each printing its own lines:
    and the PyTorch yardstick
    (``F.rms_norm``, ``torch.matmul``, ``F.scaled_dot_product_attention``,
    timed only) are timed as in phase 2.  The inputs are drawn from the
-   same generator after every entry's;
+   same generator after every entry's.  Then two short lines in bfloat16
+   (``HOT_EXTRA``, their own generator of ``SEED``): qwen2-0.5b's decode
+   step, 4 slots over 1,024 keys, and rmsnorm's wide path (a CTA a row)
+   at ``[1024, 8192]``;
 5. the LM serving path (``repro_torch.serve.engine`` over
    ``repro_torch.models``) at qwen2-0.5b's full width in bfloat16 (24
    layers, d_model 896, 14 / 2 heads padded to 16 / 16, vocabulary
@@ -224,7 +230,7 @@ Phases, each printing its own lines:
    every request must finish with its tokens, and each prefill and decode
    step must have launched rmsnorm 2L + 1 times and the flash kernel that
    ``route`` picks for its shapes L times (the tensor-core prefill, the
-   split-kv decode), and no other kernel (``lm serve`` lines, with
+   cluster decode), and no other kernel (``lm serve`` lines, with
    tokens/s, ``launches``, ``syncs`` and ``steps``).  Then the model
    against its plain versions (``mode="interpret"``) on the card on the
    same parameters, teacher-forced with the plain versions' greedy
@@ -323,8 +329,8 @@ Phases, each printing its own lines:
    and PyTorch's call: the tc prefill and the decode at d = 112 with 32
    heads over the long prompt, rmsnorm in bfloat16 at ``[1024, 3584]``
    and in float32 at ``[1024, 7168]`` (Mamba2's gated norm, on the
-   kernel's two-pass path) (``ssm kernel``); the phase's seconds beside
-   its ceiling of ``SSM_CEILING_S``;
+   kernel's wide path, a CTA a row) (``ssm kernel``); the phase's
+   seconds beside its ceiling of ``SSM_CEILING_S``;
 9. the mesh path (``mesh_phase``): a process group of one rank (NCCL)
    and a ``1x1`` ``(data, model)`` mesh; phase 6's train step under
    ``use_mesh`` with ``shard_params``, every launch count set to 0 just
@@ -493,6 +499,14 @@ HOT = {
                                 "skv": 4096, "d": 64, "causal": True},
     "flash_attention_decode": {"b": 32, "h": 32, "hkv": 8, "sq": 1,
                                "skv": 4096, "d": 64, "causal": False},
+}
+#: phase 4's short lines, bfloat16: qwen2-0.5b's decode step (4 slots
+#: over 1,024 keys, 14 / 2 heads of 64 padded to 16 / 16: PERF.md §4) and
+#: rmsnorm's wide path at internvl2-76b's d_model (1,024 rows of 8,192)
+HOT_EXTRA = {
+    "flash_attention_decode_qwen2": {"b": 4, "h": 16, "hkv": 16, "sq": 1,
+                                     "skv": 1024, "d": 64, "causal": False},
+    "rmsnorm_wide": {"rows": 1024, "d": 8192},
 }
 HOT_REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:17",
                 "matmul": "src/repro/kernels/matmul.py:21",
@@ -1204,7 +1218,13 @@ def hot_phase(host: dict, dev, matmul_tol) -> dict:
                 m, n = HOT[call]["m"], HOT[call]["n"]
                 ctas = f" ctas={matmul.simt_ctas(m, n)}"
             elif kname == "rmsnorm":
-                ctas = f" ctas={rmsnorm.ctas(t[0].shape[0])}"
+                rows_, d_ = t[0].shape
+                ctas = (f" ctas={rmsnorm.ctas(rows_, d_, dtype)} "
+                        f"path={rmsnorm.path(d_, dtype)}")
+            elif kname == "flash_decode":
+                B, H, Sq, d = t[0].shape
+                Hkv, Skv = t[1].shape[1], t[1].shape[2]
+                ctas = decode_note(B, Hkv, Skv, dtype, d)
             elif kname == "flash_attention":
                 B, H, Sq, d = t[0].shape
                 ctas = (f" ctas={flash_attention.simt_ctas(B, H, Sq, d)} "
@@ -1219,6 +1239,69 @@ def hot_phase(host: dict, dev, matmul_tol) -> dict:
                                     note=ctas)
             del t
             torch.cuda.empty_cache()
+    rows.update(hot_extra_rows(dev))
+    return rows
+
+
+def decode_note(B, Hkv, Skv, dtype, d) -> str:
+    """The decode kernel's CTAs and parts of a kv group for such a call
+    (``flash_attention.decode_split``): in bfloat16 a cluster of ranks of
+    ``per`` keys, in float32 splits of ``per`` keys, a warp each in CTAs
+    of 4 warps (and a merge kernel after them)."""
+    from repro_torch.kernels import flash_attention
+
+    parts, per = flash_attention.decode_split(B, Hkv, Skv, dtype, d)
+    if dtype == torch.bfloat16:
+        return f" ctas={B * Hkv * parts} cluster={parts} per={per}"
+    return f" ctas={B * Hkv * -(-parts // 4)} splits={parts} per={per}"
+
+
+def hot_extra_rows(dev) -> dict:
+    """Phase 4's short lines (``HOT_EXTRA``, bfloat16, inputs drawn from
+    their own generator of ``SEED``): each through ``ops`` with fresh
+    counts, held against its plain version and the oracle, then timed
+    beside PyTorch's call (``kernel_row``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ops, rmsnorm
+
+    rng = np.random.default_rng(SEED)
+    dt = torch.bfloat16
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev).to(dt)
+
+    p = HOT_EXTRA["flash_attention_decode_qwen2"]
+    q = draw(p["b"], p["h"], p["sq"], p["d"])
+    k, v = (draw(p["b"], p["hkv"], p["skv"], p["d"]) for _ in range(2))
+    name = "flash_decode/qwen2-0.5b_decode/bfloat16"
+    rows = {name: kernel_row(
+        "hot", name, "flash_decode", "flash_attention", p, dt,
+        (lambda: ops.flash_attention(q, k, v, causal=False),
+         lambda: flash_attention.plain(q, k, v, causal=False),
+         lambda: ops.flash_attention(q, k, v, causal=False, mode="ref"),
+         lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True)),
+        (flash_attention.PLAIN_TOL["decode", dt],
+         hot_tol("flash_attention", dt, None)),
+        note=decode_note(p["b"], p["hkv"], p["skv"], dt, p["d"]))}
+    del q, k, v
+    p = HOT_EXTRA["rmsnorm_wide"]
+    x, scale = draw(p["rows"], p["d"]), draw(p["d"])
+    w = (1.0 + scale).to(dt)
+    name = "rmsnorm/wide_internvl2-76b/bfloat16"
+    tol = hot_tol("rmsnorm", dt, None)
+    rows[name] = kernel_row(
+        "hot", name, "rmsnorm", "rmsnorm", p, dt,
+        (lambda: ops.rmsnorm(x, scale),
+         lambda: rmsnorm.rmsnorm_plain(x, scale),
+         lambda: ops.rmsnorm(x, scale, mode="ref"),
+         lambda: F.rms_norm(x, (p["d"],), weight=w, eps=1e-5)),
+        ((tol, tol), tol),
+        note=f" ctas={rmsnorm.ctas(p['rows'], p['d'], dt)} "
+             f"path={rmsnorm.path(p['d'], dt)}")
+    del x, scale
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1386,7 +1469,7 @@ def lm_times(fn) -> tuple[float, float | None, list]:
 
 def lm_kernel_rows(cfg, params, prompt, rng, totals, dev, card,
                    tag="lm") -> dict:
-    """Each kernel of the LM path (rmsnorm, the tc prefill, the split-kv
+    """Each kernel of the LM path (rmsnorm, the tc prefill, the cluster
     decode) at ``prompt``'s shapes, on its first attention's inputs
     (layer 0's, or the hybrid's shared block's), against its plain
     version, the oracle and PyTorch's call (``kernel_row``), ``launches``
@@ -1450,9 +1533,12 @@ def lm_kernel_rows(cfg, params, prompt, rng, totals, dev, card,
     out = {}
     for kname, (fn, p, fns, plain_tol) in calls.items():
         name = f"{kname}/{tag}_{cfg.name}/{str(dt).removeprefix('torch.')}"
+        note = (decode_note(1, p["hkv"], p["skv"], dt, p["d"])
+                if kname == "flash_decode" else "")
         out[name] = kernel_row(f"{tag} kernel", name, kname, fn, p, dt, fns,
                                (plain_tol, hot_tol(fn, dt, None)),
-                               launches=totals[kname], note=f" card={card}")
+                               launches=totals[kname],
+                               note=f"{note} card={card}")
     del q, k, v, q1, x, rows2d, xn, scale
     return out
 
@@ -1552,7 +1638,7 @@ def lm_phase(dev) -> dict:
             "flash_attention_tc" or \
             flash_kernel(cfg, 1, 1, 1, dev) != "flash_decode":
         raise AssertionError("lm: the path would not take the tc prefill "
-                             "and split-kv decode kernels")
+                             "and cluster decode kernels")
 
     totals = {}
 
@@ -2273,7 +2359,7 @@ def moe_phase(dev) -> dict:
             "flash_attention_tc" or \
             flash_kernel(cfg, 1, 1, 1, dev) != "flash_decode":
         raise AssertionError("moe: the path would not take the tc prefill "
-                             "and split-kv decode kernels")
+                             "and cluster decode kernels")
 
     # (a) the main path: phase 5's traffic under both policies, then the
     # long prompt (a short warm-up first, its counts not kept)
@@ -2433,9 +2519,9 @@ def consistency_check(cfg, params, dev, label, card, B=2, S=16, Sp=12):
 def gated_norm_row(cfg, params, prompt, rng, totals, card) -> dict:
     """Phase 8 (e): rmsnorm in float32 on Mamba2's gated norm at the long
     prompt's shape (``[S, d_inner]``, rows wider than the kernel's
-    one-pass 2,304 floats), on layer 0's own input to it and a scale
-    drawn from ``rng``, against its plain version, the oracle and
-    ``F.rms_norm`` (``kernel_row``)."""
+    register path's 2,304 floats: its wide path, a CTA a row), on layer
+    0's own input to it and a scale drawn from ``rng``, against its plain
+    version, the oracle and ``F.rms_norm`` (``kernel_row``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, rmsnorm
@@ -2472,7 +2558,8 @@ def gated_norm_row(cfg, params, prompt, rng, totals, card) -> dict:
          lambda: ops.rmsnorm(y, scale, mode="ref"),
          lambda: F.rms_norm(y, (d,), weight=w, eps=1e-5)),
         ((tol, tol), tol), launches=totals["rmsnorm"],
-        note=f" two_pass={d > 2304} ctas={rmsnorm.ctas(rows)} card={card}")}
+        note=f" path={rmsnorm.path(d, torch.float32)} "
+             f"ctas={rmsnorm.ctas(rows, d, torch.float32)} card={card}")}
 
 
 def ssm_serve_check(arch, dev, card) -> dict:
@@ -2499,7 +2586,7 @@ def ssm_serve_check(arch, dev, card) -> dict:
                            dev) != "flash_attention_tc"
               or flash_kernel(cfg, 1, 1, 1, dev) != "flash_decode"):
         raise AssertionError("ssm: the shared attention would not take the "
-                             "tc prefill and split-kv decode kernels")
+                             "tc prefill and cluster decode kernels")
 
     # the main path: phase 5's traffic under both policies, then the long
     # prompt (a short warm-up first, its counts not kept)

@@ -2,9 +2,16 @@
 memory, streams, events and graphs, and the suite (see ``repro.core`` for
 the reference)."""
 from repro_torch.core.api import (
+    CacheStats,
     LaunchConfig,
+    cache_clear,
+    cache_resize,
+    cache_size,
+    cache_stats,
     compiled,
     coverage,
+    disable_disk_cache,
+    enable_disk_cache,
     launch,
     supported,
 )
@@ -23,6 +30,7 @@ from repro_torch.core.kernel import (
     BlockState,
     ChainStats,
     ChainStep,
+    CompiledKernel,
     Ctx,
     KernelDef,
     LaunchChain,
@@ -34,21 +42,34 @@ from repro_torch.core.memory import (
     CudaError,
     DeviceBuffer,
     Space,
+    UnsupportedSpace,
     cuda_free,
     cuda_malloc,
     cuda_memcpy_async,
     cuda_memcpy_d2h,
     cuda_memcpy_h2d,
+    cuda_memcpy_to_symbol,
 )
 from repro_torch.core.streams import Event, Policy, Runtime, Stream
 
+
+
+def __getattr__(name):
+    if name == "BACKENDS":  # a live view of the registry
+        return backend_names()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
-    "WARP_SIZE", "Backend", "BlockState", "ChainStats", "ChainStep",
-    "ConstArray", "Ctx", "CudaError", "DeviceBuffer", "Dim3", "Event",
-    "Graph", "GraphError", "GraphExec", "KernelDef", "LaunchChain",
-    "LaunchConfig", "Native", "Policy", "Runtime", "Space", "Stream",
-    "UnknownBackend", "UnsupportedKernel", "backend_names", "compiled",
-    "coverage", "cuda_free", "cuda_malloc", "cuda_memcpy_async",
-    "cuda_memcpy_d2h", "cuda_memcpy_h2d", "get_backend", "launch",
-    "register_backend", "supported", "unregister_backend",
+    "BACKENDS", "Backend", "BlockState", "CacheStats", "ChainStats",
+    "ChainStep", "CompiledKernel", "ConstArray", "Ctx", "CudaError",
+    "DeviceBuffer", "Dim3", "Event", "Graph", "GraphError", "GraphExec",
+    "KernelDef", "LaunchChain", "LaunchConfig", "Native", "Policy",
+    "Runtime", "Space", "Stream", "UnknownBackend", "UnsupportedKernel",
+    "UnsupportedSpace", "WARP_SIZE", "backend_names", "cache_clear",
+    "cache_resize", "cache_size", "cache_stats", "compiled", "coverage",
+    "cuda_free", "cuda_malloc", "cuda_memcpy_async", "cuda_memcpy_d2h",
+    "cuda_memcpy_h2d", "cuda_memcpy_to_symbol", "disable_disk_cache",
+    "enable_disk_cache", "get_backend", "launch", "register_backend",
+    "supported", "unregister_backend",
 ]

@@ -56,7 +56,8 @@ from repro_torch.core import _native, compile_cache
 from repro_torch.core import grain as grain_mod
 from repro_torch.core import memory as memory_mod
 from repro_torch.core import packing
-from repro_torch.core.backends import backend_names, get_backend
+from repro_torch.core.backends import (backend_names, get_backend,
+                                        register_backend)
 from repro_torch.core.dim3 import Dim3
 from repro_torch.core.kernel import (
     CompiledKernel,
@@ -66,10 +67,10 @@ from repro_torch.core.kernel import (
 from repro_torch.core.lower_shard import DEFAULT_AXIS
 
 __all__ = [
-    "CacheStats", "LaunchConfig", "cache_clear", "cache_resize",
+    "BACKENDS", "CacheStats", "LaunchConfig", "cache_clear", "cache_resize",
     "cache_size", "cache_stats", "compiled", "coverage", "device_opts",
     "disable_disk_cache", "enable_disk_cache", "launch", "launch_batch",
-    "supported",
+    "register_backend", "supported",
 ]
 
 # The cache lives ON each kernel (a private dict attached to the
@@ -100,6 +101,12 @@ class CacheStats:
 
 
 _STATS = CacheStats()
+
+
+def __getattr__(name: str):
+    if name == "BACKENDS":  # a live view of the registry
+        return backend_names()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _kernel_cache(kernel: KernelDef) -> dict:

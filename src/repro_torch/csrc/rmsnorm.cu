@@ -1,9 +1,8 @@
 // rmsnorm: out[r, :] = x[r, :] * (1 / sqrt(mean(x[r, :]^2) + eps))
 // * (1 + scale), in float32, written once in x's dtype (float32 or
-// bfloat16, rounded to nearest even); scale's dtype is its own.  Each warp
-// normalises one row: its lanes sum their squares across the row, a
-// __shfl_xor_sync butterfly adds the 32 partial sums, then the row is
-// scaled and written.
+// bfloat16, rounded to nearest even); scale's dtype is its own.  A row is
+// read from device memory once, held in registers, summed, then scaled
+// and written from the registers.
 //
 // Replaces: the TPU kernel src/repro/kernels/rmsnorm.py:17 (`_kernel`,
 // called through `rmsnorm`, src/repro/kernels/rmsnorm.py:26).
@@ -12,35 +11,48 @@
 // bytes an element in bfloat16: 67 MB for x[8192, 2048]; 134 MB in
 // float32) over 3.35 TB/s is 0.020 ms (0.040); the 4 flops an element
 // take 0.0010 ms at 67 TFLOP/s.  The design reads x from device memory
-// once and keeps many loads in flight:
-// - the row lives in the lane's registers: K = ceil(d / (32 VEC)) 16-byte
-//   chunks a lane (VEC = 4 floats or 8 bfloat16s), chunk j of lane l at
-//   column c = VEC l + 32 VEC j, K a template argument (1 ... 18, a
-//   switch in the launcher: rows up to 2304 wide in float32, 4608 in
-//   bfloat16; d = 2048 is K = 16 in float32, 8 in bfloat16).  A lane
-//   issues all K loads before the first fmaf, sums its squares over its
-//   registers in column order, and scales and stores from the registers:
-//   there is no second read of x;
-// - 1 + scale is read with 16-byte loads (8 for a bfloat16 scale beside
-//   float32 x) as each chunk is scaled: the 4 or 8 KB row of scale stays
-//   in L1 for every warp of the SM, so there is no shared memory and no
-//   barrier, and a warp starts its sum as soon as its own row is in;
-// - CTAs of 8 warps, a warp a row: ceil(rows / 8) CTAs (1,024 at the main
-//   path's 8192 rows), whatever `grain`; a row's result never depended on
-//   it.  Only a lane's last chunk is predicated on d.
-// tools/rmsnorm_variants.cu times this beside 1 + scale staged in shared
-// memory, two rows a warp, a register cap for two CTAs an SM, a warp that
-// walks rows with the next row's loads in flight, and 1 + scale held in
-// registers (PERF.md).
-// Rows wider than 18 chunks a lane, rows whose width is not a multiple of
+// once and keeps many loads in flight.  Two paths for 16-byte aligned
+// rows whose width is a multiple of VEC (4 floats or 8 bfloat16s):
+// - the register path, a warp a row: K = ceil(d / (32 VEC)) 16-byte
+//   chunks a lane, chunk j of lane l at column c = VEC l + 32 VEC j, K a
+//   template argument (1 ... 18, a switch in the launcher: rows up to
+//   2304 wide in float32, 4608 in bfloat16; d = 2048 is K = 16 in
+//   float32, 8 in bfloat16).  A lane issues all K loads before the first
+//   fmaf, sums its squares over its registers in column order, and a
+//   __shfl_xor_sync butterfly adds the 32 partial sums.  CTAs of 8 warps,
+//   a warp a row: ceil(rows / 8) CTAs (1,024 at the main path's 8192
+//   rows), whatever `grain`; a row's result never depended on it.  Only
+//   a lane's last chunk is predicated on d;
+// - the wide path, a CTA a row (rows wider than the switch, up to
+//   kWideMax chunks: 16,384 floats or 32,768 bfloat16s): the row held in
+//   the registers of a CTA of kWideWarps warps, K = ceil(d / (32
+//   kWideWarps VEC)) chunks a thread (3 ... 16, a second switch; 7 at
+//   zamba2-7b's float32 gated norm of 7,168, 4 at bfloat16's 8,192),
+//   chunk j of thread t at column VEC t + 32 kWideWarps VEC j.  A thread
+//   issues its K loads before its first fmaf and sums its squares in
+//   column order; each warp's butterfly gives a warp sum, and every
+//   thread adds the kWideWarps warp sums from shared memory in warp
+//   order, so all threads of the row get the same bits.  `rows` CTAs
+//   (1,024 at [1024, 7168]; 4 at zamba2's decode step).
+// In both, 1 + scale is read with 16-byte loads (8 for a bfloat16 scale
+// beside float32 x) as each chunk is scaled: the row of scale stays in L1
+// for every warp of the SM.
+// tools/rmsnorm_variants.cu times the register path beside 1 + scale
+// staged in shared memory, two rows a warp, a register cap for two CTAs
+// an SM, a warp that walks rows with the next row's loads in flight, and
+// 1 + scale held in registers; and the wide path at [1024, 7168] and
+// [4, 7168] float32, [1024, 8192] and [4096, 5120] bfloat16 beside the
+// two-pass kernel it replaced and CTAs of 4 and 16 warps (PERF.md).
+// Rows wider than kWideMax chunks, rows whose width is not a multiple of
 // VEC, x or out off a 16-byte boundary and scale off one take two passes
-// over the row (16-byte loads of x where aligned, one element a load
-// otherwise): the second pass finds the row in L1 or L2, and 1 + scale is
-// read a value at a time.
-// The 16-byte instantiations give a lane the same columns in the same
-// order, so they give the same bits; one element a load sums a lane's
-// squares in another order.  1 / sqrtf is the correctly rounded
-// reciprocal square root's two IEEE steps, not the approximate rsqrtf.
+// over the row, a warp a row (16-byte loads of x where aligned, one
+// element a load otherwise): the second pass finds the row in L1 or L2,
+// and 1 + scale is read a value at a time.
+// The register path's 16-byte instantiations give a lane the same
+// columns in the same order, so they give the same bits; one element a
+// load sums a lane's squares in another order.  1 / sqrtf is the
+// correctly rounded reciprocal square root's two IEEE steps, not the
+// approximate rsqrtf.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,6 +69,10 @@ __device__ __forceinline__ void from_f32(float v, __nv_bfloat16* out) {
 }
 
 constexpr int kWarps = 8, kThreads = 32 * kWarps;
+// the wide path: warps a CTA (a row), and the most chunks a row it holds
+constexpr int kWideWarps = 8, kWideMax = 16 * 32 * kWideWarps;
+// the register path's switch: chunks a lane
+constexpr int kRegMax = 18;
 
 // one lane's VEC elements: a 16-byte access when VEC > 1
 template <typename T, int VEC>
@@ -146,6 +162,55 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// a CTA of W warps a row, K chunks of VEC elements a thread, the row in
+// the CTA's registers
+template <typename TX, typename TS, int K, int W>
+__global__ void __launch_bounds__(32 * W)
+    rmsnorm_wide(const TX* __restrict__ x, const TS* __restrict__ scale,
+                 TX* __restrict__ out, int d, float eps) {
+  constexpr int VEC = 16 / sizeof(TX), kStride = 32 * W * VEC;
+  __shared__ float part[W];
+  const int t = threadIdx.x;
+  const TX* xr = x + (size_t)blockIdx.x * d + VEC * t;
+  TX* orow = out + (size_t)blockIdx.x * d + VEC * t;
+  alignas(16) TX e[K][VEC];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    if (VEC * t + kStride * j < d) {
+      load(xr + kStride * j, e[j]);
+    } else {
+      *reinterpret_cast<uint4*>(e[j]) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  float ss = 0.0f;       // a zero chunk adds exactly 0
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float v = to_f32(e[j][i]);
+      ss = fmaf(v, v, ss);
+    }
+  ss = warp_sum(ss);
+  if (t % 32 == 0) part[t / 32] = ss;
+  __syncthreads();
+  ss = part[0];
+#pragma unroll
+  for (int w = 1; w < W; ++w) ss += part[w];
+  const float inv = 1.0f / sqrtf(ss / (float)d + eps);
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    if (VEC * t + kStride * j < d) {
+      float g[VEC];
+      one_plus(scale + VEC * t + kStride * j, g);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        from_f32(__fmul_rn(__fmul_rn(to_f32(e[j][i]), inv), g[i]),
+                 &e[j][i]);
+      store(e[j], orow + kStride * j);
+    }
+  }
+}
+
 // two passes over the row; VEC: elements a lane moves in one 16-byte
 // access (1 when the rows are not 16-byte aligned)
 template <typename TX, typename TS, int VEC>
@@ -181,44 +246,80 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int ctas_of(int rows) { return (rows + kWarps - 1) / kWarps; }
+// the path of an aligned row of d elements of VEC a chunk: 0 the
+// register path, 1 the wide path, 2 two passes
+int path_of(int d, int vec) {
+  if (d % vec) return 2;
+  const int chunks = d / vec;
+  return chunks <= 32 * kRegMax ? 0 : chunks <= kWideMax ? 1 : 2;
+}
+
+int ctas_of(int rows, int path) {
+  return path == 1 ? rows : (rows + kWarps - 1) / kWarps;
+}
 
 template <typename TX, typename TS>
 cudaError_t launch(const void* x, const void* scale, void* out, int rows,
                    int d, float eps, cudaStream_t s) {
   constexpr int kVec = 16 / sizeof(TX);
-  const unsigned ctas = ctas_of(rows);
   const TX* xp = (const TX*)x;
   const TS* sp = (const TS*)scale;
   TX* op = (TX*)out;
   if (d % kVec || ((uintptr_t)x | (uintptr_t)out) % 16) {
-    rmsnorm_two_pass<TX, TS, 1><<<ctas, kThreads, 0, s>>>(xp, sp, op, rows,
-                                                          d, eps);
+    rmsnorm_two_pass<TX, TS, 1><<<ctas_of(rows, 2), kThreads, 0, s>>>(
+        xp, sp, op, rows, d, eps);
     return cudaGetLastError();
   }
   if ((uintptr_t)scale % 16 == 0) {
-    switch ((d + 32 * kVec - 1) / (32 * kVec)) {
+    const int path = path_of(d, kVec);
+    const unsigned ctas = ctas_of(rows, path);
+    if (path == 0) {
+      switch ((d + 32 * kVec - 1) / (32 * kVec)) {
 #define CASE(K)                                                        \
   case K:                                                              \
     rmsnorm_kernel<TX, TS, K><<<ctas, kThreads, 0, s>>>(xp, sp, op,    \
                                                         rows, d, eps); \
     return cudaGetLastError();
-      CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
-      CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15)
-      CASE(16) CASE(17) CASE(18)
+        CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+        CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15)
+        CASE(16) CASE(17) CASE(18)
 #undef CASE
+      }
+    }
+    if (path == 1) {
+      constexpr int kPer = 32 * kWideWarps * kVec;
+      switch ((d + kPer - 1) / kPer) {
+#define CASE(K)                                                           \
+  case K:                                                                 \
+    rmsnorm_wide<TX, TS, K, kWideWarps><<<ctas, 32 * kWideWarps, 0, s>>>( \
+        xp, sp, op, d, eps);                                              \
+    return cudaGetLastError();
+        CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8) CASE(9) CASE(10)
+        CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)
+#undef CASE
+      }
     }
   }
-  rmsnorm_two_pass<TX, TS, kVec><<<ctas, kThreads, 0, s>>>(xp, sp, op, rows,
-                                                           d, eps);
+  rmsnorm_two_pass<TX, TS, kVec><<<ctas_of(rows, 2), kThreads, 0, s>>>(
+      xp, sp, op, rows, d, eps);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The CTAs of 256 threads that launch_rmsnorm starts: a warp a row, for
-// every width, dtype and grain.
-extern "C" int rmsnorm_ctas(int rows) { return ctas_of(rows); }
+// The CTAs that launch_rmsnorm starts for rows of d elements of x's dtype
+// (x_bf16: 0 float32, 1 bfloat16) with x, out and scale on 16-byte
+// boundaries, whatever the grain: `rows` on the wide path (a CTA of 8
+// warps a row), ceil(rows / 8) CTAs of 8 warps otherwise (a warp a row).
+extern "C" int rmsnorm_ctas(int rows, int d, int x_bf16) {
+  return ctas_of(rows, path_of(d, x_bf16 ? 8 : 4));
+}
+
+// The path that launch_rmsnorm takes for such rows: 0 the register path,
+// 1 the wide path, 2 two passes.
+extern "C" int rmsnorm_path(int d, int x_bf16) {
+  return path_of(d, x_bf16 ? 8 : 4);
+}
 
 // x_bf16 / scale_bf16: 0 for float32, 1 for bfloat16.  grain divides rows
 // (the wrapper shrinks it so); it is the reference's rows a program and

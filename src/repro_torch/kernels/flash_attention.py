@@ -10,10 +10,15 @@ reference's tile arguments, clamps and refusals (``Sq % q_blk`` and
 tiles, and any ``d`` up to 128.  Three kernels, chosen by :func:`route`:
 
 * ``"decode"`` - a kv group's query rows are few (``(H // Hkv) * Sq <=
-  8``) and its rows 16-byte loads: ``csrc/flash_decode.cu`` splits the
-  kv axis over warps, each reading its keys once for the whole group, and
-  merges the splits in the same launcher call; float32 arithmetic, either
-  dtype.  Its plain version is :func:`flash_decode_plain`;
+  8``) and its rows 16-byte loads: ``csrc/flash_decode.cu`` cuts each
+  kv group's keys into parts (:func:`decode_split`) and merges them in
+  order, float32 arithmetic in both dtypes.  bfloat16: a thread-block
+  cluster a kv group on the tensor cores, each warp loading its keys by
+  TMA, the warps' partials and then the ranks' folded through
+  distributed shared memory, in one launch with no scratch.  float32: the
+  split-kv kernel, a warp a split on the CUDA cores, its partials in a
+  float32 scratch merged by a second kernel.  Its plain version is
+  :func:`flash_decode_plain`;
 * ``"tc"`` - bfloat16 prefill whose tensors TMA can address:
   ``csrc/flash_attention_tc.cu``, FlashAttention-3's design on Hopper (a
   producer warpgroup keeping K and V tiles of ``TC_KV_TILE`` keys in
@@ -33,8 +38,8 @@ tiles.
 float32 ``lse[B, H, Sq]``: the natural log of the softmax's denominator
 over the scaled scores, ``m + log(max(l, 1e-30))`` as the reference's
 ``_flash_fwd_lse`` gives it (the prefill kernels keep ``m`` in log2 units
-of pre-scaled scores and write ``m ln 2 + ln l``; the decode route's merge
-writes it from the row's final ``m`` and ``l``).  The trainable
+of pre-scaled scores and write ``m ln 2 + ln l``; so does the decode
+kernel, from the row's folded ``m`` and ``l``).  The trainable
 attention's backward reads it.  Without it the kernels take a null
 pointer and run as before, bit for bit.
 """
@@ -71,10 +76,20 @@ MAX_D = 128
 #: the most query rows of one kv group (heads times queries) that the
 #: decode kernel holds in registers
 DECODE_ROWS = 8
-#: warps the decode kernel aims to run, one wave of an H100 (132 SMs of 4
-#: blocks of 4 warps): its split of the kv axis is ``B * Hkv * Skv /
-#: DECODE_WARPS`` keys, rounded up to whole 32s
-DECODE_WARPS = 132 * 16
+#: the decode kernel's warps a part of a kv group's keys, by dtype: a
+#: tile of the part's keys is ``DECODE_WARPS[dtype] * decode_tile(dtype,
+#: d)`` keys, warp w taking the w-th ``decode_tile``.  bfloat16: a cluster
+#: rank's CTA of 4 warps; float32: one warp a split
+DECODE_WARPS = {torch.bfloat16: 4, torch.float32: 1}
+#: bfloat16: the most CTAs of the decode kernel's cluster, one kv group's
+DECODE_CLUSTER = 8
+#: bfloat16: the CTAs below which :func:`decode_split` doubles a group's
+#: cluster, one an SM of an H100
+DECODE_CTAS = 132
+#: float32: the warps the split-kv kernel aims to run, one wave of an H100
+#: (132 SMs of 4 blocks of 4 warps): its split of the kv axis is ``B *
+#: Hkv * Skv / DECODE_SPLIT_WARPS`` keys, rounded up to whole 32s
+DECODE_SPLIT_WARPS = 132 * 16
 #: (rtol, atol) within which each route's kernel holds its plain version,
 #: by route and dtype.  Kernel and plain version compute the same float32
 #: values up to the order of their sums and round the output once, so in
@@ -85,8 +100,10 @@ DECODE_WARPS = 132 * 16
 #: where an output cancels to near 0: tools/flash_plain_err.py measured at
 #: worst an atol of 1.1e-3 there (granite-3-2b's prefill, 3 seeds, on an
 #: H100; the wgmma kernel on 128-key tiles as the mma.sync kernel on 64),
-#: 1.7e-7 on the "simt" route and 4e-9 on "decode"; the atols below keep
-#: room of 2.7x and more.  float32 keeps tests/test_kernels.py's 2e-5.
+#: 1.7e-7 on the "simt" route, and on "decode" 1.7e-7 (the tensor cores'
+#: p·v with p as bfloat16 hi + lo, NVIDIA H100 80GB HBM3 at 700 W); the
+#: atols below keep room of 2.7x and more.  float32 keeps
+#: tests/test_kernels.py's 2e-5.
 PLAIN_TOL = {**{(r, torch.float32): (2e-5, 2e-5)
                 for r in ("simt", "tc", "decode")},
              ("simt", torch.bfloat16): (1e-2, 1e-4),
@@ -147,20 +164,50 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return "simt"
 
 
-def decode_split(B: int, Hkv: int, Skv: int) -> tuple[int, int]:
-    """``(split, nsplit)``: the keys of each of the decode kernel's splits
-    (a multiple of 32) and their number, ``ceil(Skv / split)``."""
-    split = max(32, -(-B * Hkv * Skv // DECODE_WARPS))
-    split = -(-split // 32) * 32
-    return split, -(-Skv // split)
-
-
 def decode_tile(dtype: torch.dtype, d: int) -> int:
-    """Keys a warp of the decode kernel loads a step: 4 loads a lane of
-    16 bytes, ``DP * size / 16`` lanes a key row.  The wrapper passes it
-    to the launcher, which refuses any other tile than its own."""
-    size = torch.empty(0, dtype=dtype).element_size()
-    return 4 * 32 // (_padded(d) * size // 16)
+    """Keys a warp of the decode kernel takes from each tile: in bfloat16
+    16, one k16 step of the tensor cores' ``p @ v``; in float32 4 key rows
+    a lane, ``DP * 4 / 16`` lanes a key row.  The wrapper passes it to the
+    launcher, which refuses any other tile than its own."""
+    if dtype == torch.bfloat16:
+        return 16
+    return 4 * 32 // (_padded(d) * 4 // 16)
+
+
+def decode_split(B: int, Hkv: int, Skv: int, dtype: torch.dtype,
+                 d: int) -> tuple[int, int]:
+    """``(parts, per)``: the decode kernel's parts of a kv group's keys
+    and the keys of each, ``parts = ceil(Skv / per)``, none empty.
+    bfloat16: a cluster's ranks, ``per`` a whole number of tiles; the
+    cluster doubles, up to ``DECODE_CLUSTER``, while the ``B * Hkv *
+    parts`` CTAs stay below ``DECODE_CTAS`` and no rank would be left
+    without keys.  float32: the split-kv kernel's splits of ``B * Hkv *
+    Skv / DECODE_SPLIT_WARPS`` keys rounded up to whole 32s.  The same
+    rule as the launcher's ``flash_decode_per`` (:func:`decode_per`),
+    kept here for the plain version, which runs where no card is."""
+    if dtype != torch.bfloat16:
+        per = max(32, -(-B * Hkv * Skv // DECODE_SPLIT_WARPS))
+        per = -(-per // 32) * 32
+        return -(-Skv // per), per
+    tile = DECODE_WARPS[dtype] * decode_tile(dtype, d)
+
+    def per_rank(c):
+        return -(-Skv // (c * tile)) * tile
+
+    cluster = 1
+    while (cluster < DECODE_CLUSTER and B * Hkv * cluster < DECODE_CTAS
+           and (2 * cluster - 1) * per_rank(2 * cluster) < Skv):
+        cluster *= 2
+    return cluster, per_rank(cluster)
+
+
+def decode_per(B: int, Hkv: int, Skv: int, dtype: torch.dtype,
+               d: int) -> int:
+    """The keys of each part of a kv group as the decode kernel's
+    launcher's ``flash_decode_per`` gives them (builds the kernels'
+    library at first use)."""
+    return _native.function("flash_decode_per", (I,) * 5)(
+        B, Hkv, Skv, d, int(dtype == torch.bfloat16))
 
 
 def _check(q, k, v, q_blk, kv_blk) -> torch.device:
@@ -237,60 +284,75 @@ def flash_attention_plain(q, k, v, *, causal=True, q_blk=128, kv_blk=128,
     return out
 
 
+def _fold(m, l, acc, dim):
+    """Fold partials ``(m, l, acc)`` along ``dim`` in index order, as the
+    decode kernel folds its warps and then its parts: ``M = max m``, ``l
+    = sum l e^(m - M)``, ``acc = sum acc e^(m - M)``."""
+    top = m.amax(dim)
+    l_all, acc_all = torch.zeros_like(l.select(dim, 0)), None
+    for i in range(m.shape[dim]):
+        w = torch.exp(m.select(dim, i) - top)
+        l_all = l_all + l.select(dim, i) * w
+        part = acc.select(dim, i) * w[..., None]
+        acc_all = part if acc_all is None else acc_all + part
+    return top, l_all, acc_all
+
+
 def flash_decode_plain(q, k, v, *, causal=True, q_blk=128, kv_blk=128,
                        with_lse=False):
     """The decode kernel's arithmetic in PyTorch, float32 throughout: a kv
-    group's ``(H // Hkv) * Sq`` rows together, the kv axis cut into the
-    kernel's splits (:func:`decode_split`), each walked in its tiles
-    (:func:`decode_tile`) with the online softmax (masked scores
-    ``-1e30``), then the splits merged in order: ``M = max m``, ``l = sum
-    l e^(m - M)``, ``acc = sum acc e^(m - M)``, ``acc / max(l, 1e-30)``;
-    ``with_lse`` returns ``(out, M + log(max(l, 1e-30)))``."""
+    group's ``(H // Hkv) * Sq`` rows together; the kv axis cut into the
+    kernel's parts (:func:`decode_split`: cluster ranks in bfloat16,
+    splits in float32), each part's keys into tiles of ``DECODE_WARPS *
+    decode_tile`` keys and each tile into its warps' ``decode_tile`` keys;
+    each warp's online softmax over its keys, tile by tile (masked scores
+    ``-1e30``, their p 0, as a key past the cache's end); then each part's
+    warps folded in warp order and the parts in part order (``M = max
+    m``, ``l = sum l e^(m - M)``, ``acc = sum acc e^(m - M)``), ``acc /
+    max(l, 1e-30)``; ``with_lse`` returns
+    ``(out, M + log(max(l, 1e-30)))``."""
     _check(q, k, v, q_blk, kv_blk)
     B, H, Sq, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     R = (H // Hkv) * Sq
+    dev = q.device
     scale = 1.0 / math.sqrt(d)
     # row r of a group is head r // Sq of the group, query r % Sq
     qf = q.reshape(B, Hkv, R, d).float()
-    kf, vf = k.float(), v.float()
-    qpos = (torch.arange(R, device=q.device) % Sq)[:, None]
-    split, _ = decode_split(B, Hkv, Skv)
-    tile = decode_tile(q.dtype, d)
-    parts = []
-    for s0 in range(0, Skv, split):
-        end = min(s0 + split, Skv)
-        m = torch.full((B, Hkv, R), NEG_INF, device=q.device)
-        l = torch.zeros(B, Hkv, R, device=q.device)
-        acc = torch.zeros(B, Hkv, R, d, device=q.device)
-        for k0 in range(s0, end, tile):
-            keys = slice(k0, min(k0 + tile, end))
-            kt, vt = kf[:, :, keys], vf[:, :, keys]
-            s = torch.einsum("bhrd,bhkd->bhrk", qf, kt) * scale
-            if causal:
-                kpos = k0 + torch.arange(kt.shape[2],
-                                         device=q.device)[None, :]
-                s = torch.where(qpos >= kpos, s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum("bhrk,bhkd->bhrd",
-                                                       p, vt)
-            m = m_new
-        parts.append((m, l, acc))
-    top = torch.stack([m for m, _, _ in parts]).amax(0)
-    l_all = torch.zeros_like(top)
-    acc_all = torch.zeros(B, Hkv, R, d, device=q.device)
-    for m, l, acc in parts:
-        w = torch.exp(m - top)
-        l_all = l_all + l * w
-        acc_all = acc_all + acc * w[..., None]
-    out = acc_all / torch.clamp(l_all, min=1e-30)[..., None]
+    parts, per = decode_split(B, Hkv, Skv, q.dtype, d)
+    W, tw = DECODE_WARPS[q.dtype], decode_tile(q.dtype, d)
+    nt = per // (W * tw)
+    # keys as [part, tile, warp, key of the warp's], padded past Skv
+    pad = parts * per - Skv
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
+    kf = kf.reshape(B, Hkv, parts, nt, W, tw, d)
+    vf = vf.reshape(B, Hkv, parts, nt, W, tw, d)
+    kpos = torch.arange(parts * per, device=dev).reshape(parts, nt, W, tw)
+    qpos = (torch.arange(R, device=dev) % Sq)[:, None]
+    m = torch.full((B, Hkv, parts, W, R), NEG_INF, device=dev)
+    l = torch.zeros(B, Hkv, parts, W, R, device=dev)
+    acc = torch.zeros(B, Hkv, parts, W, R, d, device=dev)
+    for t in range(nt):
+        s = torch.einsum("bhrd,bhcwkd->bhcwrk", qf, kf[:, :, :, t]) * scale
+        keys = kpos[:, t][:, :, None, :]            # [parts, W, 1, tw]
+        seen = keys < Skv
+        if causal:
+            seen = seen & (qpos >= keys)
+        s = torch.where(seen, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(seen, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bhcwrk,bhcwkd->bhcwrd",
+                                                   p, vf[:, :, :, t])
+        m = m_new
+    m, l, acc = _fold(m, l, acc, 3)                 # the warps of a part
+    m, l, acc = _fold(m, l, acc, 2)                 # the parts
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
     out = out.reshape(B, H, Sq, d).to(q.dtype)
     if with_lse:
-        # row r of a group is head r // Sq of the group, query r % Sq
-        return out, _lse(top, l_all).reshape(B, H, Sq)
+        return out, _lse(m, l).reshape(B, H, Sq)
     return out
 
 
@@ -328,15 +390,17 @@ def flash_attention(q, k, v, *, causal=True, q_blk=128, kv_blk=128,
     scale = 1.0 / math.sqrt(d)
     which = route(q, k, v)
     if which == "decode":
-        split, nsplit = decode_split(B, Hkv, Skv)
-        rows = B * Hkv * nsplit * (H // Hkv) * Sq
-        part_m = torch.empty(rows, device=dev)
-        part_l = torch.empty(rows, device=dev)
-        part_acc = torch.empty(rows, d, device=dev)
-        KERNEL_DECODE(*ptrs, part_m.data_ptr(), part_l.data_ptr(),
-                      part_acc.data_ptr(), B, H, Hkv, Sq, Skv, d,
-                      int(causal), scale, split, nsplit,
-                      decode_tile(q.dtype, d),
+        parts, per = decode_split(B, Hkv, Skv, q.dtype, d)
+        scratch = (None,) * 3
+        if q.dtype != torch.bfloat16:
+            # the split-kv kernel's (m, l, acc) a row a split, merged by
+            # its second kernel
+            rows = B * H * Sq * parts
+            scratch = tuple(t.data_ptr() for t in (
+                torch.empty(rows, device=dev), torch.empty(rows, device=dev),
+                torch.empty(rows, d, device=dev)))
+        KERNEL_DECODE(*ptrs, *scratch, B, H, Hkv, Sq, Skv, d, int(causal),
+                      scale, parts, per, decode_tile(q.dtype, d),
                       dtype_code("flash_attention", q), lse_ptr, device=dev)
     elif which == "tc":
         KERNEL_TC(*ptrs, B, H, Hkv, Sq, Skv, d, int(causal), scale,

@@ -5,7 +5,8 @@ The counterpart of ``repro/kernels/rmsnorm.py``: in float32,
 ``x[rows, D]``, written once in ``x``'s dtype.  ``scale`` may have another
 float dtype than ``x``.  ``grain`` is the reference's rows a program: it
 shrinks to a divisor of ``rows`` as there, and does not change the
-kernel's launch, which gives each row one warp (``csrc/rmsnorm.cu``).
+kernel's launch, which gives each row one warp, or one CTA of 8 warps for
+rows wider than 2,304 floats or 4,608 bfloat16s (``csrc/rmsnorm.cu``).
 """
 from __future__ import annotations
 
@@ -26,11 +27,26 @@ def _grain(rows: int, grain: int) -> int:
     return grain
 
 
-def ctas(rows: int) -> int:
-    """The CTAs that the kernel's launcher starts for ``rows`` rows of any
-    width, dtype and grain, as its ``rmsnorm_ctas`` gives them (builds the
-    kernels' library at first use)."""
-    return _native.function("rmsnorm_ctas", (I,))(rows)
+def ctas(rows: int, d: int, dtype: torch.dtype) -> int:
+    """The CTAs that the kernel's launcher starts for ``rows`` rows of
+    ``d`` elements of ``dtype`` (x's), on 16-byte boundaries, at any grain,
+    as its ``rmsnorm_ctas`` gives them (builds the kernels' library at
+    first use): ``rows`` on the wide path, ``ceil(rows / 8)`` otherwise."""
+    return _native.function("rmsnorm_ctas", (I,) * 3)(
+        rows, d, int(dtype == torch.bfloat16))
+
+
+#: the launcher's paths, by the code its ``rmsnorm_path`` returns
+PATHS = ("register", "wide", "two_pass")
+
+
+def path(d: int, dtype: torch.dtype) -> str:
+    """The path that the kernel's launcher takes for rows of ``d``
+    elements of ``dtype`` on 16-byte boundaries, as its ``rmsnorm_path``
+    gives it: ``"register"`` (a warp a row), ``"wide"`` (a CTA a row) or
+    ``"two_pass"``."""
+    return PATHS[_native.function("rmsnorm_path", (I,) * 2)(
+        d, int(dtype == torch.bfloat16))]
 
 
 def _check(x, scale) -> torch.device:

@@ -3,7 +3,8 @@ versions of their newer kernels, against the JAX package.
 
 ``matmul.route`` and ``flash_attention.route`` pick a kernel from dtypes,
 shapes and alignment alone; the tests here pin that table.  On the CPU,
-``flash_decode_plain`` (the split-kv decode kernel's arithmetic) is held
+``flash_decode_plain`` (the decode kernel's arithmetic: a cluster of CTAs
+a kv group, their warps and ranks folded in order) is held, with its lse,
 against the reference's ``ops.flash_attention(mode="interpret")`` at
 ``tests/test_kernels.py``'s tolerances (2e-5 float32, 2e-2 bfloat16), and
 ``flash_attention_plain``'s bfloat16 rounding of p (the tensor-core
@@ -42,6 +43,32 @@ DECODE = [(2, 8, 2, 1, 1, 64, False),
           (1, 8, 2, 1, 4096, 64, False),
           (2, 4, 1, 1, 300, 128, False),
           (2, 8, 2, 2, 777, 64, True)]
+#: decode shapes whose plain version walks several cluster ranks and a
+#: partial last tile: Skv of 1, 31, 129 and 4,097; R (the group's heads
+#: times Sq) from 1 to 8; causal with Sq > 1; d of 32 to 128
+DECODE_RANKS = [(1, 1, 1, 1, 1, 64, False),
+                (2, 2, 1, 1, 31, 64, False),
+                (1, 3, 1, 1, 129, 32, False),
+                (1, 8, 1, 1, 4097, 64, False),
+                (1, 5, 1, 1, 300, 128, False),
+                (1, 6, 1, 1, 129, 112, False),
+                (1, 7, 1, 1, 1000, 64, False),
+                (1, 4, 1, 2, 129, 64, True),
+                (1, 2, 2, 3, 31, 32, True),
+                (1, 3, 1, 2, 1, 64, True),
+                (1, 4, 1, 2, 4097, 64, True),
+                (1, 4, 1, 2, 129, 112, True),
+                (1, 4, 1, 2, 31, 32, True)]
+#: the decode shapes whose kernel times stand in PERF.md: the hot path's
+#: (B 32, H 32, Hkv 8, Skv 4,096, d 64); deepseek-moe-16b's 16 heads of
+#: 128 and zamba2-7b's 32 heads of 112 over 1,024 keys; qwen2-0.5b's 16
+#: heads of 64 (14 / 2 padded to 16 / 16) over 1,024 keys, one slot and
+#: four
+DECODE_TARGETS = [(32, 32, 8, 1, 4096, 64, False),
+                  (1, 16, 16, 1, 1024, 128, False),
+                  (1, 32, 32, 1, 1024, 112, False),
+                  (1, 16, 16, 1, 1024, 64, False),
+                  (4, 16, 16, 1, 1024, 64, False)]
 #: the "simt" kernel's ragged cases: Sq and Skv off its query tile (256
 #: at d = 48 and 64, 128 at d = 16, 64 at d = 128) and off the 64-key
 #: tile, head widths 16, 48 and 128, causal and not, GQA
@@ -158,18 +185,42 @@ def test_flash_attention_route(dtype, shape, offset, want):
         assert tfa.route(q, k, _offset_view(k.shape, dtype, 1)) == "simt"
 
 
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+def test_decode_split_gives_every_rank_whole_tiles(dtype):
+    for B, Hkv, Skv, d in ((32, 8, 4096, 64), (1, 1, 1, 64), (2, 2, 1000, 64),
+                           (1, 8, 100_000, 128), (1, 16, 1024, 128),
+                           (1, 32, 1024, 112), (4, 16, 1024, 64),
+                           (1, 1, 4097, 64), (1, 1, 129, 32), (3, 5, 31, 80)):
+        parts, per = tfa.decode_split(B, Hkv, Skv, dtype, d)
+        tile = tfa.DECODE_WARPS[dtype] * tfa.decode_tile(dtype, d)
+        assert per % tile == 0
+        # every part has keys, and the parts cover the cache
+        assert (parts - 1) * per < Skv <= parts * per
+        if dtype == torch.bfloat16:
+            # a cluster, doubled only while the CTAs stay under one an SM
+            assert parts in (1, 2, 4, 8)
+            assert parts == 1 or B * Hkv * parts // 2 < tfa.DECODE_CTAS
+    # the hot path's 256 groups: a CTA each over all 4,096 keys; the LM
+    # path's 16 groups over 1,024 keys: 8 ranks of 128 (bfloat16, d = 64)
+    assert tfa.decode_split(32, 8, 4096, torch.bfloat16, 64) == (1, 4096)
+    assert tfa.decode_split(1, 16, 1024, torch.bfloat16, 64) == (8, 128)
+    assert tfa.decode_split(4, 16, 1024, torch.bfloat16, 64) == (4, 256)
+    assert tfa.decode_split(1, 1, 4097, torch.bfloat16, 64) == (8, 576)
+    assert [tfa.decode_tile(torch.bfloat16, d) for d in (32, 64, 80, 128)] \
+        == [16, 16, 16, 16]
+
+
 def test_decode_split_covers_the_cache_in_whole_32s():
+    # float32: the split-kv kernel's splits, a warp each
+    f32 = torch.float32
     for B, Hkv, Skv in ((32, 8, 4096), (1, 1, 1), (2, 2, 1000),
                         (1, 8, 100_000)):
-        split, nsplit = tfa.decode_split(B, Hkv, Skv)
+        nsplit, split = tfa.decode_split(B, Hkv, Skv, f32, 64)
         assert split % 32 == 0 and nsplit == -(-Skv // split)
-        assert B * Hkv * nsplit <= tfa.DECODE_WARPS + B * Hkv
+        assert B * Hkv * nsplit <= tfa.DECODE_SPLIT_WARPS + B * Hkv
     # granite-3-2b's decode: 256 kv groups, 8 splits of 512 keys each
-    assert tfa.decode_split(32, 8, 4096) == (512, 8)
-    assert [tfa.decode_tile(torch.bfloat16, d) for d in (32, 64, 80, 128)] \
-        == [32, 16, 8, 8]
-    assert [tfa.decode_tile(torch.float32, d) for d in (32, 64, 128)] \
-        == [16, 8, 4]
+    assert tfa.decode_split(32, 8, 4096, f32, 64) == (8, 512)
+    assert [tfa.decode_tile(f32, d) for d in (32, 64, 128)] == [16, 8, 4]
 
 
 def test_ops_routes_name_launchers():
@@ -182,7 +233,7 @@ def test_ops_routes_name_launchers():
 
 # ---- plain versions against the reference -------------------------------
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,d,causal", DECODE)
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,d,causal", DECODE + DECODE_RANKS)
 def test_flash_decode_plain_matches_the_reference(B, H, Hkv, Sq, Skv, d,
                                                   causal, dtype):
     arrays = _flash_inputs(B, H, Hkv, Sq, Skv, d)
@@ -202,11 +253,53 @@ def test_flash_decode_plain_merges_splits_the_mask_hides():
     # Sq = 2 causal over many splits: row 0 sees key 0 alone, so every
     # split past the first is hidden from it and must weigh nothing
     q, k, v = _to_torch(_flash_inputs(1, 4, 1, 2, 200, 32), "float32")
-    assert tfa.decode_split(1, 1, 200)[1] == 7
+    assert tfa.decode_split(1, 1, 200, torch.float32, 32) == (7, 32)
     got = tfa.flash_decode_plain(q, k, v, causal=True, q_blk=2, kv_blk=200)
     torch.testing.assert_close(got[0, :, 0], v[0, :, 0].expand(4, 32))
     torch.testing.assert_close(got, tref.flash_attention_ref(q, k, v),
                                rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("Skv,d", [(4097, 64), (129, 112), (31, 32)])
+def test_flash_decode_plain_hides_ranks_and_warps_from_row_0(Skv, d, dtype):
+    # the same over a cluster's ranks and warps, a partial last tile and
+    # both dtypes: row 0 of each head is v's key 0 to the bit (the rest is
+    # held against the reference in DECODE_RANKS' causal Sq = 2 cases)
+    q, k, v = _to_torch(_flash_inputs(1, 4, 1, 2, Skv, d), dtype)
+    got = tfa.flash_decode_plain(q, k, v, causal=True, q_blk=2, kv_blk=Skv)
+    assert torch.equal(got[0, :, 0], v[0, :, 0].expand(4, d))
+
+
+def _reference_lse(arrays, dtype, causal, H, Hkv):
+    """The JAX package's logsumexp of each row, [B, H, Sq], from its
+    chunked flash forward (``repro.models.attention._flash_fwd_lse``)."""
+    import jax.numpy as jnp
+
+    from repro.models import attention as jattn
+    q, k, v = (jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrays)
+    B, _, Sq, d = q.shape
+    g = H // Hkv
+    q5 = q.transpose(0, 2, 1, 3).reshape(B, Sq, Hkv, g, d)
+    k4, v4 = k.transpose(0, 2, 1, 3), v.transpose(0, 2, 1, 3)
+    _, lse = jattn._flash_fwd_lse(q5, k4, v4, causal=causal, q_chunk=Sq,
+                                  kv_chunk=k.shape[2])
+    return np.asarray(lse).reshape(B, H, Sq)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,d,causal", DECODE_RANKS)
+def test_flash_decode_plain_lse_matches_the_reference(B, H, Hkv, Sq, Skv, d,
+                                                      causal, dtype):
+    arrays = _flash_inputs(B, H, Hkv, Sq, Skv, d)
+    q, k, v = _to_torch(arrays, dtype)
+    kw = dict(causal=causal, q_blk=Sq, kv_blk=Skv)
+    out, lse = tfa.flash_decode_plain(q, k, v, with_lse=True, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, Sq)
+    assert torch.equal(out, tfa.flash_decode_plain(q, k, v, **kw))
+    np.testing.assert_allclose(lse.numpy(),
+                               _reference_lse(arrays, dtype, causal, H, Hkv),
+                               rtol=LSE_TOL, atol=LSE_TOL)
 
 
 @pytest.mark.parametrize("B,H,Hkv,Sq,Skv,d,causal", FLASH + TC_EDGES)
@@ -388,7 +481,8 @@ def test_tc_launcher_refuses_another_kv_tile(card):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,H,Hkv,Sq,Skv,d,causal", DECODE + [
     (2, 2, 2, 1, 128, 64, False), (32, 32, 8, 1, 4096, 64, False),
-    (1, 8, 1, 1, 500, 80, True), (2, 8, 2, 2, 128, 32, True)])
+    (1, 8, 1, 1, 500, 80, True), (2, 8, 2, 2, 128, 32, True)]
+    + DECODE_RANKS + DECODE_TARGETS[1:])
 def test_decode_matches_its_plain_version(card, B, H, Hkv, Sq, Skv, d,
                                           causal, dtype):
     q, k, v = _to_torch(_flash_inputs(B, H, Hkv, Sq, Skv, d), dtype, card)
@@ -401,6 +495,108 @@ def test_decode_matches_its_plain_version(card, B, H, Hkv, Sq, Skv, d,
     _close_to_plain(got, want, "decode")
     _close(got, tref.flash_attention_ref(q, k, v, causal=causal).float()
            .cpu().numpy(), TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,d,causal",
+                         DECODE_RANKS + DECODE_TARGETS)
+def test_decode_lse_matches_its_plain_version(card, B, H, Hkv, Sq, Skv, d,
+                                              causal, dtype):
+    # one launch writes out and lse; out is the same bits as without lse
+    q, k, v = _to_torch(_flash_inputs(B, H, Hkv, Sq, Skv, d), dtype, card)
+    kw = dict(causal=causal, q_blk=Sq, kv_blk=Skv)
+    got, lse = _launch_once("flash_decode", lambda: tops.flash_attention(
+        q, k, v, with_lse=True, **kw))
+    want, want_lse = tfa.flash_decode_plain(q, k, v, with_lse=True, **kw)
+    assert lse.dtype == torch.float32 and torch.isfinite(lse).all()
+    _close_to_plain(got, want, "decode")
+    torch.testing.assert_close(lse, want_lse, rtol=LSE_TOL, atol=LSE_TOL)
+    assert torch.equal(got, tops.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.gpu
+def test_decode_launcher_refuses_layouts_the_plain_version_does_not_walk(
+        card):
+    # the plain version walks decode_split's parts and decode_tile's keys:
+    # a launch asked for any other layout never runs
+    before = tops.KERNELS["flash_decode"].launches
+    # bfloat16: a cluster's ranks
+    q = torch.zeros(1, 4, 1, 64, dtype=torch.bfloat16, device=card)
+    k = torch.zeros(1, 1, 1000, 64, dtype=torch.bfloat16, device=card)
+    tile = tfa.decode_tile(torch.bfloat16, 64)
+    cluster, per = tfa.decode_split(1, 1, 1000, torch.bfloat16, 64)
+    assert (cluster, per, tile) == (8, 128, 16)
+    for c, p, t in ((8, 128, 8), (8, 128, 32),      # another warp tile
+                    (8, 96, 16),                    # a part of a tile
+                    (4, 128, 16),                   # ranks short of Skv
+                    (16, 64, 16), (3, 384, 16),     # no such cluster
+                    (4, 512, 16)):                  # an idle rank
+        with pytest.raises(RuntimeError, match="launch_flash_decode"):
+            tfa.KERNEL_DECODE(q.data_ptr(), k.data_ptr(), k.data_ptr(),
+                              q.data_ptr(), None, None, None, 1, 4, 1, 1,
+                              1000, 64, 0, 0.125, c, p, t, 1, None,
+                              device=card)
+    # float32: the split-kv kernel's splits, and its scratch
+    qf, kf = q.float(), k.float()
+    ftile = tfa.decode_tile(torch.float32, 64)
+    nsplit, split = tfa.decode_split(1, 1, 1000, torch.float32, 64)
+    assert (nsplit, split, ftile) == (32, 32, 8)
+    rows = 4 * nsplit
+    pm, pl = (torch.empty(rows, device=card) for _ in range(2))
+    pa = torch.empty(rows, 64, device=card)
+    scratch = (pm.data_ptr(), pl.data_ptr(), pa.data_ptr())
+    for n, p, t, sc in ((32, 32, 16, scratch),      # another warp tile
+                        (21, 48, 8, scratch),       # a split of 32s
+                        (31, 32, 8, scratch),       # splits short of Skv
+                        (33, 32, 8, scratch),       # an empty split
+                        (32, 32, 8, (None,) * 3)):  # no scratch
+        with pytest.raises(RuntimeError, match="launch_flash_decode"):
+            tfa.KERNEL_DECODE(qf.data_ptr(), kf.data_ptr(), kf.data_ptr(),
+                              qf.data_ptr(), *sc, 1, 4, 1, 1, 1000, 64, 0,
+                              0.125, n, p, t, 0, None, device=card)
+    assert tops.KERNELS["flash_decode"].launches == before
+    # and the launcher's own layouts run
+    tfa.KERNEL_DECODE(q.data_ptr(), k.data_ptr(), k.data_ptr(), q.data_ptr(),
+                      None, None, None, 1, 4, 1, 1, 1000, 64, 0, 0.125,
+                      cluster, per, tile, 1, None, device=card)
+    tfa.KERNEL_DECODE(qf.data_ptr(), kf.data_ptr(), kf.data_ptr(),
+                      qf.data_ptr(), *scratch, 1, 4, 1, 1, 1000, 64, 0,
+                      0.125, nsplit, split, ftile, 0, None, device=card)
+    torch.cuda.synchronize()
+    assert tops.KERNELS["flash_decode"].launches == before + 2
+
+
+@pytest.mark.gpu
+def test_decode_split_is_the_launchers_rule(card):
+    # decode_split keeps the launcher's flash_decode_per for the plain
+    # version, which runs where no card is: the two give the same keys
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, Hkv, Skv, d in ((32, 8, 4096, 64), (1, 1, 1, 64),
+                               (2, 2, 1000, 64), (1, 8, 100_000, 128),
+                               (1, 16, 1024, 128), (1, 32, 1024, 112),
+                               (4, 16, 1024, 64), (1, 1, 4097, 64),
+                               (1, 1, 129, 32), (3, 5, 31, 80)):
+            assert tfa.decode_split(B, Hkv, Skv, dtype, d)[1] == \
+                tfa.decode_per(B, Hkv, Skv, dtype, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("Skv,d", [(130, 64), (4097, 64), (31, 112)])
+def test_decode_ragged_tile_reads_no_other_groups_rows(card, Skv, d, dtype):
+    # group 0's last tile is partial: its copy stops at key Skv - 1 and the
+    # stage's other rows are never read, so group 1's inf K and V rows,
+    # which follow in memory, leave group 0's output finite
+    B, H, Hkv = 2, 4, 1
+    q, k, v = _to_torch(_flash_inputs(B, H, Hkv, 1, Skv, d), dtype, card)
+    k[1] = float("inf")
+    v[1] = float("inf")
+    kw = dict(causal=False, q_blk=1, kv_blk=Skv)
+    got = _launch_once("flash_decode",
+                       lambda: tops.flash_attention(q, k, v, **kw))[:1]
+    assert torch.isfinite(got).all()
+    _close_to_plain(got, tfa.flash_decode_plain(q, k, v, **kw)[:1], "decode")
 
 
 def _off_16_bytes(t):

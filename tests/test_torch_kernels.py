@@ -38,8 +38,10 @@ RMSNORM = [(64, 256, 8), (33, 128, 8), (8, 512, 1)]
 #: rows at the CUDA kernel's widths: granite-3-2b's d_model 2048 (16 and
 #: 8 chunks of 16 bytes a lane in float32 and bfloat16), minicpm-2b's 2304
 #: (the widest float32 row its switch holds in registers), a ragged last
-#: chunk, and a row past the switch (two passes)
-RMSNORM_WIDE = [(16, 2048, 8), (4, 2304, 2), (5, 2056, 8), (3, 8192, 1)]
+#: chunk, and rows past the switch (the wide path, a CTA a row):
+#: internvl2-76b's d_model 8192 and zamba2-7b's d_inner 7168
+RMSNORM_WIDE = [(16, 2048, 8), (4, 2304, 2), (5, 2056, 8), (3, 8192, 1),
+                (4, 7168, 2)]
 #: elements in one 16-byte chunk of x, by dtype
 VEC = {"float32": 4, "bfloat16": 8}
 MATMUL = [(128, 128, 128, 1), (256, 128, 64, 2), (64, 256, 128, 1)]
@@ -413,7 +415,7 @@ def test_rmsnorm_kernel_at_every_chunk_count(card, k, dtype):
 @pytest.mark.parametrize("rows,d,grain,off", [
     (5, 2056, 8, ""),       # a ragged last chunk
     (4, 4104, 2, ""),       # a ragged 17th chunk in bfloat16
-    (3, 8192, 1, ""),       # past the switch: two passes, 16-byte loads
+    (3, 8192, 1, ""),       # past the switch: the wide path, a CTA a row
     (40, 100, 8, ""),       # d % 8 != 0: bfloat16 one element a load
     (40, 102, 3, ""),       # d % 4 != 0 as well
     (33, 2048, 8, "x"),     # x off a 16-byte boundary: one element a load
@@ -425,12 +427,39 @@ def test_rmsnorm_kernel_off_its_chunks(card, rows, d, grain, off, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,want", [
-    (8192, 1024), (1, 1), (7, 1), (8, 1), (33, 5), (8200, 1025)])
-def test_rmsnorm_ctas_are_a_warp_a_row(card, rows, want):
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d,want", [
+    (8192, 2048, 1024), (1, 2048, 1), (7, 2048, 1), (8, 2048, 1),
+    (33, 2048, 5), (8200, 2048, 1025),
+    (1024, 8192, 1024), (4, 8192, 4), (33, 16384, 33),       # wide
+    (33, 65536, 5), (33, 8198, 5)])      # past it, and d % VEC != 0
+def test_rmsnorm_ctas_are_a_warp_a_row(card, rows, d, want, dtype):
     # the launcher's own count of the CTAs of 8 warps it starts, the same
-    # for every width, dtype and grain
-    assert trn.ctas(rows) == want
+    # for every grain: a warp a row on the register and two-pass paths, a
+    # CTA a row on the wide path (rows wider than 2,304 floats or 4,608
+    # bfloat16s, up to 16,384 or 32,768)
+    assert trn.ctas(rows, d, getattr(torch, dtype)) == want
+    if d == 2048:
+        assert trn.ctas(rows, 7168, torch.float32) == rows
+        assert trn.ctas(rows, 4608, torch.bfloat16) == want
+        assert trn.ctas(rows, 4616, torch.bfloat16) == rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rows,d,off", [
+    ("float32", 1024, 7168, ""),     # zamba2-7b's gated norm, a prefill
+    ("float32", 4, 7168, ""),        # and a decode step of 4 slots
+    ("bfloat16", 1024, 8192, ""),    # internvl2-76b's d_model
+    ("bfloat16", 4096, 5120, ""),    # qwen2.5-32b's
+    ("float32", 33, 7168, "x"),      # unaligned rows: two passes
+    ("bfloat16", 33, 8192, "scale"),
+    ("float32", 5, 7170, ""),        # d % VEC != 0: two passes
+    ("bfloat16", 5, 8196, ""),
+    ("float32", 3, 16384, ""),       # the widest wide row, and past it
+    ("bfloat16", 3, 32776, "")])
+def test_rmsnorm_wide_path_matches_its_plain_version(card, dtype, rows, d,
+                                                      off):
+    _rmsnorm_on_the_card(card, rows, d, 1, dtype, off)
 
 
 @pytest.mark.gpu
@@ -528,14 +557,18 @@ def test_cuda_mode_never_falls_back(card):
     with pytest.raises(RuntimeError, match="launch_flash_attention_tc"):
         tfa.KERNEL_TC(*(qb.data_ptr(),) * 4, 1, 1, 1, 8, 8, 12, 1, 0.3,
                       tfa.TC_KV_TILE, None, device=card)
+    # (16 rows here, in the kernel's own tile and layout)
+    tile = tfa.decode_tile(torch.bfloat16, 8)
+    assert tile == 16 and tfa.decode_split(1, 1, 8, torch.bfloat16, 8) \
+        == (1, 64)
     with pytest.raises(RuntimeError, match="launch_flash_decode"):
-        tfa.KERNEL_DECODE(*(qb.data_ptr(),) * 7, 1, 16, 1, 1, 8, 8, 0, 0.3,
-                          32, 1, 32, 1, None, device=card)
+        tfa.KERNEL_DECODE(*(qb.data_ptr(),) * 4, None, None, None, 1, 16, 1,
+                          1, 8, 8, 0, 0.3, 1, 64, tile, 1, None,
+                          device=card)
     # nor a key tile other than its own, which the plain version walks
-    assert tfa.decode_tile(torch.bfloat16, 8) == 32
     with pytest.raises(RuntimeError, match="launch_flash_decode"):
-        tfa.KERNEL_DECODE(*(qb.data_ptr(),) * 7, 1, 8, 1, 1, 8, 8, 0, 0.3,
-                          32, 1, 16, 1, None, device=card)
+        tfa.KERNEL_DECODE(*(qb.data_ptr(),) * 4, None, None, None, 1, 8, 1,
+                          1, 8, 8, 0, 0.3, 1, 64, 32, 1, None, device=card)
     # and each route's call launches its kernel, never the plain version
     a = torch.ones(64, 64, dtype=torch.bfloat16, device=card)
     for fn, call, name in (

@@ -27,8 +27,9 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 
 #: (B, H, Hkv, Sq, Skv, d, causal): tests/test_kernels.py's flash sweep,
-#: the tensor-core prefill and decode tests' extra shapes, and
-#: chip_smoke.py's granite-3-2b prefill and decode
+#: the tensor-core prefill and decode tests' extra shapes,
+#: chip_smoke.py's granite-3-2b prefill and decode, and the decode
+#: kernel's cluster cases
 SHAPES = [(1, 4, 4, 128, 128, 64, True), (2, 8, 2, 256, 256, 64, True),
           (1, 4, 1, 64, 256, 128, False), (2, 2, 2, 1, 128, 64, False),
           (1, 6, 3, 96, 96, 32, True),
@@ -40,7 +41,13 @@ SHAPES = [(1, 4, 4, 128, 128, 64, True), (2, 8, 2, 256, 256, 64, True),
           (1, 8, 2, 1, 4096, 64, False), (2, 4, 1, 1, 300, 128, False),
           (2, 8, 2, 2, 777, 64, True), (32, 32, 8, 1, 4096, 64, False),
           (1, 8, 1, 1, 500, 80, True), (2, 8, 2, 2, 128, 32, True),
-          (2, 32, 8, 4096, 4096, 64, True)]
+          (2, 32, 8, 4096, 4096, 64, True),
+          # decode over few keys and several cluster ranks, where each
+          # key's p weighs most; the LM path's decode shapes
+          (2, 2, 1, 1, 31, 64, False), (1, 3, 1, 1, 129, 32, False),
+          (1, 4, 1, 2, 129, 64, True), (1, 6, 1, 1, 129, 112, False),
+          (1, 8, 1, 1, 4097, 64, False), (1, 16, 16, 1, 1024, 128, False),
+          (1, 32, 32, 1, 1024, 112, False), (4, 16, 16, 1, 1024, 64, False)]
 SEEDS = (7, 8, 9)
 
 

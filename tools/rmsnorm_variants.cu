@@ -1,6 +1,7 @@
 // Times src/repro_torch/csrc/rmsnorm.cu at the main path's x[8192, 2048]
 // beside the kernel it replaced and variants of its design, on one CUDA
-// card, so that the choices its source note makes rest on a measurement:
+// card, so that the choices its source note makes rest on a measurement
+// (then its wide path, below):
 //   two-pass   the earlier kernel, copied below as it was: a block of
 //              grain = 8 rows, a warp a row, one pass over the row to sum
 //              its squares and a second (from L1 or L2) to scale it, 1 +
@@ -34,7 +35,22 @@
 // of the same rows, and whether out equals the two-pass kernel's bit for
 // bit; three dtype pairs (x / scale: float32 / float32 and bfloat16 /
 // bfloat16, the main path's, and bfloat16 / float32), each pair's
-// variants in turns, five times.  Build and run from the repo root:
+// variants in turns, five times.
+// Then the wide path (a CTA of 8 warps a row, the row in their registers)
+// at [1024, 7168] and [4, 7168] in float32 (zamba2-7b's gated norm at a
+// 1,024-token prefill and at a decode step of 4 slots), [1024, 8192]
+// (internvl2-76b's d_model) and [4096, 5120] (qwen2.5-32b's) in
+// bfloat16, x and scale of one dtype:
+//   two-pass   the kernel it replaced at these widths, the launcher's
+//              two-pass instantiation (a warp a row, 16-byte loads, the
+//              second pass from L1 or L2), called directly;
+//   kernel     the shipped wide path through its launcher;
+//   warps W    the wide path's design with CTAs of 4 or 16 warps (K
+//              chunks a thread so that 32 W K VEC covers d).
+// Each line gives the median of 25 CUDA-event runs after 5 warm-ups, the
+// rate over x read once and out written once, the max abs error against
+// a float64 RMSNorm, and the max abs gap from the shipped kernel's out;
+// three turns.  Build and run from the repo root:
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -Xptxas -v \
 //     -o build/rmsnorm_variants tools/rmsnorm_variants.cu \
@@ -383,7 +399,7 @@ void run_pair(const char* pair, const std::vector<float>& hx,
            rep, pair, name, ms, 2.0 * bytes / ms / 1e9, e,
            same ? "equal" : "differ", cudaGetErrorString(err));
   };
-  const unsigned ctas = rmsnorm_ctas(kRows);
+  const unsigned ctas = rmsnorm_ctas(kRows, kD, sizeof(TX) == 2);
   int per_sm = 0, sms = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pipelined<TX, TS, kK>,
                                                 kThreads, 0);
@@ -433,6 +449,87 @@ void run_pair(const char* pair, const std::vector<float>& hx,
   cudaFree(ds);
 }
 
+
+// the wide path's design at W warps a CTA, K = ceil(d / (32 W VEC))
+template <typename TX, typename TS, int W>
+cudaError_t wide_at(const TX* x, const TS* s, TX* out, int rows, int d) {
+  constexpr int kVec = 16 / sizeof(TX);
+  switch ((d + 32 * W * kVec - 1) / (32 * W * kVec)) {
+#define CASE(K)                                                        \
+  case K:                                                              \
+    rmsnorm_wide<TX, TS, K, W><<<rows, 32 * W>>>(x, s, out, d, kEps); \
+    return cudaGetLastError();
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+    CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15)
+    CASE(16)
+#undef CASE
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+void run_wide(const char* name, int rows, int d, const std::vector<float>& hx,
+              const std::vector<float>& hs) {
+  constexpr int kVec = 16 / sizeof(T);
+  const size_t count = (size_t)rows * d, bytes = count * sizeof(T);
+  std::vector<T> x(count), got(count), want(count);
+  std::vector<T> s(d);
+  for (size_t i = 0; i < count; ++i) x[i] = host_from<T>(hx[i % hx.size()]);
+  for (int i = 0; i < d; ++i) s[i] = host_from<T>(hs[i % hs.size()]);
+  std::vector<double> exact(count);
+  for (int r = 0; r < rows; ++r) {
+    const T* row = x.data() + (size_t)r * d;
+    double ss = 0;
+    for (int c = 0; c < d; ++c)
+      ss += (double)host_f32(row[c]) * host_f32(row[c]);
+    const double inv = 1.0 / std::sqrt(ss / d + kEps);
+    for (int c = 0; c < d; ++c)
+      exact[(size_t)r * d + c] =
+          host_f32(row[c]) * inv * (1.0 + (double)host_f32(s[c]));
+  }
+  T *dx, *dout, *ds;
+  cudaMalloc(&dx, bytes);
+  cudaMalloc(&dout, bytes);
+  cudaMalloc(&ds, d * sizeof(T));
+  cudaMemcpy(dx, x.data(), bytes, cudaMemcpyHostToDevice);
+  cudaMemcpy(ds, s.data(), d * sizeof(T), cudaMemcpyHostToDevice);
+  const int bf = sizeof(T) == 2;
+  printf("wide %s [%d, %d]: kernel ctas %d, bound %.5f ms\n", name, rows, d,
+         rmsnorm_ctas(rows, d, bf), 2.0 * bytes / 3.35e9);
+  auto run = [&](int turn, const char* vname, auto launch) {
+    cudaMemset(dout, 0, bytes);
+    const float ms = median_ms(launch);
+    const cudaError_t err = cudaGetLastError();
+    cudaMemcpy(got.data(), dout, bytes, cudaMemcpyDeviceToHost);
+    const bool self = !strcmp(vname, "kernel");
+    if (self) want = got;
+    double e = 0, gap = 0;
+    for (size_t i = 0; i < count; ++i) {
+      e = std::max(e, std::fabs(host_f32(got[i]) - exact[i]));
+      gap = std::max(gap, (double)std::fabs(host_f32(got[i]) -
+                                            host_f32(want[i])));
+    }
+    printf("turn %d wide %s [%d, %d] %-10s %.5f ms  %.3f TB/s  max_abs_err "
+           "%.3g  max_abs_gap %.3g  %s\n",
+           turn, name, rows, d, vname, ms, 2.0 * bytes / ms / 1e9, e, gap,
+           cudaGetErrorString(err));
+  };
+  for (int turn = 0; turn < 3; ++turn) {
+    run(turn, "kernel", [&] {
+      launch_rmsnorm(dx, ds, dout, rows, d, 1, kEps, bf, bf, nullptr);
+    });
+    run(turn, "two-pass", [&] {
+      rmsnorm_two_pass<T, T, kVec><<<(rows + kWarps - 1) / kWarps,
+                                     kThreads>>>(dx, ds, dout, rows, d, kEps);
+    });
+    run(turn, "warps 4", [&] { wide_at<T, T, 4>(dx, ds, dout, rows, d); });
+    run(turn, "warps 16", [&] { wide_at<T, T, 16>(dx, ds, dout, rows, d); });
+  }
+  cudaFree(dx);
+  cudaFree(dout);
+  cudaFree(ds);
+}
+
 }  // namespace variants
 
 int main() {
@@ -441,7 +538,7 @@ int main() {
   cudaGetDeviceProperties(&prop, 0);
   printf("device: %s, %d SMs; x[%d, %d]; kernel ctas %d\n", prop.name,
          prop.multiProcessorCount, kRows, kD,
-         rmsnorm_ctas(kRows));
+         rmsnorm_ctas(kRows, kD, 0));
   std::vector<float> hx((size_t)kRows * kD + 1), hs(kD);
   srand(42);
   for (auto& v : hx) v = rand() / (float)RAND_MAX * 4 - 2;
@@ -449,5 +546,9 @@ int main() {
   run_pair<float, float>("f32/f32", hx, hs);
   run_pair<__nv_bfloat16, __nv_bfloat16>("bf16/bf16", hx, hs);
   run_pair<__nv_bfloat16, float>("bf16/f32", hx, hs);
+  run_wide<float>("float32", 1024, 7168, hx, hs);
+  run_wide<float>("float32", 4, 7168, hx, hs);
+  run_wide<__nv_bfloat16>("bfloat16", 1024, 8192, hx, hs);
+  run_wide<__nv_bfloat16>("bfloat16", 4096, 5120, hx, hs);
   return 0;
 }
